@@ -3,14 +3,23 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``libskylark_tpu_torch/csrc``, holds
-each kernel against its plain PyTorch version at the main path's
-shapes, drives the main path (sketch-and-solve least squares at
-2^20 x 512 with FJLT and CWT, at 32768 x 1024 with FJLT, and the FJLT
-rowwise apply at 131072 x 4096) with every launch counter reset just
-before it and read just after, times each kernel beside its bound, its
-plain version and a one-call PyTorch equivalent, and ends with one JSON
-line.  It exits non-zero, printing no result, without a CUDA device or
-without the package beside it.  It imports nothing of JAX.
+each kernel against its plain PyTorch version at the main paths'
+shapes, drives the main paths with every launch counter reset just
+before each and read just after it, times each kernel beside its bound,
+its plain version and a one-call PyTorch equivalent, and ends with one
+JSON line.  The paths:
+
+- sketch-and-solve least squares at 2^20 x 512 with FJLT and CWT, at
+  32768 x 1024 with FJLT, and the FJLT rowwise apply at 131072 x 4096;
+- the sparse hash sketch at the JAX package's own benchmark shape: CWT
+  and SJLT of a 10^6 x 10^5 sparse COO matrix with 10^7 nonzeros to
+  1024 rows, dense and sparse output;
+- the in-core adjacency sketch and Nyström eigensolve of a planted-
+  partition graph at the scale of SNAP com-LiveJournal (3,997,962
+  vertices, 34,681,189 edges), generated from the seed.
+
+It exits non-zero, printing no result, without a CUDA device or without
+the package beside it.  It imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -33,6 +42,11 @@ LS_RATIO_BOUND = 1.5           # sketched residual / lstsq residual
 SPIN_CYCLES = 4_000_000        # ~2 ms of GPU clock: covers a call's host overhead
 LS_REPEATS = 3                 # timed solves per LS configuration (median kept)
 SEED = 20261016
+# Sparse hash sketch (the JAX package's bench.py bench_sparse_cwt shape).
+SP_ROWS, SP_COLS, SP_NNZ, SP_S = 1_000_000, 100_000, 10_000_000, 1024
+# Planted-partition graph at the scale of SNAP com-LiveJournal.
+LJ_VERTICES, LJ_EDGES, LJ_BLOCKS, LJ_INTRA = 3_997_962, 34_681_189, 16, 0.8
+ASE_K = 16                     # embedding rank; sketch size 2k as streaming_ase sizes it
 
 
 def fail(msg: str) -> None:
@@ -85,7 +99,9 @@ def main() -> None:
     sys.path.insert(0, str(HERE))
     import libskylark_tpu_torch as sky
     from libskylark_tpu_torch import _build
+    from libskylark_tpu_torch.graph import stream as gs
     from libskylark_tpu_torch.sketch import kernels_fut as kf
+    from libskylark_tpu_torch.sketch import kernels_scatter as ks
     from libskylark_tpu_torch.sketch import kernels_window as kw
 
     check(Path(sky.__file__).resolve().parent.parent == HERE,
@@ -170,6 +186,56 @@ def main() -> None:
     print("scatter_rows: bitwise run to run, acc fold bitwise acc + out")
     errs["scatter_rows"] = worst
     del T, A, b, v, out, again, acc
+
+    # segment_sum_flat at the sparse sketch's shape: random, adversarial
+    # (partition edges, one hot slot with half the entries) and small keys.
+    nnz, tt = SP_NNZ, SP_S * SP_COLS
+    pv = ks._V
+    edges = np.array([0, pv - 1, pv, 2 * pv - 1, tt - 1], np.int32)
+    adversarial = np.concatenate([np.repeat(edges, 1000), np.full(nnz // 2, pv + 7, np.int32),
+                                  rng.integers(0, tt, nnz - 5000 - nnz // 2).astype(np.int32)])
+    rng.shuffle(adversarial)
+    cases = [("random", rng.integers(0, tt, nnz).astype(np.int32), tt),
+             ("adversarial", adversarial, tt),
+             ("small", rng.integers(0, 37, 100).astype(np.int32), 37)]
+    worst = 0.0
+    for label, keys_np, segs in cases:
+        keys = torch.from_numpy(keys_np).to(dev)
+        n_ = keys.shape[0]
+        for dtype in (torch.float32, torch.bfloat16):
+            vals = randn(n_).to(dtype)
+            out = ks.segment_sum_flat(vals, keys, segs)
+            plain = ks.segment_sum_flat_plain(vals, keys, segs)
+            tol = 1e-5
+            if label == "adversarial":
+                # A slot with 5e6 entries: an f32 sum of them is off by
+                # ~sqrt(n)*eps in any order, so the kernel and its plain
+                # version are each held against the f64 sum; a bf16
+                # result may round to the neighbouring bf16 value.
+                tol = 1e-5 if dtype == torch.float32 else torch.finfo(dtype).eps
+                ref = torch.zeros(segs, dtype=torch.float64, device=dev).index_add_(
+                    0, keys, vals.double())
+                _, r_plain = max_err(plain, ref)
+                print(f"segment_sum_flat {label} {dtype}: plain version vs f64 sum rel "
+                      f"{r_plain:.3g}")
+            else:
+                ref = plain
+            a, r = max_err(out, ref)
+            check(r <= tol, f"segment_sum_flat {label} {dtype} disagrees: rel {r}")
+            check(torch.equal(out, ks.segment_sum_flat(vals, keys, segs)),
+                  f"segment_sum_flat {label} {dtype} differs run to run")
+            dyadic = torch.from_numpy(
+                rng.choice([-1.0, -0.5, 0.5, 1.0], n_).astype(np.float32)).to(dev, dtype)
+            check(torch.equal(ks.segment_sum_flat(dyadic, keys, segs),
+                              ks.segment_sum_flat_plain(dyadic, keys, segs)),
+                  f"segment_sum_flat {label} {dtype} not bitwise on dyadic values")
+            if tol == 1e-5:
+                worst = max(worst, a)
+            print(f"segment_sum_flat {label} {n_} -> {segs} {dtype}: max abs err {a:.3g}, "
+                  f"rel {r:.3g} vs {'f64 sum' if ref is not plain else 'plain'} (tol {tol:g}); "
+                  "bitwise run to run and on dyadic values")
+    errs["segment_sum_flat"] = worst
+    del keys, vals, out, plain, ref, dyadic, adversarial, cases
     torch.cuda.synchronize()
 
     # -- 3. main path ----------------------------------------------------
@@ -178,9 +244,25 @@ def main() -> None:
         "rfut_rowwise_sampled": kf.rfut_rowwise_sampled,
         "gather_scaled_rows": kw.gather_scaled_rows,
         "scatter_rows": kw.scatter_rows,
+        "segment_sum_flat": ks.segment_sum_flat,
     }
-    for w in wrappers.values():
-        w.launches = 0
+    launches = dict.fromkeys(wrappers, 0)
+    path_launches = {}
+
+    def reset_counts():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def read_counts(path, t0, expect):
+        counts = {name: w.launches for name, w in wrappers.items()}
+        print(f"{path} path: {time.perf_counter() - t0:.1f} s, launches {counts}")
+        for name in expect:
+            check(counts[name] > 0, f"kernel {name} was not launched on the {path} path")
+        for name, count in counts.items():
+            launches[name] += count
+        path_launches[path] = counts
+
+    reset_counts()
     t_main = time.perf_counter()
 
     def ls_check(label, A, b, x_ref_res, **kw_):
@@ -231,24 +313,139 @@ def main() -> None:
         check(r <= 1e-5, f"FJLT rowwise S={s} disagrees with the CPU plain path")
         check(0.9 < norm_ratio < 1.1, f"FJLT rowwise S={s}: norm ratio {norm_ratio}")
     del out
-    launches = {name: w.launches for name, w in wrappers.items()}
-    print(f"main path: {time.perf_counter() - t_main:.1f} s, launches {launches}")
-    for name, count in launches.items():
-        check(count > 0, f"kernel {name} was not launched on the main path")
+    read_counts("least-squares", t_main,
+                ("rfut_rowwise", "rfut_rowwise_sampled", "gather_scaled_rows", "scatter_rows"))
+
+    # -- 3b. sparse hash sketch (bench.py bench_sparse_cwt's shape) ------
+    t0 = time.perf_counter()
+    sp_idx = np.stack([rng.integers(0, SP_ROWS, SP_NNZ), rng.integers(0, SP_COLS, SP_NNZ)], 1)
+    sp_data = rng.standard_normal(SP_NNZ, dtype=np.float32)
+    shape = (SP_ROWS, SP_COLS)
+    A_cpu = sky.utils.coo_from_bcoo_arrays(sp_data, sp_idx, shape, device="cpu")
+    A_sp = sky.utils.coo_from_bcoo_arrays(sp_data, sp_idx, shape, device=dev)
+    a_norm2 = float(A_sp.coalesce()._values().double().square().sum())
+    del sp_idx, sp_data
+    print(f"sparse A {shape}, {SP_NNZ} nonzeros (uncoalesced COO), made in "
+          f"{time.perf_counter() - t0:.1f} s")
+    reset_counts()
+    t0 = time.perf_counter()
+    sketches = {"CWT": sky.sketch.CWT(SP_ROWS, SP_S, sky.SketchContext(seed=SEED)),
+                "SJLT": sky.sketch.SJLT(SP_ROWS, SP_S, sky.SketchContext(seed=SEED), nnz=4)}
+    dense_out = {}
+    for name, S in sketches.items():
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = S.apply(A_sp, "columnwise", dense_output=True)
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t1)
+        check(tuple(out.shape) == (SP_S, SP_COLS) and bool(torch.isfinite(out).all()),
+              f"{name} sparse sketch: bad output")
+        ref = S.apply(A_cpu, "columnwise", dense_output=True)  # CPU: plain segment sum
+        _, r = max_err(out.cpu(), ref)
+        ratio = float(out.double().square().sum()) / a_norm2
+        print(f"{name}({SP_ROWS}, {SP_S}) sparse -> dense {tuple(out.shape)}: vs plain rel err "
+              f"{r:.3g} (tol 1e-5), ||SA||^2/||A||^2 = {ratio:.4f} (1 +- 0.05), median "
+              f"{statistics.median(runs)!r} s of {[round(x, 4) for x in runs]}")
+        check(r <= 1e-5, f"{name} sparse sketch disagrees with the plain route")
+        check(abs(ratio - 1.0) <= 0.05, f"{name} sparse sketch norm ratio {ratio}")
+        dense_out[name] = out
+    del out, ref
+    S = sketches["CWT"]
+    sp_out = S.apply(A_sp, "columnwise")
+    check(sp_out.layout == torch.sparse_coo, "CWT sparse output is not sparse COO")
+    _, r = max_err(sp_out.to_dense(), dense_out["CWT"])
+    print(f"CWT sparse -> sparse: {sp_out._nnz()} stored entries, to_dense vs dense output "
+          f"rel err {r:.3g} (tol 1e-5)")
+    check(r <= 1e-5, "CWT sparse output disagrees with the dense output")
+    read_counts("sparse sketch", t0, ("segment_sum_flat",))
+    # The segment sum the CWT apply launched, kept for the times below.
+    rows_sp, cols_sp = A_sp._indices()
+    sp_keys = (S.buckets(device=dev).long()[rows_sp] * SP_COLS + cols_sp).int()
+    sp_vals = A_sp._values() * S.values(device=dev)[rows_sp]
+    del A_cpu, A_sp, sp_out, dense_out, rows_sp, cols_sp, sketches, S
+
+    # -- 3c. adjacency sketch + Nyström ASE, com-LiveJournal scale -------
+    t0 = time.perf_counter()
+    n = LJ_VERTICES
+    n_in = int(LJ_EDGES * LJ_INTRA)
+    blk = rng.integers(0, LJ_BLOCKS, n_in)
+    per = n // LJ_BLOCKS  # block b holds the vertices congruent to b mod 16
+    u = np.concatenate([rng.integers(0, per, n_in) * LJ_BLOCKS + blk,
+                        rng.integers(0, n, LJ_EDGES - n_in)])
+    v = np.concatenate([rng.integers(0, per, n_in) * LJ_BLOCKS + blk,
+                        rng.integers(0, n, LJ_EDGES - n_in)])
+    lo, hi = np.minimum(u, v), np.maximum(u, v)
+    # Drop self-loops; dedupe (lo, hi) as one int64 by a sort and a
+    # neighbour compare (numpy 2.3's np.unique is far slower than the
+    # sort on these 35M codes).
+    code = (lo * n + hi)[lo != hi]
+    code.sort()
+    code = code[np.concatenate(([True], code[1:] != code[:-1]))]
+    lo, hi = code // n, code % n
+    del blk, u, v, code
+    t_made = time.perf_counter() - t0
+    g_idx = torch.from_numpy(np.stack([np.concatenate([lo, hi]), np.concatenate([hi, lo])]))
+    A_cpu = torch.sparse_coo_tensor(g_idx, torch.ones(g_idx.shape[1]), (n, n),
+                                    check_invariants=False)
+    A_g = A_cpu.to(dev)
+    torch.cuda.synchronize()
+    print(f"graph: {n} vertices, {lo.size} edges, {g_idx.shape[1]} stored entries, drawn and "
+          f"deduplicated in {t_made:.1f} s, on the card after {time.perf_counter() - t0:.1f} s")
+    del lo, hi, g_idx
+    S_g = sky.sketch.SJLT(n, 2 * ASE_K, sky.SketchContext(seed=SEED))
+    reset_counts()
+    t0 = time.perf_counter()
+    sk_runs, eig_runs = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        SA = gs.incore_adjacency_sketch(A_g, S_g, dtype=torch.float32)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        V, lam = gs.ase_from_sketch(SA, S_g, ASE_K)
+        torch.cuda.synchronize()
+        sk_runs.append(t2 - t1)
+        eig_runs.append(time.perf_counter() - t2)
+    read_counts("graph", t0, ("segment_sum_flat",))
+    SA_ref = gs.incore_adjacency_sketch(A_cpu, S_g)  # CPU: plain segment sum
+    g_err, _ = max_err(SA.cpu(), SA_ref)
+    check(torch.equal(SA.cpu(), SA_ref), "adjacency sketch is not bitwise the plain route")
+    X = V * lam.abs().sqrt()[None, :]
+    check(tuple(X.shape) == (n, ASE_K) and bool(torch.isfinite(X).all()),
+          "ASE embedding not finite of shape (n, k)")
+    _, lam_cpu = gs.ase_from_sketch(SA.cpu(), S_g, ASE_K)
+    lam_err = float((lam.cpu().sort().values - lam_cpu.sort().values).abs().max()
+                    / lam_cpu.abs().max())
+    print(f"adjacency sketch SJLT({n}, {2 * ASE_K}): SA {tuple(SA.shape)} bitwise equal to "
+          f"the plain route; median {statistics.median(sk_runs)!r} s of "
+          f"{[round(x, 4) for x in sk_runs]}")
+    print(f"ASE k={ASE_K}: top |lam| {float(lam.abs().max()):.4f}, lam vs CPU eigensolve rel "
+          f"{lam_err:.3g} (tol 1e-4), median {statistics.median(eig_runs)!r} s of "
+          f"{[round(x, 4) for x in eig_runs]}")
+    check(lam_err <= 1e-4, f"ASE eigenvalues differ from the CPU eigensolve: {lam_err}")
+    rows_g, cols_g = A_g._indices()
+    g_keys = (S_g.buckets(0, n, device=dev).long()[rows_g] * n + cols_g).int()
+    g_vals = A_g._values() * S_g.values(torch.float32, 0, n, device=dev)[rows_g]
+    del A_cpu, A_g, SA, SA_ref, V, X, rows_g, cols_g
+    torch.cuda.synchronize()
 
     # -- 4. times at main-path shapes ------------------------------------
     kernels = []
 
-    def row(name, source, replaces, ms, plain_ms, bytes_moved, ops, library_ms):
+    def row(name, source, replaces, ms, plain_ms, bytes_moved, ops, library_ms,
+            path_count=None, err=None, shape=None):
         b_ms, by = bound(bytes_moved, ops)
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
+            "launches": launches[name] if path_count is None else path_count,
+            "max_abs_err": errs[name] if err is None else err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
-            "library_ms": library_ms,
+            "library_ms": library_ms, **({"shape": shape} if shape else {}),
         })
-        print(f"time {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-              f"({by}), library {library_ms}")
+        print(f"time {name}{f' {shape}' if shape else ''}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({by}), library {library_ms}")
 
     rm, rn = 131072, 4096
     d = torch.from_numpy(rng.choice([-1.0, 1.0], rn).astype(np.float32)).to(dev)
@@ -285,6 +482,23 @@ def main() -> None:
         time_ms(lambda: kw.scatter_rows_plain(T, b, v, 2048), reps=3, warmup=1),
         4 * ((1 << 20) * 512 + 2 * (1 << 20) + 2048 * 512), 2 * (1 << 20) * 512,
         time_ms(lambda: lib_out.index_add_(0, b_flat, vA)))
+
+    for path, keys, vals, segs, err in (
+            ("sparse sketch", sp_keys, sp_vals, SP_S * SP_COLS, errs["segment_sum_flat"]),
+            ("graph", g_keys, g_vals, 2 * ASE_K * LJ_VERTICES, g_err)):
+        nnz = keys.shape[0]
+        lib_out = torch.zeros(segs, device=dev)
+        ms = time_ms(lambda: ks.segment_sum_flat(vals, keys, segs), reps=5)
+        row("segment_sum_flat", "libskylark_tpu_torch/csrc/scatter.cu",
+            "libskylark_tpu/sketch/pallas_scatter.py:218", ms,
+            time_ms(lambda: ks.segment_sum_flat_plain(vals, keys, segs), reps=5),
+            8 * nnz + 4 * segs, nnz,
+            time_ms(lambda: lib_out.zero_().index_add_(0, keys, vals), reps=5),
+            path_count=path_launches[path]["segment_sum_flat"], err=err,
+            shape=f"{nnz} -> {segs} f32 ({path})")
+        p1 = time_ms(lambda: ks.partition(vals, keys, segs), reps=5)
+        print(f"segment_sum_flat ({path}) pass 1 alone: {p1:.4f} ms of {ms:.4f} ms")
+        del lib_out
 
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")

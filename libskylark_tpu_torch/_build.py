@@ -25,7 +25,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "nvcc_command", "library_path",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("rfut", "window")
+SOURCES = ("rfut", "window", "scatter")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")
 

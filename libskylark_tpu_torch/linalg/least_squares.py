@@ -116,8 +116,10 @@ def approximate_least_squares(
     B = as_tensor(B, A.device if device is None else device)
     if A.layout != torch.strided:
         raise UnsupportedError(
-            "sparse least-squares inputs are not ported yet (ROADMAP Queue "
-            "A: segment_sum_flat and BCOO hash applies)"
+            "sparse least-squares inputs are not supported: the JAX "
+            "package's approximate_least_squares cannot solve a BCOO system "
+            "either (its hash sketch returns a sparse SA that "
+            "exact_least_squares does not take; ROADMAP Queue C)"
         )
     squeeze = B.ndim == 1
     if squeeze:

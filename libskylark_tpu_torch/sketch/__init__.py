@@ -1,7 +1,7 @@
 """Sketching layer of the port: the sketches on the sketch-and-solve
-least-squares path and the kernels they run."""
+least-squares and sparse-sketch paths and the kernels they run."""
 
-from . import kernels_fut, kernels_window
+from . import kernels_fut, kernels_scatter, kernels_window
 from .base import (
     Dimension,
     SketchTransform,
@@ -40,5 +40,6 @@ __all__ = [
     "wht",
     "next_pow2",
     "kernels_fut",
+    "kernels_scatter",
     "kernels_window",
 ]

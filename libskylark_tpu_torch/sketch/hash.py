@@ -1,5 +1,5 @@
-"""Hash (CountSketch-family) sketches CWT, MMT, WZT and SJLT, dense
-apply (port of ``libskylark_tpu/sketch/hash.py``).
+"""Hash (CountSketch-family) sketches CWT, MMT, WZT and SJLT, dense and
+sparse apply (port of ``libskylark_tpu/sketch/hash.py``).
 
 Each input coordinate i in [0, N) is hashed to ``nnz`` output slots
 ``bucket[h, i] ~ U{0..S-1}`` with values ``value[h, i]`` (±1 for CWT,
@@ -21,8 +21,16 @@ Dense apply takes one of the reference's two branches:
   reference's XLA branch).  A dense apply's window is the whole domain
   [0, N), so no value lies past it and none needs zeroing.
 
-BCOO (sparse) inputs, the flat ``segment_sum`` kernel, ``apply_slice*``
-and the streaming fusions wait for later slices (ROADMAP Queue A).
+Sparse input is a ``torch.sparse_coo_tensor`` (2-D, or a 1-D vector),
+coalesced or not; duplicate coordinates add up, as in a BCOO.  With
+``dense_output=True`` each hash is one flat segment sum keyed by the
+hashed destination (``kernels_scatter.segment_sum_flat``: a CUDA kernel
+on the card, its plain version on the CPU; f64 takes a plain
+``index_add_`` in f64, the reference's XLA branch).  Without it, the
+hashed coordinates are relabelled and ``coalesce()`` sums the
+duplicates, the counterpart of the reference's ``sum_duplicates``.
+Other sparse layouts (CSR, ...), ``apply_slice*`` and the streaming
+fusions wait for later slices (ROADMAP Queue A items 5 and 10).
 """
 
 from __future__ import annotations
@@ -35,13 +43,25 @@ from ..core.context import SketchContext
 from ..core.precision import bf16_split3, f32_accumulable
 from ..core.random import sample
 from ..utils.exceptions import UnsupportedError
-from . import kernels_window
+from . import kernels_scatter, kernels_window
 from .base import Dimension, SketchTransform, register_sketch
 
 __all__ = ["HashSketch", "CWT", "MMT", "WZT", "SJLT"]
 
 _ONEHOT_DTYPES = (torch.bfloat16, torch.float32)
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _segment_sum(addends, key, num_segments: int):
+    """Flat scatter-add ``out[key[i]] += addends[i]``.  f32-accumulable
+    dtypes (f32, bf16, f16) go through ``kernels_scatter.segment_sum_flat``
+    and come back in their dtype; f64 takes a plain ``index_add_`` in
+    f64 (the reference's default XLA branch, which keeps f64 sums)."""
+    if f32_accumulable(addends.dtype):
+        return kernels_scatter.segment_sum_flat(addends.contiguous(),
+                                                key.contiguous(), num_segments)
+    out = torch.zeros(num_segments, dtype=addends.dtype, device=addends.device)
+    return out.index_add_(0, key.long(), addends)
 
 
 def _segment_sum_rows(A, b, v, num_segments: int):
@@ -98,19 +118,109 @@ class HashSketch(SketchTransform):
     # -- apply --------------------------------------------------------------
 
     def apply(self, A, dim: Dimension | str = Dimension.COLUMNWISE, *,
-              device=None):
+              dense_output: bool = False, device=None):
+        """Apply the sketch.  For a sparse COO ``A``, ``dense_output=True``
+        accumulates straight into a dense result (≙ the reference's mixed
+        sparse→dense apply, ``hash_transform_Mixed.hpp``) and otherwise
+        the result is a coalesced sparse COO tensor.  Dense inputs ignore
+        the flag."""
         dim = Dimension.of(dim)
         A = as_tensor(A, device)
+        if A.layout == torch.sparse_coo:
+            return self._apply_coo(A, dim, dense_output)
         if A.layout != torch.strided:
             raise UnsupportedError(
-                "sparse inputs to hash sketches are not ported yet "
-                "(ROADMAP Queue A: segment_sum_flat and BCOO hash applies)"
+                f"hash sketches take dense or sparse COO input, not {A.layout} "
+                "(convert with .to_sparse_coo())"
             )
         if A.ndim == 1:
             if dim is Dimension.COLUMNWISE:
                 return self._apply_dense(A[:, None], dim)[:, 0]
             return self._apply_dense(A[None, :], dim)[0, :]
         return self._apply_dense(A, dim)
+
+    # Dense outputs above this many elements would not fit comfortably
+    # next to the input triplets; callers beyond it keep the sparse path.
+    # It also keeps every flat key below 2^31.
+    _DENSE_OUT_LIMIT = 1 << 28
+
+    def _apply_coo(self, A, dim: Dimension, dense_output: bool):
+        """Sparse COO input.  ``_indices()``/``_values()`` read an
+        uncoalesced tensor as it is: its duplicates add up in the sums,
+        and no sort of the input is paid for."""
+        idx, data = A._indices(), A._values()
+        if A.ndim == 1:
+            # Vectors are columns columnwise / rows rowwise, as for dense.
+            zero = torch.zeros_like(idx[0])
+            col = dim is Dimension.COLUMNWISE
+            idx = torch.stack([idx[0], zero] if col else [zero, idx[0]])
+            shape = (A.shape[0], 1) if col else (1, A.shape[0])
+            if dense_output:
+                out = self._apply_sparse_dense_out(idx, data, shape, dim)
+            else:
+                out = self._apply_sparse(idx, data, shape, dim).to_dense()
+            return out[:, 0] if col else out[0, :]
+        if A.ndim != 2:
+            raise ValueError(f"sparse apply needs a 1-D or 2-D tensor, got {A.ndim}-D")
+        if dense_output:
+            return self._apply_sparse_dense_out(idx, data, tuple(A.shape), dim)
+        return self._apply_sparse(idx, data, tuple(A.shape), dim)
+
+    def _check_hashed_axis(self, shape, dim: Dimension) -> int:
+        axis = 0 if dim is Dimension.COLUMNWISE else 1
+        if shape[axis] != self.n:
+            raise ValueError(
+                f"{dim.value} apply needs A with {self.n} on axis {axis}, "
+                f"got {tuple(shape)}"
+            )
+        return axis
+
+    def _apply_sparse_dense_out(self, idx, data, shape, dim: Dimension):
+        """Sparse → dense: one flat segment sum per hash function keyed
+        by the hashed destination, ``b[h][row]·batch + col`` columnwise
+        and ``row·S + b[h][col]`` rowwise, in the data's dtype."""
+        axis = self._check_hashed_axis(shape, dim)
+        batch = shape[1 - axis]
+        if self.s * batch > self._DENSE_OUT_LIMIT:
+            raise ValueError(
+                f"dense_output needs S*batch <= {self._DENSE_OUT_LIMIT} "
+                f"elements, got {self.s}*{batch}; use the sparse path"
+            )
+        dtype = data.dtype if data.is_floating_point() else torch.float32
+        dev = data.device
+        data = data.to(dtype)
+        rows, cols = idx[0], idx[1]
+        hashed = rows if axis == 0 else cols
+        b = self.buckets(device=dev).reshape(self.nnz, self.n)
+        v = self.values(dtype, device=dev).reshape(self.nnz, self.n)
+        out = torch.zeros(self.s * batch, dtype=dtype, device=dev)
+        for h in range(self.nnz):
+            bh = b[h].long()[hashed]
+            # int64 keys; below S·batch <= 2^28, so the int32 cast is exact.
+            key = bh * batch + cols if axis == 0 else rows * self.s + bh
+            out = out + _segment_sum(data * v[h][hashed], key.int(),
+                                     self.s * batch).to(dtype)
+        return out.reshape((self.s, batch) if axis == 0 else (batch, self.s))
+
+    def _apply_sparse(self, idx, data, shape, dim: Dimension):
+        """Sparse → sparse: relabel the hashed index per hash function,
+        scale the data, and sum the duplicates with ``coalesce()`` (≙ the
+        queue-then-finalize CSC build of
+        ``hash_transform_local_sparse.hpp:88-152``)."""
+        axis = self._check_hashed_axis(shape, dim)
+        dev = data.device
+        b = self.buckets(device=dev).reshape(self.nnz, self.n)
+        v = self.values(data.dtype, device=dev).reshape(self.nnz, self.n)
+        hashed = idx[axis]
+        idx_parts, data_parts = [], []
+        for h in range(self.nnz):
+            part = idx.clone()
+            part[axis] = b[h].long()[hashed]
+            idx_parts.append(part)
+            data_parts.append(data * v[h][hashed])
+        out_shape = (self.s, shape[1]) if axis == 0 else (shape[0], self.s)
+        return torch.sparse_coo_tensor(torch.cat(idx_parts, 1), torch.cat(data_parts),
+                                       out_shape, check_invariants=False).coalesce()
 
     def _apply_dense(self, A, dim: Dimension):
         dtype = A.dtype if A.is_floating_point() else torch.float32

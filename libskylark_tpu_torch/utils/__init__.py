@@ -1,5 +1,12 @@
 """Utilities of the port."""
 
-from .exceptions import NumericalHealthError, SkylarkError, UnsupportedError
+from .exceptions import (
+    InvalidParameters,
+    NumericalHealthError,
+    SkylarkError,
+    UnsupportedError,
+)
+from .sparse import coo_from_bcoo_arrays
 
-__all__ = ["SkylarkError", "UnsupportedError", "NumericalHealthError"]
+__all__ = ["SkylarkError", "InvalidParameters", "UnsupportedError",
+           "NumericalHealthError", "coo_from_bcoo_arrays"]

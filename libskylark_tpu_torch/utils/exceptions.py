@@ -3,13 +3,18 @@ stable error codes (``libskylark_tpu/utils/exceptions.py``)."""
 
 from __future__ import annotations
 
-__all__ = ["SkylarkError", "UnsupportedError", "NumericalHealthError"]
+__all__ = ["SkylarkError", "InvalidParameters", "UnsupportedError",
+           "NumericalHealthError"]
 
 
 class SkylarkError(Exception):
     """Base (≙ ``skylark_exception``, code 100)."""
 
     code = 100
+
+
+class InvalidParameters(SkylarkError, ValueError):
+    code = 102
 
 
 class UnsupportedError(SkylarkError, NotImplementedError):

@@ -25,7 +25,8 @@ def _imported(path: Path):
 
 def test_port_files_found():
     names = {p.name for p in FILES}
-    assert {"__init__.py", "random.py", "fjlt.py", "hash.py", "chip_smoke.py"} <= names
+    assert {"__init__.py", "random.py", "fjlt.py", "hash.py", "kernels_scatter.py",
+            "stream.py", "chip_smoke.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

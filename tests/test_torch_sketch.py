@@ -173,7 +173,7 @@ def test_wht_matches_jax_and_is_orthonormal(rng):
 def test_unported_inputs_raise():
     St = T.sketch.CWT(50, 8, T.SketchContext(seed=1))
     with pytest.raises(UnsupportedError):
-        St.apply(torch.eye(50).to_sparse())
+        St.apply(torch.eye(50).to_sparse_csr())
     with pytest.raises(NotImplementedError):
         T.sketch.FJLT(50, 8, T.SketchContext(), fut="dct")
     with pytest.raises(ValueError):
