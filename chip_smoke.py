@@ -187,6 +187,14 @@ def main() -> None:
     errs["scatter_rows"] = worst
     del T, A, b, v, out, again, acc
 
+    def partition_bitwise(vals, keys, segs):
+        """ks.partition bitwise ks.partition_plain (the kept prefix)."""
+        sk, sv, ps = ks.partition(vals, keys, segs)
+        pk, pv, pps = ks.partition_plain(vals, keys, segs)
+        n = int(pps[-1])
+        return (torch.equal(ps, pps) and torch.equal(sk[:n], pk[:n])
+                and torch.equal(sv[:n].view(torch.int32), pv[:n].view(torch.int32)))
+
     # segment_sum_flat at the sparse sketch's shape: random, adversarial
     # (partition edges, one hot slot with half the entries) and small keys.
     nnz, tt = SP_NNZ, SP_S * SP_COLS
@@ -229,13 +237,30 @@ def main() -> None:
             check(torch.equal(ks.segment_sum_flat(dyadic, keys, segs),
                               ks.segment_sum_flat_plain(dyadic, keys, segs)),
                   f"segment_sum_flat {label} {dtype} not bitwise on dyadic values")
+            check(partition_bitwise(vals, keys, segs),
+                  f"partition {label} {dtype} is not bitwise partition_plain")
             if tol == 1e-5:
                 worst = max(worst, a)
             print(f"segment_sum_flat {label} {n_} -> {segs} {dtype}: max abs err {a:.3g}, "
                   f"rel {r:.3g} vs {'f64 sum' if ref is not plain else 'plain'} (tol {tol:g}); "
-                  "bitwise run to run and on dyadic values")
+                  "bitwise run to run and on dyadic values; partition bitwise partition_plain")
     errs["segment_sum_flat"] = worst
-    del keys, vals, out, plain, ref, dyadic, adversarial, cases
+    # Keys out of range are dropped: 1 % of the random keys moved outside
+    # [0, T) on both sides give bitwise the sum of the entries kept.
+    keys_np = cases[0][1].copy()
+    bad = rng.choice(nnz, nnz // 100, replace=False)
+    keys_np[bad] = np.where(np.arange(bad.size) % 2 == 0, -1 - bad % 1000, tt + bad % 1000)
+    keys = torch.from_numpy(keys_np).to(dev)
+    keep = (keys >= 0) & (keys < tt)
+    vals = randn(nnz)
+    check(partition_bitwise(vals, keys, tt), "partition with keys out of range is not "
+          "bitwise partition_plain")
+    check(torch.equal(ks.segment_sum_flat(vals, keys, tt),
+                      ks.segment_sum_flat(vals[keep], keys[keep], tt)),
+          "segment_sum_flat does not drop keys out of range")
+    print(f"segment_sum_flat/partition with {bad.size} keys out of range: partition bitwise "
+          "partition_plain, sum bitwise the sum of the kept entries")
+    del keys, vals, keep, out, plain, ref, dyadic, adversarial, cases, keys_np
     torch.cuda.synchronize()
 
     # -- 3. main path ----------------------------------------------------
@@ -435,14 +460,14 @@ def main() -> None:
     kernels = []
 
     def row(name, source, replaces, ms, plain_ms, bytes_moved, ops, library_ms,
-            path_count=None, err=None, shape=None):
+            path_count=None, err=None, shape=None, split=None):
         b_ms, by = bound(bytes_moved, ops)
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name] if path_count is None else path_count,
             "max_abs_err": errs[name] if err is None else err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
-            "library_ms": library_ms, **({"shape": shape} if shape else {}),
+            "library_ms": library_ms, **({"shape": shape} if shape else {}), **(split or {}),
         })
         print(f"time {name}{f' {shape}' if shape else ''}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {b_ms:.4f} ms ({by}), library {library_ms}")
@@ -487,17 +512,29 @@ def main() -> None:
             ("sparse sketch", sp_keys, sp_vals, SP_S * SP_COLS, errs["segment_sum_flat"]),
             ("graph", g_keys, g_vals, 2 * ASE_K * LJ_VERTICES, g_err)):
         nnz = keys.shape[0]
+        check(partition_bitwise(vals, keys, segs),
+              f"partition at the {path} path's shape is not bitwise partition_plain")
         lib_out = torch.zeros(segs, device=dev)
         ms = time_ms(lambda: ks.segment_sum_flat(vals, keys, segs), reps=5)
+        # Pass 1 alone, and each of its levels alone (level 2 on level 1's
+        # output); pass 2 is the total less pass 1.
+        plan = ks._plan(nnz, segs)
+        p1 = time_ms(lambda: ks.partition(vals, keys, segs), reps=5)
+        l1 = time_ms(lambda: ks._level1(vals, keys, segs, plan), reps=5)
+        lvl1 = ks._level1(vals, keys, segs, plan)
+        l2 = time_ms(lambda: ks._level2(*lvl1, plan), reps=5)
+        del lvl1
+        split = {"pass1_ms": p1, "level1_ms": l1, "level2_ms": l2, "pass2_ms": ms - p1}
         row("segment_sum_flat", "libskylark_tpu_torch/csrc/scatter.cu",
             "libskylark_tpu/sketch/pallas_scatter.py:218", ms,
             time_ms(lambda: ks.segment_sum_flat_plain(vals, keys, segs), reps=5),
             8 * nnz + 4 * segs, nnz,
             time_ms(lambda: lib_out.zero_().index_add_(0, keys, vals), reps=5),
             path_count=path_launches[path]["segment_sum_flat"], err=err,
-            shape=f"{nnz} -> {segs} f32 ({path})")
-        p1 = time_ms(lambda: ks.partition(vals, keys, segs), reps=5)
-        print(f"segment_sum_flat ({path}) pass 1 alone: {p1:.4f} ms of {ms:.4f} ms")
+            shape=f"{nnz} -> {segs} f32 ({path})", split=split)
+        print(f"segment_sum_flat ({path}): total {ms:.4f} ms = pass 1 {p1:.4f} ms (level 1 "
+              f"{l1:.4f} ms, level 2 {l2:.4f} ms) + pass 2 {ms - p1:.4f} ms; partition bitwise "
+              "partition_plain")
         del lib_out
 
     print(json.dumps({"kernels": kernels}))
