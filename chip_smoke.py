@@ -166,26 +166,86 @@ def main() -> None:
     check(a == 0.0, "gather_scaled_rows is not bitwise equal to its plain version")
     errs["gather_scaled_rows"] = a
 
+    def rows_partition_bitwise(b, segs):
+        """kw.scatter_partition bitwise kw.scatter_partition_plain (the kept prefix)."""
+        sk, se, ss = kw.scatter_partition(b, segs)
+        pk, pe, pss = kw.scatter_partition_plain(b, segs)
+        n = int(pss[-1])
+        return torch.equal(ss, pss) and torch.equal(sk[:n], pk[:n]) and torch.equal(se[:n], pe[:n])
+
+    def host_bitwise(out, A, b, v, segs):
+        """The kernel's result bitwise scatter_rows_plain on CPU copies (an
+        index_add_ of the rows in entry order); if the CPU index_add_ is
+        not in index order, bitwise a numpy in-order sum instead."""
+        Ac, bc, vc = A.cpu(), b.cpu(), v.cpu()
+        out = out.cpu()
+        if torch.equal(out, kw.scatter_rows_plain(Ac, bc, vc, segs)):
+            return "scatter_rows_plain on CPU copies"
+        rows = (vc.T[:, :, None] * Ac.float()[:, None, :]).reshape(-1, A.shape[1]).numpy()
+        ref = np.zeros((segs, A.shape[1]), np.float32)
+        np.add.at(ref, bc.T.reshape(-1).numpy(), rows)  # unbuffered, in index order
+        check(np.array_equal(out.numpy(), ref), "scatter_rows is bitwise neither the CPU "
+              "plain version nor a numpy in-order sum")
+        return "a numpy in-order sum (the CPU index_add_ is not in index order)"
+
+    # scatter_rows at the LS path's shapes (A 2^20 x 512, the b vector
+    # 2^20 x 1, 2048 buckets) and SJLT's nnz = 4 at k = 2^18, cut so that
+    # the host's 4 * 2^18 rows of 512 f32 (2 GiB) fit.
     worst = 0.0
-    for nnz, cols in ((1, 512), (4, 512), (1, 1)):  # (1, 1): the LS solve's b vector
-        A = T[:, :cols].contiguous()
-        b = torch.from_numpy(rng.integers(0, 2048, (nnz, 1 << 20)).astype(np.int32)).to(dev)
-        v = randn(nnz, 1 << 20)
+    for nnz, k_, cols in ((1, 1 << 20, 512), (1, 1 << 20, 1), (4, 1 << 18, 512)):
+        A = T[:k_, :cols].contiguous()
+        b = torch.from_numpy(rng.integers(0, 2048, (nnz, k_)).astype(np.int32)).to(dev)
+        v = randn(nnz, k_)
         out = kw.scatter_rows(A, b, v, 2048)
         a, r = max_err(out, kw.scatter_rows_plain(A, b, v, 2048))
         worst = max(worst, a)
-        print(f"scatter_rows A (2^20, {cols}) -> 2048, nnz={nnz}, "
-              f"{kw.scatter_splits(nnz << 20, 2048, cols)} splits: max abs err {a:.3g}, "
-              f"rel {r:.3g} (tol 1e-5)")
-        check(r <= 1e-5, f"scatter_rows nnz={nnz} disagrees with its plain version")
-        again = kw.scatter_rows(A, b, v, 2048)
-        check(torch.equal(out, again), f"scatter_rows nnz={nnz} differs run to run")
+        what = host_bitwise(out, A, b, v, 2048)
+        print(f"scatter_rows A ({k_}, {cols}) -> 2048, nnz={nnz}: bitwise {what}; vs plain "
+              f"on the card max abs err {a:.3g}, rel {r:.3g} (tol 1e-5)")
+        check(r <= 1e-5, f"scatter_rows nnz={nnz} m={cols} disagrees with its plain version")
+        check(torch.equal(out, kw.scatter_rows(A, b, v, 2048)),
+              f"scatter_rows nnz={nnz} m={cols} differs run to run")
         acc = randn(2048, cols)
         check(torch.equal(kw.scatter_rows(A, b, v, 2048, acc=acc), acc + out),
-              f"scatter_rows nnz={nnz} acc fold is not bitwise acc + scatter_rows")
-    print("scatter_rows: bitwise run to run, acc fold bitwise acc + out")
+              f"scatter_rows nnz={nnz} m={cols} acc fold is not bitwise acc + scatter_rows")
+        check(rows_partition_bitwise(b, 2048),
+              f"scatter_partition nnz={nnz} is not bitwise scatter_partition_plain")
+        if nnz == 1:
+            # 1 % of the buckets moved out of range on both sides: bitwise
+            # the result of the kept entries alone.
+            bad = torch.from_numpy(rng.choice(k_, k_ // 100, replace=False)).to(dev)
+            b_bad = b.clone()
+            b_bad[0, bad] = torch.where(bad % 2 == 0, -1 - bad % 1000, 2048 + bad % 1000).int()
+            keep = (b_bad[0] >= 0) & (b_bad[0] < 2048)
+            check(torch.equal(kw.scatter_rows(A, b_bad, v, 2048),
+                              kw.scatter_rows(A[keep].contiguous(), b_bad[:, keep],
+                                              v[:, keep], 2048)),
+                  f"scatter_rows m={cols} does not drop buckets out of range")
+            check(rows_partition_bitwise(b_bad, 2048), "scatter_partition with buckets out "
+                  "of range is not bitwise scatter_partition_plain")
+            # A hot bucket with half the entries: cut into pieces of kw._L,
+            # held against the f64 sum.
+            b_hot = b.clone()
+            b_hot[0, torch.from_numpy(rng.choice(k_, k_ // 2, replace=False)).to(dev)] = 7
+            hot = kw.scatter_rows(A, b_hot, v, 2048)
+            ref = torch.zeros(2048, cols, dtype=torch.float64, device=dev).index_add_(
+                0, b_hot[0].long(), v[0].double()[:, None] * A.double())
+            _, r_hot = max_err(hot, ref)
+            _, r_plain = max_err(kw.scatter_rows_plain(A, b_hot, v, 2048), ref)
+            print(f"scatter_rows A ({k_}, {cols}), {k_ // 2} entries in one bucket: vs f64 "
+                  f"sum rel {r_hot:.3g} (tol 1e-5; plain version {r_plain:.3g}); 1 % of "
+                  "buckets out of range: bitwise the kept entries' result")
+            check(r_hot <= 1e-5, f"scatter_rows hot bucket m={cols}: rel {r_hot} vs f64 sum")
+            check(torch.equal(hot, kw.scatter_rows(A, b_hot, v, 2048)),
+                  f"scatter_rows hot bucket m={cols} differs run to run")
+            check(torch.equal(kw.scatter_rows(A, b_hot, v, 2048, acc=acc), acc + hot),
+                  f"scatter_rows hot bucket m={cols} acc fold is not bitwise")
+            del b_bad, keep, b_hot, hot, ref
+    print("scatter_rows: bitwise run to run, acc fold bitwise acc + out, scatter_partition "
+          "bitwise scatter_partition_plain")
     errs["scatter_rows"] = worst
-    del T, A, b, v, out, again, acc
+    del T, A, b, v, out, acc
+    torch.cuda.synchronize()
 
     def partition_bitwise(vals, keys, segs):
         """ks.partition bitwise ks.partition_plain (the kept prefix)."""
@@ -496,17 +556,29 @@ def main() -> None:
         time_ms(lambda: kw.gather_scaled_rows_plain(T, gidx, 0.3125)),
         4 * (uniq * 512 + 2048 * 512) + 4 * 2048, 2048 * 512,
         time_ms(lambda: torch.index_select(T, 0, gidx) * scale))
+    # scatter_rows at the CWT LS path's two shapes, A and the b vector; the
+    # path's launch count (one A and one b apply per solve) is on both rows.
     b = torch.from_numpy(rng.integers(0, 2048, (1, 1 << 20)).astype(np.int32)).to(dev)
     v = torch.from_numpy(rng.choice([-1.0, 1.0], (1, 1 << 20)).astype(np.float32)).to(dev)
-    vA = v[0][:, None] * T
     b_flat = b[0].long()
-    lib_out = torch.zeros(2048, 512, device=dev)
-    row("scatter_rows", "libskylark_tpu_torch/csrc/window.cu",
-        "libskylark_tpu/sketch/pallas_window.py:228",
-        time_ms(lambda: kw.scatter_rows(T, b, v, 2048)),
-        time_ms(lambda: kw.scatter_rows_plain(T, b, v, 2048), reps=3, warmup=1),
-        4 * ((1 << 20) * 512 + 2 * (1 << 20) + 2048 * 512), 2 * (1 << 20) * 512,
-        time_ms(lambda: lib_out.index_add_(0, b_flat, vA)))
+    p1 = time_ms(lambda: kw.scatter_partition(b, 2048))
+    for cols in (512, 1):
+        A = T if cols == 512 else T[:, :1].contiguous()
+        vA = v[0][:, None] * A
+        lib_out = torch.zeros(2048, cols, device=dev)
+        ms = time_ms(lambda: kw.scatter_rows(A, b, v, 2048))
+        row("scatter_rows", "libskylark_tpu_torch/csrc/window.cu",
+            "libskylark_tpu/sketch/pallas_window.py:228", ms,
+            time_ms(lambda: kw.scatter_rows_plain(A, b, v, 2048), reps=3, warmup=1),
+            4 * ((1 << 20) * cols + 2 * (1 << 20) + 2048 * cols), 2 * (1 << 20) * cols,
+            time_ms(lambda: lib_out.index_add_(0, b_flat, vA)),
+            path_count=path_launches["least-squares"]["scatter_rows"],
+            shape=f"A 2^20 x {cols} f32 -> 2048, nnz = 1",
+            split={"pass1_ms": p1, "pass2_ms": ms - p1})
+        print(f"scatter_rows (2^20, {cols}): total {ms:.4f} ms = pass 1 {p1:.4f} ms + pass 2 "
+              f"{ms - p1:.4f} ms")
+        del vA, lib_out
+    del T, A
 
     for path, keys, vals, segs, err in (
             ("sparse sketch", sp_keys, sp_vals, SP_S * SP_COLS, errs["segment_sum_flat"]),

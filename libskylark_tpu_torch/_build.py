@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library under ``build/``
 (next to the package, listed in ``.gitignore``), then loaded with
-ctypes.  The library's file name carries a hash of the source and the
-flags, so a rebuild happens only when either changes.  Nothing here
+ctypes.  The library's file name carries a hash of the source, the
+shared headers ``csrc/*.cuh`` and the flags, so a rebuild happens only
+when one of them changes.  Nothing here
 runs at import: a library is built at its first use, or by
 :func:`build_all`, which starts one ``nvcc`` per source at once.
 """
@@ -42,6 +43,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
