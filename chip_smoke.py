@@ -40,6 +40,8 @@ MEM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 LS_RATIO_BOUND = 1.5           # sketched residual / lstsq residual
 SPIN_CYCLES = 4_000_000        # ~2 ms of GPU clock: covers a call's host overhead
+GATHER_RUN = 32                # back-to-back gather launches per timed run, each its own indices
+L2_FLUSH_BYTES = 256 << 20     # read before a cold run: five times the H100's 50 MB L2
 LS_REPEATS = 3                 # timed solves per LS configuration (median kept)
 SEED = 20261016
 # Sparse hash sketch (the JAX package's bench.py bench_sparse_cwt shape).
@@ -77,6 +79,35 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def time_launches(calls, reps: int = 5, flush: torch.Tensor | None = None,
+                  warm: torch.Tensor | None = None) -> float:
+    """Device time per launch of ``calls`` run back to back between one
+    pair of CUDA events, median over ``reps`` runs.  A spin kernel queued
+    before the start event covers the host's enqueue of the whole run.
+    With ``flush`` (a CUDA tensor larger than the L2) it is read before
+    each run, so that the L2 holds none of the run's inputs; then
+    ``warm``, if given, is read, so that the L2 holds it."""
+    for fn in calls[:2]:
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        if flush is not None:
+            flush.sum()
+        if warm is not None:
+            warm.sum()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES * (1 + len(calls) // 16))
+        start.record()
+        for fn in calls:
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / len(calls))
     return statistics.median(times)
 
 
@@ -165,6 +196,42 @@ def main() -> None:
     print(f"gather_scaled_rows T (2^20, 512) S=2048: max abs err {a!r} (must be 0.0)")
     check(a == 0.0, "gather_scaled_rows is not bitwise equal to its plain version")
     errs["gather_scaled_rows"] = a
+    # Bitwise its plain version at the main path's shape in bf16, the b
+    # vector (m = 1) and m = 5 (a thread per element, the last block
+    # part-empty), m = 4100 (five column tiles, the last part-empty), S = 1,
+    # S = 1001, repeated rows.
+    T_long = randn(4096, 4100)
+    rep_idx = torch.from_numpy(rng.integers(0, 8, 2048).astype(np.int32)).to(dev)
+    gather_cases = [
+        ("T (2^20, 512) bf16, S=2048", T.bfloat16(), gidx),
+        ("T (2^20, 1) f32, S=2048", T[:, :1].contiguous(), gidx),
+        ("T (2^20, 5) f32, S=2048", T[:, :5].contiguous(), gidx),
+        ("T (2^20, 5) bf16, S=2048", T[:, :5].contiguous().bfloat16(), gidx),
+        ("T (4096, 4100) f32, S=2048", T_long, gidx % 4096),
+        ("T (2^20, 512) f32, S=1", T, gidx[:1].contiguous()),
+        ("T (2^20, 512) f32, S=1001", T, gidx[:1001].contiguous()),
+        ("T (2^20, 512) f32, 2048 rows from 8", T, rep_idx),
+        ("T (2^20, 512) bf16, 2048 rows from 8", T.bfloat16(), rep_idx),
+    ]
+    for label, T_, idx_ in gather_cases:
+        check(torch.equal(kw.gather_scaled_rows(T_, idx_, 0.3125),
+                          kw.gather_scaled_rows_plain(T_, idx_, 0.3125)),
+              f"gather_scaled_rows {label} is not bitwise its plain version")
+    # An index out of range poisons its row with NaN; the other rows stay
+    # bitwise (the plain version is given the indices clamped).
+    for T_ in (T, T[:, :5].contiguous()):
+        bad_idx = gidx.clone()
+        bad_idx[::97] = -1
+        bad_idx[1::89] = T_.shape[0]
+        out = kw.gather_scaled_rows(T_, bad_idx, 0.3125)
+        bad = (bad_idx < 0) | (bad_idx >= T_.shape[0])
+        check(bool(out[bad].isnan().all()) and torch.equal(
+            out[~bad], kw.gather_scaled_rows_plain(T_, bad_idx.clamp(0, T_.shape[0] - 1),
+                                                   0.3125)[~bad]),
+              "gather_scaled_rows does not poison rows of indices out of range")
+    print(f"gather_scaled_rows: bitwise its plain version at {len(gather_cases)} more shapes "
+          "(bf16, m = 1, 5, 4100, S = 1, 1001, repeated rows); indices out of range give NaN rows")
+    del T_long, rep_idx, gather_cases, T_, idx_, bad_idx, out, bad
 
     def rows_partition_bitwise(b, segs):
         """kw.scatter_partition bitwise kw.scatter_partition_plain (the kept prefix)."""
@@ -217,10 +284,15 @@ def main() -> None:
             b_bad = b.clone()
             b_bad[0, bad] = torch.where(bad % 2 == 0, -1 - bad % 1000, 2048 + bad % 1000).int()
             keep = (b_bad[0] >= 0) & (b_bad[0] < 2048)
-            check(torch.equal(kw.scatter_rows(A, b_bad, v, 2048),
-                              kw.scatter_rows(A[keep].contiguous(), b_bad[:, keep],
-                                              v[:, keep], 2048)),
+            out_bad = kw.scatter_rows(A, b_bad, v, 2048)
+            check(torch.equal(out_bad, kw.scatter_rows(A[keep].contiguous(), b_bad[:, keep],
+                                                       v[:, keep], 2048)),
                   f"scatter_rows m={cols} does not drop buckets out of range")
+            # The plain version drops them too: bitwise on CPU copies.
+            check(torch.equal(out_bad.cpu(), kw.scatter_rows_plain(A.cpu(), b_bad.cpu(),
+                                                                   v.cpu(), 2048)),
+                  f"scatter_rows m={cols} with buckets out of range is not bitwise its "
+                  "plain version on CPU copies")
             check(rows_partition_bitwise(b_bad, 2048), "scatter_partition with buckets out "
                   "of range is not bitwise scatter_partition_plain")
             # A hot bucket with half the entries: cut into pieces of kw._L,
@@ -234,13 +306,14 @@ def main() -> None:
             _, r_plain = max_err(kw.scatter_rows_plain(A, b_hot, v, 2048), ref)
             print(f"scatter_rows A ({k_}, {cols}), {k_ // 2} entries in one bucket: vs f64 "
                   f"sum rel {r_hot:.3g} (tol 1e-5; plain version {r_plain:.3g}); 1 % of "
-                  "buckets out of range: bitwise the kept entries' result")
+                  "buckets out of range: bitwise the kept entries' result and the plain "
+                  "version on CPU copies")
             check(r_hot <= 1e-5, f"scatter_rows hot bucket m={cols}: rel {r_hot} vs f64 sum")
             check(torch.equal(hot, kw.scatter_rows(A, b_hot, v, 2048)),
                   f"scatter_rows hot bucket m={cols} differs run to run")
             check(torch.equal(kw.scatter_rows(A, b_hot, v, 2048, acc=acc), acc + hot),
                   f"scatter_rows hot bucket m={cols} acc fold is not bitwise")
-            del b_bad, keep, b_hot, hot, ref
+            del b_bad, keep, out_bad, b_hot, hot, ref
     print("scatter_rows: bitwise run to run, acc fold bitwise acc + out, scatter_partition "
           "bitwise scatter_partition_plain")
     errs["scatter_rows"] = worst
@@ -315,11 +388,19 @@ def main() -> None:
     vals = randn(nnz)
     check(partition_bitwise(vals, keys, tt), "partition with keys out of range is not "
           "bitwise partition_plain")
-    check(torch.equal(ks.segment_sum_flat(vals, keys, tt),
-                      ks.segment_sum_flat(vals[keep], keys[keep], tt)),
+    out = ks.segment_sum_flat(vals, keys, tt)
+    check(torch.equal(out, ks.segment_sum_flat(vals[keep], keys[keep], tt)),
           "segment_sum_flat does not drop keys out of range")
+    # The plain version drops them too.  On the card it adds by float
+    # atomics in no fixed order, so the two are held bitwise on dyadic
+    # values, whose sums are exact in any order.
+    dyadic = torch.from_numpy(rng.choice([-1.0, -0.5, 0.5, 1.0], nnz).astype(np.float32)).to(dev)
+    check(torch.equal(ks.segment_sum_flat(dyadic, keys, tt),
+                      ks.segment_sum_flat_plain(dyadic, keys, tt)),
+          "segment_sum_flat with keys out of range is not bitwise its plain version")
     print(f"segment_sum_flat/partition with {bad.size} keys out of range: partition bitwise "
-          "partition_plain, sum bitwise the sum of the kept entries")
+          "partition_plain, sum bitwise the sum of the kept entries and, on dyadic values, "
+          "the plain version")
     del keys, vals, keep, out, plain, ref, dyadic, adversarial, cases, keys_np
     torch.cuda.synchronize()
 
@@ -548,14 +629,36 @@ def main() -> None:
         4 * (rm * rn + rn + rm * 1024) + 4 * 1024, wht_ops, None)
     del A
     T = randn(1 << 20, 512)
-    uniq = int(torch.unique(gidx).numel())
+    # gather_scaled_rows as the FJLT LS path meets it.  A: the WHT has just
+    # written all 2 GiB of T, so the rows come in cold, and the sampler has
+    # just written the indices, so they are warm: a run of GATHER_RUN
+    # launches, each with its own 2048 indices, after an L2 flush and a read
+    # of the indices.  b (m = 1): the b WHT has just written those 4 MB, so
+    # all warm.  Both rows carry the path's launch count (one A and one b
+    # gather per solve).
+    idx_all = torch.from_numpy(
+        rng.integers(0, 1 << 20, (GATHER_RUN, 2048)).astype(np.int32)).to(dev)
+    run_idx = list(idx_all)
+    flush = torch.zeros(L2_FLUSH_BYTES // 4, device=dev)
     scale = torch.tensor(0.3125, device=dev)
-    row("gather_scaled_rows", "libskylark_tpu_torch/csrc/window.cu",
-        "libskylark_tpu/sketch/pallas_window.py:364",
-        time_ms(lambda: kw.gather_scaled_rows(T, gidx, 0.3125)),
-        time_ms(lambda: kw.gather_scaled_rows_plain(T, gidx, 0.3125)),
-        4 * (uniq * 512 + 2048 * 512) + 4 * 2048, 2048 * 512,
-        time_ms(lambda: torch.index_select(T, 0, gidx) * scale))
+    uniq = statistics.mean(int(torch.unique(i).numel()) for i in run_idx)
+    for cols, fl in ((512, flush), (1, None)):
+        Tg = T if cols == 512 else T[:, :1].contiguous()
+
+        def per_launch(fn):
+            return time_launches([lambda i=i: fn(Tg, i) for i in run_idx], flush=fl,
+                                 warm=idx_all)
+
+        row("gather_scaled_rows", "libskylark_tpu_torch/csrc/window.cu",
+            "libskylark_tpu/sketch/pallas_window.py:364",
+            per_launch(lambda t, i: kw.gather_scaled_rows(t, i, 0.3125)),
+            per_launch(lambda t, i: kw.gather_scaled_rows_plain(t, i, 0.3125)),
+            4 * (uniq * cols + 2048 * cols) + 4 * 2048, 2048 * cols,
+            per_launch(lambda t, i: torch.index_select(t, 0, i) * scale),
+            path_count=path_launches["least-squares"]["gather_scaled_rows"],
+            shape=f"T 2^20 x {cols} f32, S = 2048, rows {'cold' if fl is not None else 'warm'}"
+                  f", per launch of {GATHER_RUN}")
+    del idx_all, run_idx, flush, Tg
     # scatter_rows at the CWT LS path's two shapes, A and the b vector; the
     # path's launch count (one A and one b apply per solve) is on both rows.
     b = torch.from_numpy(rng.integers(0, 2048, (1, 1 << 20)).astype(np.int32)).to(dev)

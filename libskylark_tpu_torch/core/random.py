@@ -120,8 +120,16 @@ def _uniform01(hi, lo, dtype):
     return ((k + 0.5) * (2.0 ** -24)).to(dtype)
 
 
+def _const(x: float, dtype):
+    """``x`` rounded to the sample dtype, as JAX rounds a weakly typed
+    Python float.  torch would apply a bare Python float to an f16 or
+    bf16 tensor in f32 and round the result once, which differs from
+    the JAX draw; at f32 and f64 the two are the same."""
+    return torch.tensor(x, dtype=dtype)
+
+
 def _uniform(hi, lo, dtype, low=0.0, high=1.0):
-    return _uniform01(hi, lo, dtype) * (high - low) + low
+    return _uniform01(hi, lo, dtype) * _const(high - low, dtype) + _const(low, dtype)
 
 
 def _normal(hi, lo, dtype):
@@ -138,7 +146,7 @@ def _normal(hi, lo, dtype):
 
 def _cauchy(hi, lo, dtype):
     u = _uniform01(hi, lo, dtype)
-    return torch.tan(math.pi * (u - 0.5)).to(dtype)
+    return torch.tan((u - 0.5) * _const(math.pi, dtype)).to(dtype)
 
 
 def _rademacher(hi, lo, dtype):

@@ -53,7 +53,8 @@
 //   the result is still the same run to run.
 //
 // gather_scaled_rows is a pure copy with one multiply per element, in T's
-// dtype: grid (S rows, column tiles), coalesced along the columns.
+// dtype: grid (S rows, column tiles), coalesced along the columns, or a thread
+// per output element where rows are narrower than a block.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -410,10 +411,29 @@ int launch_walk(const void* A, const void* v, const void* sents, const void* seg
 }
 
 // ------------------------------------------------------------------ gather --
+//
+// out[j, :] = scale * T[idx[j], :] moves 2 * S * m elements and does one
+// multiply each, so bytes bound it; at the FJLT path's S = 2048 rows of 2 KB
+// the whole call is 8 MB, a few microseconds of HBM time, and what costs is
+// latency: each row waits on its index, then on its own bytes.
+//
+// Rows of at least GA_THREADS elements take a block per output row and 1024
+// columns, each thread up to GA_PER_THREAD of them.  At the FJLT path's shape
+// (2^20 x 512 f32, S = 2048, rows cold) a one-wave grid issuing every 16-byte
+// row load before any store was level with it, and one bringing each row into
+// shared memory by a bulk asynchronous copy counted on an mbarrier was 15 %
+// slower (PERF.md).  Narrower rows (the LS path's b vector, m = 1) take a
+// thread per output element, S * m / 256 blocks instead of S blocks of a few
+// live threads.  Either way the product is __fmul_rn(t, scale) in f32 and, for
+// bf16, the f32 product of two bf16 values rounded once: bitwise
+// T.index_select * scale.  An index outside [0, nrows) poisons its row with
+// NaN instead of reading out of bounds.
 
 constexpr int GA_THREADS = 256;
 constexpr int GA_PER_THREAD = 4;
 constexpr int GA_COLS = GA_THREADS * GA_PER_THREAD;
+constexpr int GA_MAX_COL_TILES = 65535;  // grid.y
+constexpr long long GA_ELEM_BLOCKS = 4096;
 
 __device__ __forceinline__ float scaled(float t, float s) { return __fmul_rn(t, s); }
 __device__ __forceinline__ __nv_bfloat16 scaled(__nv_bfloat16 t, float s) {
@@ -441,11 +461,33 @@ gather_scaled_rows_kernel(const T* __restrict__ src, const int* __restrict__ idx
 }
 
 template <typename T>
+__global__ void __launch_bounds__(GA_THREADS)
+gather_elems_kernel(const T* __restrict__ src, const int* __restrict__ idx, T* __restrict__ out,
+                    int nrows, int m, long long total, float scale) {
+  const long long stride = (long long)gridDim.x * GA_THREADS;
+  for (long long e = (long long)blockIdx.x * GA_THREADS + threadIdx.x; e < total; e += stride) {
+    const long long j = e / m;
+    const int c = (int)(e - j * m);
+    const int r = idx[j];
+    out[e] = (unsigned)r < (unsigned)nrows ? scaled(src[(size_t)r * m + c], scale) : nan_of(T());
+  }
+}
+
+template <typename T>
 int launch_gather(const void* src, const void* idx, void* out, int nrows, int m, int s,
                   float scale, void* stream) {
-  dim3 grid(s, (m + GA_COLS - 1) / GA_COLS);
-  gather_scaled_rows_kernel<T><<<grid, GA_THREADS, 0, (cudaStream_t)stream>>>(
-      (const T*)src, (const int*)idx, (T*)out, nrows, m, scale);
+  cudaStream_t st = (cudaStream_t)stream;
+  const int col_tiles = (int)(((long long)m + GA_COLS - 1) / GA_COLS);
+  if (m >= GA_THREADS && col_tiles <= GA_MAX_COL_TILES) {
+    gather_scaled_rows_kernel<T><<<dim3(s, col_tiles), GA_THREADS, 0, st>>>(
+        (const T*)src, (const int*)idx, (T*)out, nrows, m, scale);
+  } else {
+    const long long total = (long long)s * m;
+    const long long need = (total + GA_THREADS - 1) / GA_THREADS;
+    gather_elems_kernel<T><<<(unsigned)(need < GA_ELEM_BLOCKS ? need : GA_ELEM_BLOCKS),
+                             GA_THREADS, 0, st>>>((const T*)src, (const int*)idx, (T*)out,
+                                                  nrows, m, total, scale);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -79,9 +79,12 @@ def _plan(nnz: int, num_segments: int) -> _Plan:
 
 
 def segment_sum_flat_plain(vals: torch.Tensor, keys: torch.Tensor, num_segments: int):
-    """Plain version of :func:`segment_sum_flat` (f32 ``index_add_``)."""
+    """Plain version of :func:`segment_sum_flat` (f32 ``index_add_``).
+    Keys outside [0, num_segments) are dropped, as the kernel drops
+    them."""
+    keep = (keys >= 0) & (keys < num_segments)
     out = torch.zeros(num_segments, dtype=torch.float32, device=vals.device)
-    out.index_add_(0, keys.long(), vals.to(torch.float32))
+    out.index_add_(0, keys[keep].long(), vals[keep].to(torch.float32))
     return out.to(vals.dtype) if vals.dtype in _SUFFIX else out
 
 
@@ -178,8 +181,8 @@ def segment_sum_flat(vals: torch.Tensor, keys: torch.Tensor, num_segments: int):
     f32 and returned in vals' dtype (the f32-accumulate boundary cast of
     ``pallas_scatter.py:233-238``).  Identical run to run on the card:
     each slot adds, group by group, the in-order sum of its entries.
-    Keys outside the range are dropped by the kernel; the plain version
-    raises on them."""
+    Keys outside the range are dropped, by the kernel and its plain
+    version alike."""
     if vals.device.type == "cpu":
         return segment_sum_flat_plain(vals, keys, num_segments)
     _check(vals, keys, num_segments)

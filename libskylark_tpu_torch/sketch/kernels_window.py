@@ -22,6 +22,10 @@ bucket ids once in all.  Where no bucket exceeds ``_L`` entries the
 result is bitwise :func:`scatter_rows_plain` on CPU copies of the
 inputs; a longer bucket's pieces are added in piece order.
 
+``gather_scaled_rows`` is one launch: a block per output row and 1024
+columns where a row has at least 256 elements, else a thread per output
+element (m = 1 for the LS solve's b).
+
 No VMEM-style gate applies on the card: both kernels serve any shape
 below the int32 index limits checked here.
 """
@@ -96,12 +100,15 @@ def _stacked(b, v):
 def scatter_rows_plain(A, b, v, num_segments: int, *, acc=None):
     """Plain version of :func:`scatter_rows`: the f32 rows ``v·A`` in the
     JAX kernel's entry order (row i ascending, hash h innermost) added
-    by ``index_add_``."""
+    by ``index_add_``.  Entries with buckets outside [0, num_segments)
+    are dropped, as the kernel drops them."""
     b, v = _stacked(b, v)
     m = A.shape[1]
     rows = (v.T.to(torch.float32)[:, :, None] * A.to(torch.float32)[:, None, :]).reshape(-1, m)
+    flat = b.T.reshape(-1).long()
+    keep = (flat >= 0) & (flat < num_segments)
     out = torch.zeros((num_segments, m), dtype=torch.float32, device=A.device)
-    out.index_add_(0, b.T.reshape(-1).long(), rows)
+    out.index_add_(0, flat[keep], rows[keep])
     return out if acc is None else acc + out
 
 
@@ -247,7 +254,8 @@ def gather_scaled_rows_plain(T, idx, scale: float):
 def gather_scaled_rows(T: torch.Tensor, idx: torch.Tensor, scale: float):
     """``out[j, :] = scale · T[idx[j], :]`` with ``scale`` rounded to
     T's dtype — bitwise equal to ``T.index_select(0, idx) * scale``.
-    ``T`` (nrows, m) f32/bf16, ``idx`` int32 (S,) in [0, nrows)."""
+    ``T`` (nrows, m) f32/bf16, ``idx`` int32 (S,) in [0, nrows); on the
+    card an index outside that range gives a row of NaN."""
     if T.device.type == "cpu":
         return gather_scaled_rows_plain(T, idx, scale)
     dev = T.device
@@ -255,7 +263,7 @@ def gather_scaled_rows(T: torch.Tensor, idx: torch.Tensor, scale: float):
     _launch.check(idx, "idx", device=dev, dtypes=(torch.int32,), ndim=1)
     nrows, m = T.shape
     s = idx.shape[0]
-    if nrows > _INT32_MAX or -(-m // 1024) > _MAX_COL_TILES or s > _INT32_MAX:
+    if max(nrows, m, s) > _INT32_MAX:
         raise ValueError(f"gather kernel does not take T {tuple(T.shape)}, S={s}")
     out = torch.empty((s, m), dtype=T.dtype, device=dev)
     if s == 0 or m == 0:

@@ -129,15 +129,24 @@ def test_scatter_rows_acc_fold_bitwise(rng):
         kernels_window.scatter_rows(At, bt, vt, s, acc=acct.double())
 
 
-@pytest.mark.parametrize("nrows,s,m", [(300, 1000, 320), (3000, 128, 5)])
-def test_gather_scaled_rows_plain_bitwise_pallas(rng, nrows, s, m):
+@pytest.mark.parametrize("nrows,s,m,dtype", [
+    pytest.param(300, 1000, 320, "float32", id="300-1000-320"),
+    pytest.param(3000, 128, 5, "float32", id="3000-128-5"),
+    pytest.param(3000, 2048, 1, "float32", id="3000-2048-1"),       # the LS solve's b
+    pytest.param(300, 1000, 320, "bfloat16", id="300-1000-320-bf16"),
+    pytest.param(3000, 2048, 1, "bfloat16", id="3000-2048-1-bf16"),
+])
+def test_gather_scaled_rows_plain_bitwise_pallas(rng, nrows, s, m, dtype):
     T = rng.standard_normal((nrows, m)).astype(np.float32)
     idx = rng.integers(0, nrows, s).astype(np.int32)
-    ref = pallas_window.gather_scaled_rows(jnp.asarray(T), jnp.asarray(idx),
-                                           0.3125, interpret=True)
-    out = kernels_window.gather_scaled_rows(torch.from_numpy(T),
-                                            torch.from_numpy(idx), 0.3125)
-    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+    # 0.3 is not a bf16 value: the scale is rounded to T's dtype on both sides.
+    scale = 0.3125 if dtype == "float32" else 0.3
+    ref = pallas_window.gather_scaled_rows(jnp.asarray(T, getattr(jnp, dtype)),
+                                           jnp.asarray(idx), scale, interpret=True)
+    out = kernels_window.gather_scaled_rows(
+        torch.from_numpy(T).to(getattr(torch, dtype)), torch.from_numpy(idx), scale)
+    assert out.dtype == getattr(torch, dtype)
+    np.testing.assert_array_equal(out.float().numpy(), np.asarray(ref).astype(np.float32))
 
 
 def test_cpu_tensors_take_plain_versions_without_counting(rng):

@@ -100,6 +100,29 @@ def test_small_case_and_dropped_nothing(rng):
     assert _rel(out, ref) <= 1e-6
 
 
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_plain_drops_keys_out_of_range(rng, dtype):
+    """As the kernel does: keys [0, 1, 5, -1] into 2 give bitwise the sum
+    of the first two entries alone; with 1 % of the keys out of range on
+    both sides (and at the int32 ends), bitwise the sum of the kept
+    entries, in input order."""
+    tdt = DTYPES[dtype][0]
+    vals = torch.from_numpy(rng.standard_normal(4).astype(np.float32)).to(tdt)
+    keys = torch.tensor([0, 1, 5, -1], dtype=torch.int32)
+    out = kernels_scatter.segment_sum_flat_plain(vals, keys, 2)
+    assert out.dtype == tdt
+    assert torch.equal(out, kernels_scatter.segment_sum_flat_plain(vals[:2], keys[:2], 2))
+    nnz, T = 20000, 3000
+    keys = rng.integers(0, T, nnz).astype(np.int64)
+    bad = rng.choice(nnz, nnz // 100, replace=False)
+    keys[bad] = np.array([-1, T, -(1 << 31), (1 << 31) - 1])[np.arange(bad.size) % 4]
+    vals = torch.from_numpy(rng.standard_normal(nnz).astype(np.float32)).to(tdt)
+    keys = torch.from_numpy(keys.astype(np.int32))
+    keep = (keys >= 0) & (keys < T)
+    out = kernels_scatter.segment_sum_flat(vals, keys, T)  # a CPU tensor: the plain version
+    assert torch.equal(out, kernels_scatter.segment_sum_flat_plain(vals[keep], keys[keep], T))
+
+
 @pytest.mark.parametrize("nnz,T", [
     (100, 37), (10_000_000, 102_400_000), (69_000_000, 127_934_784), (1000, (1 << 31) - 1),
     (1, 1),

@@ -122,6 +122,21 @@ def test_hash_f64_and_bf16(rng, shape, dim):
     assert _rel(out.float(), np.asarray(ref, np.float32)) <= 1e-2
 
 
+@pytest.mark.parametrize("shape,dim", [((64, 16), "columnwise"), ((16, 64), "rowwise")])
+def test_mmt_f16_hash_matrix_matches_jax(rng, shape, dim):
+    """f16 input with N·S small and a batch of 16 takes the dense hash-
+    matrix branch, whose Cauchy values are drawn in f16.  Tolerance: one
+    f16 epsilon relative to the largest output (the f16 product may round
+    in another order; it reads bitwise here).  A Cauchy pi applied in f32
+    instead of rounded to f16 puts it ~3e-2 off."""
+    A = rng.standard_normal(shape).astype(np.float16)
+    Sj, St = _pair("MMT", 64, 100)
+    out = St.apply(torch.from_numpy(A), dim)
+    assert out.dtype == torch.float16
+    ref = np.asarray(Sj.apply(jnp.asarray(A), dim)).astype(np.float32)
+    assert _rel(out.float(), ref) <= float(torch.finfo(torch.float16).eps)
+
+
 @pytest.mark.parametrize("stype,params", [
     ("FJLT", {}), ("CWT", {}), ("SJLT", {"nnz": 2}), ("MMT", {}),
     ("WZT", {"p": 1.25}), ("UST", {"replace": False}), ("UST", {}),

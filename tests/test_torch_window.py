@@ -43,12 +43,14 @@ def _inputs(rng, k, s, m, nnz):
 
 
 def _in_order(A, b, v, s):
-    """out[b[h, i]] += v[h, i] * A[i] for i ascending, h innermost, in f32."""
+    """out[b[h, i]] += v[h, i] * A[i] for i ascending, h innermost, in f32;
+    buckets outside [0, s) are dropped."""
     out = np.zeros((s, A.shape[1]), np.float32)
     for i in range(A.shape[0]):
         for h in range(b.shape[0]):
             t = b[h, i]
-            out[t] = out[t] + v[h, i] * A[i]
+            if 0 <= t < s:
+                out[t] = out[t] + v[h, i] * A[i]
     return out
 
 
@@ -64,6 +66,32 @@ def test_plain_is_the_in_order_sum_bitwise(rng, nnz, m):
     fused = kw.scatter_rows_plain(torch.from_numpy(A), torch.from_numpy(b),
                                   torch.from_numpy(v), s, acc=torch.from_numpy(acc))
     np.testing.assert_array_equal(fused.numpy(), acc + _in_order(A, b, v, s))
+
+
+@pytest.mark.parametrize("acc", [False, True])
+def test_plain_drops_buckets_out_of_range(rng, acc):
+    """As the kernel does: buckets [0, 1, 5, -1] into 2 give bitwise the
+    result of the first two entries alone; with 1 % of the buckets out of
+    range on both sides (nnz = 3), bitwise the in-order sum of the kept
+    entries.  The acc fold stays acc + out."""
+    A = rng.standard_normal((4, 6)).astype(np.float32)
+    v = rng.standard_normal((1, 4)).astype(np.float32)
+    b = np.array([[0, 1, 5, -1]], np.int32)
+    acc2 = torch.from_numpy(rng.standard_normal((2, 6)).astype(np.float32)) if acc else None
+    out = kw.scatter_rows_plain(torch.from_numpy(A), torch.from_numpy(b), torch.from_numpy(v),
+                                2, acc=acc2)
+    kept = kw.scatter_rows_plain(torch.from_numpy(A[:2]), torch.from_numpy(b[:, :2]),
+                                 torch.from_numpy(v[:, :2]), 2, acc=acc2)
+    assert torch.equal(out, kept)
+    k, s, m = 3000, 37, 40
+    A, b, v = _inputs(rng, k, s, m, 3)
+    bad = rng.choice(b.size, b.size // 100, replace=False)
+    b.flat[bad] = np.array([-1, s, -(1 << 31), (1 << 31) - 1])[np.arange(bad.size) % 4]
+    accs = rng.standard_normal((s, m)).astype(np.float32) if acc else None
+    out = kw.scatter_rows(torch.from_numpy(A), torch.from_numpy(b), torch.from_numpy(v), s,
+                          acc=None if accs is None else torch.from_numpy(accs))
+    ref = _in_order(A, b, v, s)
+    np.testing.assert_array_equal(out.numpy(), ref if accs is None else accs + ref)
 
 
 @pytest.mark.parametrize("nnz", [1, 3])
