@@ -16,7 +16,13 @@ JSON line.  The paths:
   1024 rows, dense and sparse output;
 - the in-core adjacency sketch and Nyström eigensolve of a planted-
   partition graph at the scale of SNAP com-LiveJournal (3,997,962
-  vertices, 34,681,189 edges), generated from the seed.
+  vertices, 34,681,189 edges), generated from the seed;
+- the random-feature kernel machine's predict path: the flagship forward
+  step (``libskylark_tpu_torch.flagship``), a 10-class
+  ``FeatureMapModel`` per feature map on 131072 x 4096 f32 (the JAX
+  package's RFT benchmark shape), the kernel approximation of five maps
+  on 1024 rows, and a Gaussian ``KernelModel`` on 8192 training rows and
+  32768 test rows.
 
 It exits non-zero, printing no result, without a CUDA device or without
 the package beside it.  It imports nothing of JAX.
@@ -49,6 +55,19 @@ SP_ROWS, SP_COLS, SP_NNZ, SP_S = 1_000_000, 100_000, 10_000_000, 1024
 # Planted-partition graph at the scale of SNAP com-LiveJournal.
 LJ_VERTICES, LJ_EDGES, LJ_BLOCKS, LJ_INTRA = 3_997_962, 34_681_189, 16, 0.8
 ASE_K = 16                     # embedding rank; sketch size 2k as streaming_ase sizes it
+# Random-feature predict at the JAX package's RFT benchmark shape (bench.py).
+ML_ROWS, ML_DIM, ML_S, ML_CLASSES = 131072, 4096, 2048, 10
+ML_CHECK_ROWS = 4096           # rows held against the CPU route (maps are row-independent)
+ML_REPEATS = 3                 # timed predicts per model (median kept)
+KA_ROWS = 1024                 # rows of the kernel-approximation check
+KM_TRAIN, KM_TEST, KM_CHECK = 8192, 32768, 1024   # KernelModel rows
+# Kernel widths for 4096-dim standard normal rows, set so that k(x, y)
+# of two rows is about exp(-1): E||x - y||^2 = 2d, E||x - y||_1 =
+# 2d/sqrt(pi), E sum sqrt(|x_i| + |y_i|) = 1.2146 d.
+ML_SIGMA = math.sqrt(ML_DIM)
+ML_LAPLACE_SIGMA = 2 * ML_DIM / math.sqrt(math.pi)
+ML_MATERN_L = math.sqrt(3.0) * math.sqrt(2 * ML_DIM)
+ML_BETA = 1.0 / (1.2146 * ML_DIM)
 
 
 def fail(msg: str) -> None:
@@ -122,6 +141,195 @@ def max_err(out: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
     out, ref = out.float(), ref.float()
     abs_err = float((out - ref).abs().max())
     return abs_err, abs_err / max(float(ref.abs().max()), 1e-30)
+
+
+def host_median(fn, reps: int = ML_REPEATS) -> tuple[float, list[float]]:
+    """Median host-clock seconds of ``fn`` ending in a synchronize."""
+    runs = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+    return statistics.median(runs), runs
+
+
+def ml_path(sky, dev, reset_counts, read_counts) -> None:
+    """The random-feature kernel machine's predict path on the card, each
+    output held against the port's CPU route."""
+    from libskylark_tpu_torch.sketch import kernels_fut as kf
+
+    ml = sky.ml
+    reset_counts()
+    t_path = time.perf_counter()
+
+    # (a) The flagship forward step (__graft_entry__.entry's twin).
+    fwd, args = sky.flagship.entry(device=dev)
+    fwd_cpu, args_cpu = sky.flagship.entry(device="cpu")
+    out = fwd(*args)
+    torch.cuda.synchronize()
+    _, r = max_err(out.cpu(), fwd_cpu(*args_cpu))
+    check(tuple(out.shape) == (256, 10) and bool(torch.isfinite(out).all()),
+          "flagship: output not finite of shape (256, 10)")
+    check(r <= 1e-5, f"flagship disagrees with the CPU route: rel {r}")
+    print(f"flagship GaussianRFT(128 -> 512) on (256, 128), Z @ W (512, 10): vs CPU route rel "
+          f"{r:.3g} (tol 1e-5); {time_ms(lambda: fwd(*args), reps=20)!r} ms per step "
+          f"(CUDA events, median of 20)")
+
+    # (b) Full-width predict, one 10-class model per feature map.
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    X = torch.randn(ML_ROWS, ML_DIM, generator=g, device=dev)
+    X_abs = X.abs()
+    rows_cpu, abs_cpu = X[:ML_CHECK_ROWS].cpu(), X_abs[:ML_CHECK_ROWS].cpu()
+    d, s = ML_DIM, ML_S
+
+    def ctx(i):
+        return sky.SketchContext(seed=SEED + i)
+
+    models = [
+        ("GaussianRFT", [ml.GaussianKernel(d, ML_SIGMA).create_rft(s, "regular", ctx(1))], X),
+        ("LaplacianRFT",
+         [ml.LaplacianKernel(d, ML_LAPLACE_SIGMA).create_rft(s, "regular", ctx(2))], X),
+        ("MaternRFT nu=1.5",
+         [ml.MaternKernel(d, 1.5, ML_MATERN_L).create_rft(s, "regular", ctx(3))], X),
+        ("FastGaussianRFT", [ml.GaussianKernel(d, ML_SIGMA).create_rft(s, "fast", ctx(4))], X),
+        ("ExpSemigroupRLT on |X|",
+         [ml.ExpSemigroupKernel(d, ML_BETA).create_rft(s, "regular", ctx(5))], X_abs),
+        ("PPT q=3, S=1024",
+         [ml.PolynomialKernel(d, 3, 1.0, 1.0 / d).create_rft(1024, "regular", ctx(6))], X),
+        ("GaussianRFT + FJLT",
+         [ml.GaussianKernel(d, ML_SIGMA).create_rft(s, "regular", ctx(7)),
+          ml.LinearKernel(d).create_rft(s, "fast", ctx(8))], X),
+    ]
+    gemm_bound_s = 2.0 * ML_ROWS * d * s / F32_OPS_PER_S
+    print(f"predict: X ({ML_ROWS}, {d}) f32 on the card; W.X GEMM bound of an RFT apply at "
+          f"S = {s}: {gemm_bound_s!r} s (2 m d S flop at 67 TFLOP/s f32)")
+    for name, maps, Xm in models:
+        width = sum(S.getsketchdim() for S in maps)
+        W = torch.randn(width, ML_CLASSES, generator=g, device=dev) * 0.01
+        model = ml.FeatureMapModel(maps, W, classes=list(range(ML_CLASSES)), device=dev)
+        before = {"rfut_rowwise": kf.rfut_rowwise.launches,
+                  "rfut_rowwise_sampled": kf.rfut_rowwise_sampled.launches}
+        torch.cuda.reset_peak_memory_stats()
+        t_first, _ = host_median(lambda: model.predict(Xm), reps=1)
+        O = model.predict(Xm)
+        secs, runs = host_median(lambda: model.predict(Xm))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(tuple(O.shape) == (ML_ROWS, ML_CLASSES) and bool(torch.isfinite(O).all()),
+              f"predict {name}: output not finite of shape ({ML_ROWS}, {ML_CLASSES})")
+        # The CPU route on the first rows, from the model's JSON.
+        cpu_model = ml.FeatureMapModel.from_dict(model.to_dict(), W.cpu(), device="cpu")
+        Xc = abs_cpu if Xm is X_abs else rows_cpu
+        head = O[:ML_CHECK_ROWS].cpu()
+        if name == "LaplacianRFT":
+            # Cauchy W: held on W.X per row, then the epilogue and Z @ W of
+            # the card's W.X on the CPU (tests/test_torch_rft.py).
+            S_card, S_cpu = maps[0], cpu_model.maps[0]
+            WX = S_card._underlying.apply(Xm[:ML_CHECK_ROWS], "rowwise").cpu()
+            WX_ref = S_cpu._underlying.apply(Xc, "rowwise")
+            r_wx = float(((WX - WX_ref).abs().amax(1) / WX_ref.abs().amax(1)).max())
+            check(r_wx <= 1e-5, f"predict {name}: W.X rows rel {r_wx} vs the CPU route")
+            ref = S_cpu._epilogue(WX, sky.sketch.ROWWISE) @ W.cpu()
+            what = f"W.X rows vs CPU route rel {r_wx:.3g} (tol 1e-5); outputs vs CPU epilogue"
+        else:
+            ref = cpu_model.predict(Xc)
+            what = "outputs vs CPU route"
+        _, r = max_err(head, ref)
+        check(r <= 1e-5, f"predict {name}: rows 0-{ML_CHECK_ROWS - 1} rel {r} vs the CPU route")
+        labels = model.predict_labels(Xm[:ML_CHECK_ROWS]).cpu()
+        agree = float((labels == ref.argmax(1)).double().mean())
+        launched = {k: getattr(kf, k).launches - v for k, v in before.items()}
+        print(f"predict {name} ({width} features): median {secs!r} s of "
+              f"{[round(x, 5) for x in runs]}, {ML_ROWS / secs:.4g} rows/s; first call "
+              f"{t_first!r} s; peak {peak:.2f} GiB; rows 0-{ML_CHECK_ROWS - 1}: {what} rel "
+              f"{r:.3g} (tol 1e-5), labels agree {agree:.4f}; rfut launches {launched}")
+        if "FJLT" in name:
+            check(launched["rfut_rowwise_sampled"] > 0,
+                  "rfut_rowwise_sampled was not launched on the FJLT model's predict")
+        if name == "FastGaussianRFT":
+            check(launched["rfut_rowwise"] > 0,
+                  "rfut_rowwise was not launched on the Fastfood model's predict")
+        del model, O, cpu_model, ref, head, W
+        torch.cuda.empty_cache()
+    del rows_cpu, abs_cpu
+
+    # (c) Kernel approximation on 1024 rows, at the JAX package's own
+    # sizes and bounds (tests/test_feature_maps.py): mean |Z Z^T - K|.
+    Xa = X[:KA_ROWS]
+    Xp = Xa / math.sqrt(d)  # the polynomial test's x / sqrt(d)
+    cases = [
+        ("GaussianRFT", ml.GaussianKernel(d, ML_SIGMA), "regular", 4096, Xa, 0.05),
+        ("LaplacianRFT", ml.LaplacianKernel(d, ML_LAPLACE_SIGMA), "regular", 8192, Xa, 0.08),
+        ("FastGaussianRFT", ml.GaussianKernel(d, ML_SIGMA), "fast", 4096, Xa, 0.06),
+        ("ExpSemigroupRLT", ml.ExpSemigroupKernel(d, ML_BETA), "regular", 16384, Xa.abs(), 0.05),
+        ("PPT q=2", ml.PolynomialKernel(d, 2, 1.0, 0.5), "regular", 8192, Xp, 0.05),
+    ]
+    for j, (name, kernel, tag, sa, Xk, bound_) in enumerate(cases):
+        Z = kernel.create_rft(sa, tag, ctx(20 + j)).apply(Xk, "rowwise").double()
+        K = kernel.gram(Xk.double())
+        err = float((Z @ Z.T - K).abs().mean())
+        off = float(K[~torch.eye(KA_ROWS, dtype=torch.bool, device=dev)].mean())
+        print(f"kernel approximation {name} S={sa} on ({KA_ROWS}, {d}): mean |ZZ^T - K| "
+              f"{err:.4g} (bound {bound_}), mean off-diagonal K {off:.4g}")
+        check(err <= bound_, f"kernel approximation {name}: {err} above {bound_}")
+        del Z, K
+    del Xa, Xp, X_abs
+
+    # (d) KernelModel.predict: Gaussian kernel, 8192 training rows.
+    Xtr, Xte = X[:KM_TRAIN], X[KM_TRAIN:KM_TRAIN + KM_TEST]
+    A = torch.randn(KM_TRAIN, ML_CLASSES, generator=g, device=dev) * 0.01
+    km = ml.KernelModel(ml.GaussianKernel(d, ML_SIGMA), Xtr, A, device=dev)
+    O = km.predict(Xte)
+    secs, runs = host_median(lambda: km.predict(Xte))
+    check(tuple(O.shape) == (KM_TEST, ML_CLASSES) and bool(torch.isfinite(O).all()),
+          "KernelModel predict: output not finite")
+    km_cpu = ml.KernelModel.from_arrays(km.to_dict(), Xtr.cpu().numpy(), A.cpu().numpy(),
+                                        device="cpu")
+    _, r = max_err(O[:KM_CHECK].cpu(), km_cpu.predict(Xte[:KM_CHECK].cpu()))
+    print(f"KernelModel gaussian: {KM_TRAIN} x {d} training rows, {KM_TEST} test rows (Gram "
+          f"{KM_TEST * KM_TRAIN * 4 / 2**30:.2f} GiB): median {secs!r} s of "
+          f"{[round(x, 5) for x in runs]}, {KM_TEST / secs:.4g} rows/s; rows 0-{KM_CHECK - 1} "
+          f"vs CPU route rel {r:.3g} (tol 1e-5)")
+    check(r <= 1e-5, f"KernelModel predict disagrees with the CPU route: rel {r}")
+    del Xtr, Xte, A, km, O
+    torch.cuda.empty_cache()
+    read_counts("random-feature predict", t_path, ("rfut_rowwise", "rfut_rowwise_sampled"))
+
+    # (e) Where a predict's time goes (CUDA events, median of 5), after the
+    # path's counts are read: a dense RFT split into W's counter
+    # realization, the X W^T GEMM, the in-place epilogue and Z W; Fastfood's
+    # features by the RFUT-kernel route against the JAX package's streaming
+    # form, and the route's parts for one block.
+    S0 = models[0][1][0]
+    W = torch.randn(s, ML_CLASSES, generator=g, device=dev)
+    Wt = S0._underlying.realize(torch.float32, device=dev)
+    WX = X @ Wt.T
+    t_real = time_ms(lambda: S0._underlying.realize(torch.float32, device=dev), reps=5)
+    t_gemm = time_ms(lambda: X @ Wt.T, reps=5)
+    t_epi = time_ms(lambda: S0._epilogue(WX.clone(), sky.sketch.ROWWISE), reps=5)
+    t_clone = time_ms(lambda: WX.clone(), reps=5)
+    t_out = time_ms(lambda: WX @ W, reps=5)
+    print(f"predict GaussianRFT split: realize W {t_real!r} ms, X @ W.T {t_gemm!r} ms (bound "
+          f"{gemm_bound_s * 1e3!r} ms), epilogue {t_epi - t_clone!r} ms, Z @ W {t_out!r} ms")
+    del Wt, WX
+    ff = models[3][1][0]
+    t_route = time_ms(lambda: ff._features_rowwise(X), reps=5)
+    t_stream = time_ms(lambda: ff._features(X.T), reps=5)
+    torch.cuda.reset_peak_memory_stats()
+    ff._features(X.T)
+    peak_stream = torch.cuda.max_memory_allocated() / 2**30
+    nb = ff._nb
+    Bd = ff._blocks("rademacher", ff._b_base, torch.float32, dev)[0, :d].contiguous()
+    perm = ff._perms(dev)[0]
+    T = kf.rfut_rowwise(X, Bd, nb)
+    t_rfut = time_ms(lambda: kf.rfut_rowwise(X, Bd, nb), reps=5)
+    t_perm = time_ms(lambda: T.index_select(1, perm), reps=5)
+    print(f"predict FastGaussianRFT features (pre-cos): RFUT-kernel route {t_route!r} ms "
+          f"(one rfut_rowwise {t_rfut!r} ms, the permutation's index_select {t_perm!r} ms); "
+          f"JAX streaming form {t_stream!r} ms, peak {peak_stream:.2f} GiB")
+    del X, T, W
+    torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -596,6 +804,9 @@ def main() -> None:
     g_vals = A_g._values() * S_g.values(torch.float32, 0, n, device=dev)[rows_g]
     del A_cpu, A_g, SA, SA_ref, V, X, rows_g, cols_g
     torch.cuda.synchronize()
+
+    # -- 3d. random-feature kernel machine: flagship and full-width predict
+    ml_path(sky, dev, reset_counts, read_counts)
 
     # -- 4. times at main-path shapes ------------------------------------
     kernels = []

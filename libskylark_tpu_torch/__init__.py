@@ -9,16 +9,20 @@ or :func:`set_default_device`); CPU tensors take the kernels' plain
 PyTorch versions.  Ported so far: sketch-and-solve least squares with
 FJLT and the hash sketches on dense input; the hash sketches on
 sparse COO input, dense or sparse output, and the in-core graph
-adjacency sketch with its Nyström eigensolve (``graph``).  Sparse
+adjacency sketch with its Nyström eigensolve (``graph``); and the
+predict path of the random-feature kernel machine (``ml``: the six
+kernels, the RFT/Fastfood/RLT/PPT feature maps and the dense sketches,
+``FeatureMapModel``/``KernelModel`` in the JAX package's file format,
+and the flagship forward step, ``flagship.entry``).  Sparse
 matrices are ``torch.sparse_coo_tensor``s
 (``utils.coo_from_bcoo_arrays`` builds one from a BCOO's arrays).
 """
 
 from ._device import set_default_device
-from . import core, graph, linalg, sketch, utils
+from . import core, flagship, graph, linalg, ml, sketch, utils
 from .core.context import SketchContext
 
 __version__ = "0.1.0"
 
-__all__ = ["SketchContext", "sketch", "linalg", "graph", "core", "utils",
-           "set_default_device"]
+__all__ = ["SketchContext", "sketch", "linalg", "graph", "ml", "flagship", "core",
+           "utils", "set_default_device"]

@@ -3,7 +3,7 @@
 from .context import SketchContext
 from .params import Params
 from .precision import bf16_split3, f32_accumulable
-from .random import raw_bits, sample, sample_window, window_bits
+from .random import chi2_lanes, raw_bits, sample, sample_window, window_bits
 
 __all__ = [
     "SketchContext",
@@ -14,4 +14,5 @@ __all__ = [
     "window_bits",
     "sample",
     "sample_window",
+    "chi2_lanes",
 ]

@@ -26,7 +26,8 @@ import torch
 
 from .._device import resolve_device
 
-__all__ = ["raw_bits", "window_bits", "sample", "sample_window", "DISTRIBUTIONS"]
+__all__ = ["raw_bits", "window_bits", "sample", "sample_window", "chi2_lanes",
+           "DISTRIBUTIONS"]
 
 _GOLDEN = 0x9E3779B9  # 32-bit golden-ratio constant for lane mixing.
 _MASK32 = 0xFFFFFFFF
@@ -120,12 +121,14 @@ def _uniform01(hi, lo, dtype):
     return ((k + 0.5) * (2.0 ** -24)).to(dtype)
 
 
-def _const(x: float, dtype):
-    """``x`` rounded to the sample dtype, as JAX rounds a weakly typed
-    Python float.  torch would apply a bare Python float to an f16 or
-    bf16 tensor in f32 and round the result once, which differs from
-    the JAX draw; at f32 and f64 the two are the same."""
-    return torch.tensor(x, dtype=dtype)
+def _const(x: float, dtype, device=None):
+    """``x`` rounded to ``dtype`` (a 0-d tensor on ``device``), as JAX
+    rounds a weakly typed Python float.  torch would apply a bare Python
+    float to an f16 or bf16 tensor in f32 and round the result once,
+    which differs from the JAX value; at f32 and f64 the two are the
+    same.  The port's constants that meet a tensor all pass through
+    here."""
+    return torch.tensor(x, dtype=dtype, device=device)
 
 
 def _uniform(hi, lo, dtype, low=0.0, high=1.0):
@@ -177,6 +180,22 @@ def _uniform_int(hi, lo, dtype, low=0, high=None):
     p2_hi, _ = _mul_u32(0, lo, span)
     s_hi, _ = _add64(p1_hi, p1_lo, 0, p2_hi)
     return (s_hi + low).to(dtype)
+
+
+def chi2_lanes(seed: int, base: int, size: int, dof: int, dtype=torch.float32,
+               device=None):
+    """χ²(dof) samples as a sum of ``dof`` squared-normal lanes over one
+    reserved counter block (lanes 1..dof; lane 0 left for the caller),
+    added in lane order in ``dtype`` as the JAX package adds them.  Used
+    by the Matérn feature maps' row correction ``sqrt(2ν/χ²_{2ν})``."""
+    if dof < 1 or int(dof) != dof:
+        raise ValueError(f"chi2_lanes needs a positive integer dof, got {dof}")
+    acc = torch.zeros((size,), dtype=dtype, device=resolve_device(device))
+    for lane in range(int(dof)):
+        z = sample("normal", seed, base, size, dtype=dtype, lane=lane + 1,
+                   device=acc.device)
+        acc = acc + z * z
+    return acc
 
 
 DISTRIBUTIONS = {

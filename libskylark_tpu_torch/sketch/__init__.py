@@ -1,5 +1,6 @@
 """Sketching layer of the port: the sketches on the sketch-and-solve
-least-squares and sparse-sketch paths and the kernels they run."""
+least-squares, sparse-sketch and random-feature paths and the kernels
+they run."""
 
 from . import kernels_fut, kernels_scatter, kernels_window
 from .base import (
@@ -11,9 +12,14 @@ from .base import (
     register_sketch,
     sketch_registry,
 )
+from .dense import CT, JLT, DenseSketch
 from .fjlt import FJLT
+from .frft import FastGaussianRFT, FastMaternRFT, FastRFT
 from .fut import RFUT, next_pow2, wht
 from .hash import CWT, MMT, SJLT, WZT, HashSketch
+from .ppt import PPT
+from .rft import RFT, GaussianRFT, LaplacianRFT, MaternRFT
+from .rlt import ExpSemigroupRLT
 from .sampling import UST
 
 COLUMNWISE = Dimension.COLUMNWISE
@@ -29,6 +35,9 @@ __all__ = [
     "from_json",
     "register_sketch",
     "sketch_registry",
+    "DenseSketch",
+    "JLT",
+    "CT",
     "FJLT",
     "RFUT",
     "UST",
@@ -37,6 +46,15 @@ __all__ = [
     "MMT",
     "SJLT",
     "WZT",
+    "RFT",
+    "GaussianRFT",
+    "LaplacianRFT",
+    "MaternRFT",
+    "FastRFT",
+    "FastGaussianRFT",
+    "FastMaternRFT",
+    "ExpSemigroupRLT",
+    "PPT",
     "wht",
     "next_pow2",
     "kernels_fut",

@@ -1,7 +1,8 @@
 """Import hygiene of the PyTorch/CUDA port: no module of
-``libskylark_tpu_torch`` and not ``chip_smoke.py`` imports ``jax`` or
-anything of the JAX package ``libskylark_tpu`` (checked on the AST, so
-imports inside functions count too)."""
+``libskylark_tpu_torch`` and not ``chip_smoke.py`` imports ``jax``,
+``ml_dtypes`` (the chip machine has no such package) or anything of the
+JAX package ``libskylark_tpu`` (checked on the AST, so imports inside
+functions count too)."""
 
 import ast
 from pathlib import Path
@@ -10,7 +11,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "libskylark_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "libskylark_tpu")
+FORBIDDEN = ("jax", "jaxlib", "libskylark_tpu", "ml_dtypes")
 
 
 def _imported(path: Path):
@@ -26,7 +27,9 @@ def _imported(path: Path):
 def test_port_files_found():
     names = {p.name for p in FILES}
     assert {"__init__.py", "random.py", "fjlt.py", "hash.py", "kernels_scatter.py",
-            "stream.py", "chip_smoke.py"} <= names
+            "stream.py", "chip_smoke.py", "dense.py", "rft.py", "rlt.py", "frft.py",
+            "ppt.py", "kernels.py", "distances.py", "coding.py", "metrics.py",
+            "model.py", "flagship.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
