@@ -22,7 +22,19 @@ JSON line.  The paths:
   ``FeatureMapModel`` per feature map on 131072 x 4096 f32 (the JAX
   package's RFT benchmark shape), the kernel approximation of five maps
   on 1024 rows, and a Gaussian ``KernelModel`` on 8192 training rows and
-  32768 test rows.
+  32768 test rows;
+- randomized NLA in f32 at full width (``nla_path``): Blendenpik at
+  2^20 x 512 (FJLT, ``gather_scaled_rows``) and at 32768 x 1024
+  (``rfut_rowwise_sampled``), Blendenpik in f64 at cond 1e6, LSRN on a
+  rank-deficient 2^20 x 512, the guarded FJLT and CWT sketch-and-solve
+  against the same calls under ``SKYLARK_GUARD=0``, the randomized SVD of
+  a 2^21 x 1024 rank-100 synthetic matrix (the JAX package's headline SVD
+  width), the sparse randomized SVD of the 10^6 x 10^5 COO at k = 6,
+  ``cond_est``, and the guard's certificate and a preconditioned LSQR
+  solve with their steps replayed as CUDA graphs against eager steps
+  (bitwise the same).  Each f32 solve is held against gels in f64 at
+  bounds that a control (a sketch-and-solve x, a solve stopped after a
+  few steps, a least-squares x of larger norm) is shown to miss.
 
 It exits non-zero, printing no result, without a CUDA device or without
 the package beside it.  It imports nothing of JAX.
@@ -32,6 +44,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -61,6 +74,26 @@ ML_CHECK_ROWS = 4096           # rows held against the CPU route (maps are row-i
 ML_REPEATS = 3                 # timed predicts per model (median kept)
 KA_ROWS = 1024                 # rows of the kernel-approximation check
 KM_TRAIN, KM_TEST, KM_CHECK = 8192, 32768, 1024   # KernelModel rows
+# Randomized NLA (phase 3e).  The f32 problems keep cond(A) low enough that
+# Blendenpik's 1-norm condest of R stays under f32's retry threshold
+# 0.1/sqrt(eps) ~ 290: at n = 1024, s = 4096 a CPU rehearsal read ~370
+# for cond 32 (a retry) and ~240 for cond 10, so (b) uses cond 10.
+NLA_M, NLA_N = 1 << 20, 512
+NLA_SMALL_M, NLA_SMALL_N = 32768, 1024
+NLA_RATIO_BOUND = 1.001        # residual / gels residual
+# The f32 problems' b = A·x_true + NLA_NOISE·g: x is held against gels in
+# f64 at NLA_X_TOL, a bound that controls fail.  A CPU rehearsal at
+# 2^16 x 512 read 9e-7 for Blendenpik, 2.9e-2 (residual ratio 1.15) for
+# sketch-and-solve and 0.14 for Blendenpik stopped after 5 LSQR steps;
+# 4.9e-7 for LSRN, 7.7e-2 for LSRN stopped after 3 steps and 0.41
+# (residual ratio 1.0) for a least-squares solution that is not the
+# least-norm one.
+NLA_NOISE = 0.1
+NLA_X_TOL = 1e-4
+NLA_F64_TOL = 1e-6             # ||x - x_gels|| / ||x_gels|| at cond 1e6, f64
+SVD_M, SVD_N, SVD_R, SVD_NOISE = 1 << 21, 1024, 100, 0.01   # bench.py:768-800, m cut
+SVD_K, SVD_PANEL, SVD_CHECK_M = 100, 1 << 17, 1 << 14
+SP_SVD_K = 6                   # skylark_svd's default rank (cli/svd.py)
 # Kernel widths for 4096-dim standard normal rows, set so that k(x, y)
 # of two rows is about exp(-1): E||x - y||^2 = 2d, E||x - y||_1 =
 # 2d/sqrt(pi), E sum sqrt(|x_i| + |y_i|) = 1.2146 d.
@@ -329,6 +362,284 @@ def ml_path(sky, dev, reset_counts, read_counts) -> None:
           f"(one rfut_rowwise {t_rfut!r} ms, the permutation's index_select {t_perm!r} ms); "
           f"JAX streaming form {t_stream!r} ms, peak {peak_stream:.2f} GiB")
     del X, T, W
+    torch.cuda.empty_cache()
+
+
+def nla_path(sky, dev, reset_counts, read_counts, A_sp) -> None:
+    """Phase 3e: the randomized NLA layer in f32 at full width (and
+    Blendenpik in f64), each item with the launch counters reset before
+    it and read after it.  Data is made on the card from the seed."""
+    linalg = sky.linalg
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    f64 = torch.float64
+
+    def gaussian(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g, device=dev, dtype=dtype)
+
+    def gels(A, b):
+        return torch.linalg.lstsq(A, b[:, None]).solution[:, 0]
+
+    def timed(label, expect, fn, reps=3):
+        """Median of ``reps`` host-clock runs of ``fn``, its counts read."""
+        reset_counts()
+        t0 = time.perf_counter()
+        out = []
+        secs, runs = host_median(lambda: out.append(fn()), reps=reps)
+        counts = read_counts(label, t0, expect)
+        return out[-1], secs, runs, counts
+
+    def ls(route, A, b, **kw):
+        return linalg.approximate_least_squares(A, b, sky.SketchContext(seed=SEED), route=route,
+                                                return_info=True, **kw)
+
+    def gels64(A, b):
+        return gels(A.double(), b.double())
+
+    def rel_err(x, x_ref):
+        return float(torch.linalg.vector_norm(x.double() - x_ref) /
+                     torch.linalg.vector_norm(x_ref))
+
+    def resid64(A, x, b):
+        return float(torch.linalg.vector_norm(A.double() @ x.double() - b.double()))
+
+    def solved(label, info, err, ratio, controls):
+        """Checks of one f32 solve: converged inside iter_lim, x within
+        NLA_X_TOL of the reference and its residual within
+        NLA_RATIO_BOUND, while every control misses one of the two."""
+        its, flag = int(info["iterations"]), int(info["flag"])
+        print(f"{label}: LSQR iterations {its} (flag {flag}), ||x - x*|| / ||x*|| {err:.3g} "
+              f"(bound {NLA_X_TOL}), residual / least residual {ratio:.7f} (bound "
+              f"{NLA_RATIO_BOUND}); controls: " + "; ".join(
+                  f"{name} {e:.3g}, {r:.7f}" for name, (e, r) in controls.items()))
+        check(flag == 0 and its < sky.solvers.KrylovParams().iter_lim, f"{label}: {its} iterations, flag {flag}")
+        check(err <= NLA_X_TOL and ratio <= NLA_RATIO_BOUND,
+              f"{label}: error {err}, residual ratio {ratio}")
+        for name, (e, r) in controls.items():
+            check(e > NLA_X_TOL or r > NLA_RATIO_BOUND,
+                  f"{label}: the control {name} passes the bounds ({e}, {r})")
+
+    def blendenpik_f32(label, m, n, lo, expect):
+        A = gaussian(m, n)
+        A *= torch.logspace(0, lo, n, device=dev)
+        b = A @ gaussian(n) + NLA_NOISE * gaussian(m)
+        (x, info), secs, runs, _ = timed(label, expect, lambda: ls("blendenpik", A, b))
+        x_ref = gels64(A, b)
+        least = resid64(A, x_ref, b)
+        short = sky.solvers.faster_least_squares(A, b, sky.SketchContext(seed=SEED), (
+            sky.solvers.FasterLeastSquaresParams(krylov=sky.solvers.KrylovParams(iter_lim=5))))[0]
+        p = linalg.LeastSquaresParams(sketch_type="FJLT", sketch_size=4 * n)
+        ss = ls(None, A, b, params=p)[0]
+        controls = {name: (rel_err(y, x_ref), resid64(A, y, b) / least) for name, y in (
+            ("sketch-and-solve", ss), ("Blendenpik at 5 LSQR steps", short))}
+        print(f"{label}: cond(A) ~ {10 ** -lo:.3g}, condest(R) {info['condest']:.4g}, attempts "
+              f"{info['attempts']}, median {secs!r} s of {[round(r, 4) for r in runs]}")
+        check(info["attempts"] == 1 and "fallback" not in info,
+              f"{label}: {info['attempts']} attempts, recovery {info['recovery']}")
+        solved(label, info, rel_err(x, x_ref), resid64(A, x, b) / least, controls)
+        return A
+
+    # (a) Blendenpik f32, 2^20 x 512: FJLT at NB = 2^20, gather_scaled_rows.
+    m, n = NLA_M, NLA_N
+    A_a = blendenpik_f32("NLA (a) Blendenpik f32 2^20 x 512", m, n, -1.5,
+                         ("gather_scaled_rows",))
+
+    # (g) cond_est on (a)'s A, against eigvalsh of A^T A in f64.
+    r, secs, runs, _ = timed("NLA (g) cond_est", (), lambda: linalg.cond_est(
+        A_a, sky.SketchContext(seed=SEED)), reps=1)
+    lam = torch.linalg.eigvalsh(A_a.T.double() @ A_a.double())
+    exact = float((lam[-1] / lam[0]).sqrt())
+    est = float(r.cond)
+    print(f"NLA (g) cond_est on (a)'s A: cond {est:.6g} vs exact {exact:.6g} (ratio "
+          f"{est / exact:.4f}, bound 1.1), flag {int(r.flag)}, {secs!r} s")
+    check(1 / 1.1 <= est / exact <= 1.1, f"cond_est {est} vs exact {exact}")
+    del A_a, lam, r
+
+    # (a2) Blendenpik f64 at cond 1e6 (tests/test_solvers.py's case): the
+    # port's kernels take f32/bf16, so no kernel runs here.
+    A = gaussian(m, n, dtype=f64)
+    A *= torch.logspace(0, -6, n, device=dev, dtype=f64)
+    b = A @ gaussian(n, dtype=f64)
+    (x, info), secs, runs, counts = timed("NLA (a2) Blendenpik f64 2^20 x 512", (),
+                                          lambda: ls("blendenpik", A, b))
+    x_ref = gels(A, b)
+    err = float(torch.linalg.vector_norm(x - x_ref) / torch.linalg.vector_norm(x_ref))
+    print(f"NLA (a2) Blendenpik f64 2^20 x 512, cond(A) 1e6: condest(R) {info['condest']:.4g}, "
+          f"attempts {info['attempts']}, LSQR iterations {int(info['iterations'])} (flag "
+          f"{int(info['flag'])}), ||x - x_gels|| / ||x_gels|| {err:.3g} (bound {NLA_F64_TOL}), "
+          f"median {secs!r} s of {[round(r, 4) for r in runs]}")
+    check(err <= NLA_F64_TOL, f"Blendenpik f64: error {err} against gels")
+    check(not any(counts.values()), f"Blendenpik f64 launched kernels: {counts}")
+    del A, b, x, x_ref
+
+    # (b) Blendenpik f32, 32768 x 1024: FJLT at NB = 32768, the sampled kernel.
+    blendenpik_f32("NLA (b) Blendenpik f32 32768 x 1024", NLA_SMALL_M, NLA_SMALL_N, -1.0,
+                   ("rfut_rowwise_sampled",))
+
+    # (c) LSRN on a rank-deficient A = [G, G[:, :128]], G 2^20 x 384 (JLT,
+    # s = 2048), held against the least-norm solution: from gels on G,
+    # whose column space is A's, with the repeated columns' share halved.
+    q = n // 4
+    G = gaussian(m, 3 * q)
+    A = torch.cat([G, G[:, :q]], dim=1)
+    b = G @ gaussian(3 * q) + NLA_NOISE * gaussian(m)
+    label = "NLA (c) LSRN f32 2^20 x 512"
+    (x, info), secs, runs, _ = timed(label, (), lambda: ls("lsrn", A, b))
+    x_g = gels64(G, b)
+    least = resid64(G, x_g, b)
+    x_ref = torch.cat([x_g[:q] / 2, x_g[q:], x_g[:q] / 2])
+    short = sky.solvers.lsrn_least_squares(A, b, sky.SketchContext(seed=SEED), (
+        sky.solvers.FasterLeastSquaresParams(krylov=sky.solvers.KrylovParams(iter_lim=3))))[0]
+    basic = torch.cat([x_g, torch.zeros_like(x_g[:q])])
+    controls = {name: (rel_err(y, x_ref), resid64(A, y, b) / least) for name, y in (
+        ("LSRN at 3 LSQR steps", short), ("a least-squares x of larger norm", basic))}
+    print(f"{label} of rank {3 * q}, JLT s = {4 * n}: median {secs!r} s of "
+          f"{[round(r, 4) for r in runs]}")
+    check(bool(torch.isfinite(x).all()), f"{label}: non-finite x")
+    solved(label, info, rel_err(x, x_ref), resid64(A, x, b) / least, controls)
+    del G, A, b, x, x_ref, x_g, short, basic
+
+    # (d) Guarded sketch-and-solve (the LS phase's problem), bitwise the
+    # SKYLARK_GUARD=0 result of the same call.
+    A = gaussian(m, n)
+    b = A @ gaussian(n) + gaussian(m)
+    reset_counts()
+    t0 = time.perf_counter()
+    for stype in ("FJLT", "CWT"):
+        p = linalg.LeastSquaresParams(sketch_type=stype, sketch_size=4 * n)
+        out = {}
+
+        def run(tag):
+            out[tag] = ls(None, A, b, params=p)
+
+        g_secs, g_runs = host_median(lambda: run("guarded"), reps=7)
+        os.environ["SKYLARK_GUARD"] = "0"
+        try:
+            u_secs, u_runs = host_median(lambda: run("unguarded"), reps=7)
+        finally:
+            del os.environ["SKYLARK_GUARD"]
+        (xg, ig), (xu, iu) = out["guarded"], out["unguarded"]
+        first = ig["recovery"]["attempts"][0]
+        print(f"NLA (d) guarded {stype} sketch-and-solve 2^20 x 512, s = {4 * n}: first verdict "
+              f"{first['verdict']} (cert cond {first.get('cond', float('nan')):.4g}), x bitwise "
+              f"the SKYLARK_GUARD=0 call: {torch.equal(xg, xu)}; guarded median {g_secs!r} s of "
+              f"{[round(r, 4) for r in g_runs]}, unguarded {u_secs!r} s of "
+              f"{[round(r, 4) for r in u_runs]}, ratio {g_secs / u_secs:.4f}")
+        check(first["verdict"] == "OK" and not ig["recovery"]["recovered"],
+              f"guarded {stype}: recovery {ig['recovery']}")
+        check(not iu["recovery"]["guarded"], f"SKYLARK_GUARD=0 {stype} ran guarded")
+        check(torch.equal(xg, xu), f"guarded {stype} is not bitwise the unguarded result")
+    read_counts("NLA (d) guarded sketch-and-solve", t0, ("gather_scaled_rows", "scatter_rows"))
+    del A, b, out
+
+    # (e) Randomized SVD at the JAX package's headline SVD width (bench.py
+    # SVD rows: 10^7 x 1024, rank 100, noise 0.01), m cut to 2^21 to fit
+    # in-core; materialized panel by panel from the counter stream.
+    t1 = time.perf_counter()
+    block = linalg.synthetic_lowrank_blocks(sky.SketchContext(seed=SEED), SVD_M, SVD_N, SVD_R,
+                                            noise=SVD_NOISE, device=dev)
+    A = torch.empty(SVD_M, SVD_N, device=dev)
+    for r0 in range(0, SVD_M, SVD_PANEL):
+        A[r0:r0 + SVD_PANEL] = block(r0, SVD_PANEL)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t1
+    params = linalg.SVDParams(num_iterations=1)
+    ((U, sv, V), info), secs, runs, _ = timed("NLA (e) randomized SVD", (), lambda: (
+        linalg.approximate_svd(A, SVD_K, sky.SketchContext(seed=SEED + 1), params,
+                               return_info=True)))
+    gram = torch.zeros(SVD_N, SVD_N, dtype=f64, device=dev)
+    for r0 in range(0, SVD_M, SVD_PANEL):
+        P = A[r0:r0 + SVD_PANEL].double()
+        gram += P.T @ P
+    exact = torch.linalg.eigvalsh(gram).flip(0)[:SVD_K].clamp(min=0).sqrt()
+    rel = float(((sv.double() - exact).abs() / exact).max())
+    orth = float((U.T @ U - torch.eye(SVD_K, device=dev)).abs().max())
+    first = info["recovery"]["attempts"][0]
+    print(f"NLA (e) synthetic rank-{SVD_R} {SVD_M} x {SVD_N} f32 (noise {SVD_NOISE}), made in "
+          f"{t_gen:.2f} s: approximate_svd k = {SVD_K}, q = 1, s = {2 * SVD_K}: first and last "
+          f"sigma {float(sv[0]):.6g}, {float(sv[-1]):.6g}; vs sqrt(eigvalsh(A^T A)) in f64 max rel "
+          f"{rel:.3g} (tol 1e-3); max |U^T U - I| {orth:.3g}; certificate {first['verdict']}; "
+          f"median {secs!r} s of {[round(r, 4) for r in runs]}")
+    check(rel <= 1e-3, f"randomized SVD: singular values rel {rel}")
+    check(first["verdict"] == "OK" and len(info["recovery"]["attempts"]) == 1,
+          f"randomized SVD: recovery {info['recovery']}")
+    del A, U, sv, V, gram, P
+    torch.cuda.empty_cache()
+    # The card against the port's CPU route at m = 2^14.
+    svs = []
+    for d in (dev, "cpu"):
+        blk = linalg.synthetic_lowrank_blocks(sky.SketchContext(seed=SEED), SVD_CHECK_M, SVD_N,
+                                              SVD_R, noise=SVD_NOISE, device=d)
+        svs.append(linalg.approximate_svd(blk(0, SVD_CHECK_M), SVD_K,
+                                          sky.SketchContext(seed=SEED + 1), params)[1].cpu())
+    rel = float(((svs[0] - svs[1]).abs() / svs[1]).max())
+    print(f"NLA (e) at m = {SVD_CHECK_M}: singular values on the card vs the CPU route max rel "
+          f"{rel:.3g} (tol 1e-4)")
+    check(rel <= 1e-4, f"randomized SVD card vs CPU: rel {rel}")
+
+    # (f) Sparse randomized SVD of phase 3b's COO at skylark_svd's default rank.
+    ((U, sv, V), info), secs, runs, _ = timed("NLA (f) sparse randomized SVD", (), lambda: (
+        linalg.approximate_svd(A_sp, SP_SVD_K, sky.SketchContext(seed=SEED), return_info=True)))
+    res = float(torch.linalg.vector_norm(
+        torch.sparse.mm(A_sp, V[:, :1])[:, 0] - sv[0] * U[:, 0]))
+    orth = float((U.T @ U - torch.eye(SP_SVD_K, device=dev)).abs().max())
+    print(f"NLA (f) sparse approximate_svd {tuple(A_sp.shape)}, {A_sp._nnz()} nonzeros, k = "
+          f"{SP_SVD_K}: sigma {[round(float(x), 4) for x in sv]}, ||A v0 - s0 u0|| / s0 "
+          f"{res / float(sv[0]):.4f} (certify_svd tol 0.5), max |U^T U - I| {orth:.3g} "
+          f"(tol 1e-4), certificate {info['recovery']['attempts'][0]['verdict']}; median "
+          f"{secs!r} s of {[round(r, 4) for r in runs]}")
+    check(res <= 0.5 * float(sv[0]), f"sparse SVD posterior residual {res}")
+    check(orth <= 1e-4, f"sparse SVD: |U^T U - I| {orth}")
+    del U, sv, V
+    torch.cuda.empty_cache()
+
+    # (h) Where the guard's time goes, and what the CUDA-graph steps and
+    # the one-read-per-step chunks of the Krylov loops cost or save: the
+    # certificate of one FJLT sketch (cond_est on the 2048 x 512 SA) and
+    # a Blendenpik-preconditioned LSQR solve at 2^20 x 512, each with its
+    # steps replayed as graphs and run eagerly (bitwise the same), and
+    # the solve read every step and every 10 steps.
+    A = gaussian(m, n)
+    b = A @ gaussian(n) + NLA_NOISE * gaussian(m)
+    SA = sky.sketch.create_sketch("FJLT", m, 4 * n, sky.SketchContext(seed=SEED)).apply(
+        A, "columnwise")
+    P = sky.solvers.TriInversePrecond(torch.linalg.qr(SA, mode="r")[1])
+    krylov, chunked = sky.solvers.krylov, sky.resilient.chunked
+    certs, cert_ms, sols, sol_ms = {}, {}, {}, {}
+    for graphs, every in ((True, 1), (False, 1), (True, 10)):
+        chunked.CUDA_GRAPHS, krylov.SYNC_EVERY = graphs, every
+        try:
+            key = f"{'graphs' if graphs else 'eager'}, a read every {every}"
+            if every == 1:
+                cert_ms[key] = host_median(lambda: certs.__setitem__(
+                    key, sky.guard.certify_sketch(SA)), reps=7)[0] * 1e3
+            sol_ms[key] = host_median(lambda: sols.__setitem__(
+                key, sky.solvers.lsqr(A, b, P)), reps=5)[0] * 1e3
+        finally:
+            chunked.CUDA_GRAPHS, krylov.SYNC_EVERY = True, 1
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        cert = sky.guard.certify_sketch(SA)
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    dev_ms = sum(getattr(e, "self_device_time_total", 0) for e in rows
+                 if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    launches = {k: sum(e.count for e in rows if e.key == k)
+                for k in ("cudaLaunchKernel", "cudaGraphLaunch")}
+    kp = sky.solvers.KrylovParams(iter_lim=10, tolerance=0.0)
+    step_ms = host_median(lambda: sky.solvers.lsqr(A, b, P, kp), reps=3)[0] * 1e3 / 10
+    its = int(sols["graphs, a read every 1"][1]["iterations"])
+    print(f"NLA (h) guard certificate of the FJLT SA (2048, 512), host clock (median of 7): "
+          f"{cert_ms!r} ms; graphed: device kernels {dev_ms!r} ms, launches {launches}, cert "
+          f"cond {cert.cond:.4g} (flag {cert.flag}); Blendenpik-preconditioned LSQR at 2^20 x "
+          f"512, {its} iterations, host clock (median of 5): {sol_ms!r} ms (a read every 10 "
+          f"computes {-(-its // 10) * 10 - its} discarded steps); one step {step_ms!r} ms (two "
+          f"matvecs' bytes at 3.35 TB/s: {2 * 4 * m * n / MEM_BYTES_PER_S * 1e3!r} ms)")
+    first = next(iter(sols.values()))
+    for key, (x, info) in sols.items():
+        check(torch.equal(x, first[0]) and int(info["iterations"]) == its,
+              f"LSQR ({key}) is not bitwise the graphed solve")
+    check(all(c == cert for c in certs.values()), f"certificates differ: {certs}")
+    del A, SA, b, P, sols
     torch.cuda.empty_cache()
 
 
@@ -635,6 +946,7 @@ def main() -> None:
         for name, count in counts.items():
             launches[name] += count
         path_launches[path] = counts
+        return counts
 
     reset_counts()
     t_main = time.perf_counter()
@@ -738,7 +1050,7 @@ def main() -> None:
     rows_sp, cols_sp = A_sp._indices()
     sp_keys = (S.buckets(device=dev).long()[rows_sp] * SP_COLS + cols_sp).int()
     sp_vals = A_sp._values() * S.values(device=dev)[rows_sp]
-    del A_cpu, A_sp, sp_out, dense_out, rows_sp, cols_sp, sketches, S
+    del A_cpu, sp_out, dense_out, rows_sp, cols_sp, sketches, S
 
     # -- 3c. adjacency sketch + Nyström ASE, com-LiveJournal scale -------
     t0 = time.perf_counter()
@@ -808,6 +1120,10 @@ def main() -> None:
     # -- 3d. random-feature kernel machine: flagship and full-width predict
     ml_path(sky, dev, reset_counts, read_counts)
 
+    # -- 3e. randomized NLA, f32 at full width (A_sp: phase 3b's COO) ------
+    nla_path(sky, dev, reset_counts, read_counts, A_sp)
+    del A_sp
+
     # -- 4. times at main-path shapes ------------------------------------
     kernels = []
 
@@ -817,6 +1133,7 @@ def main() -> None:
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name] if path_count is None else path_count,
+            "launches_by_path": {p: c[name] for p, c in path_launches.items() if c[name]},
             "max_abs_err": errs[name] if err is None else err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
             "library_ms": library_ms, **({"shape": shape} if shape else {}), **(split or {}),

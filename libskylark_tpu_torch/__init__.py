@@ -7,7 +7,11 @@ kernel on the ported path replaced by a CUDA C++ kernel for Hopper
 card unless the caller asks for the CPU (``device="cpu"``, CPU tensors,
 or :func:`set_default_device`); CPU tensors take the kernels' plain
 PyTorch versions.  Ported so far: sketch-and-solve least squares with
-FJLT and the hash sketches on dense input; the hash sketches on
+FJLT and the hash sketches on dense input, guarded by the numerical-
+health layer (``guard``); the randomized NLA layer (``linalg``,
+``solvers``: Blendenpik and LSRN over the Krylov solvers, the
+randomized SVD, condition estimation, the regression dispatch); the
+hash sketches on
 sparse COO input, dense or sparse output, and the in-core graph
 adjacency sketch with its Nyström eigensolve (``graph``); and the
 predict path of the random-feature kernel machine (``ml``: the six
@@ -19,10 +23,10 @@ matrices are ``torch.sparse_coo_tensor``s
 """
 
 from ._device import set_default_device
-from . import core, flagship, graph, linalg, ml, sketch, utils
+from . import core, flagship, graph, guard, linalg, ml, resilient, sketch, solvers, utils
 from .core.context import SketchContext
 
 __version__ = "0.1.0"
 
-__all__ = ["SketchContext", "sketch", "linalg", "graph", "ml", "flagship", "core",
-           "utils", "set_default_device"]
+__all__ = ["SketchContext", "sketch", "linalg", "solvers", "guard", "resilient", "graph",
+           "ml", "flagship", "core", "utils", "set_default_device"]

@@ -1,14 +1,45 @@
-"""Linear algebra layer of the port: exact and sketch-and-solve least
-squares."""
+"""Randomized NLA of the port (port of ``libskylark_tpu/linalg``):
+exact, sketch-and-solve, Blendenpik and LSRN least squares, the
+randomized SVD and condition estimation."""
 
+from ..solvers.accelerated import (
+    FasterLeastSquaresParams,
+    faster_least_squares,
+    lsrn_least_squares,
+)
+from ..solvers.cond_est import CondEstParams, CondEstResult, cond_est
 from .least_squares import (
     LeastSquaresParams,
     approximate_least_squares,
     exact_least_squares,
 )
+from .svd import (
+    SVDParams,
+    approximate_svd,
+    approximate_svd_chunked,
+    approximate_symmetric_svd,
+    gram_orth,
+    power_iteration,
+    streaming_approximate_svd,
+    synthetic_lowrank_blocks,
+)
 
 __all__ = [
+    "SVDParams",
+    "approximate_svd",
+    "approximate_svd_chunked",
+    "approximate_symmetric_svd",
+    "gram_orth",
+    "power_iteration",
+    "streaming_approximate_svd",
+    "synthetic_lowrank_blocks",
     "LeastSquaresParams",
     "approximate_least_squares",
     "exact_least_squares",
+    "FasterLeastSquaresParams",
+    "faster_least_squares",
+    "lsrn_least_squares",
+    "cond_est",
+    "CondEstParams",
+    "CondEstResult",
 ]

@@ -1,20 +1,30 @@
-"""Least squares: exact l2 solvers and sketch-and-solve (port of
+"""Least squares: exact l2 solvers, sketch-and-solve, and the
+Blendenpik and LSRN routes (port of
 ``libskylark_tpu/linalg/least_squares.py``).
 
 ``approximate_least_squares`` sketches A and B columnwise once (FJLT by
 default for dense input, sketch size 4·width) and solves the small
-problem exactly.  This slice has no guard ladder, policy store or plan
-cache, so it returns what the JAX function returns under
-``SKYLARK_GUARD=0`` and ``SKYLARK_POLICY=0`` — which, with an empty
-policy store and a healthy sketch, is also its default result.
+problem exactly.  Guarded (``SKYLARK_GUARD``, on by default) each sketch
+is certified (``guard.certify_sketch``) and a bad draw climbs the
+recovery ladder (fresh-seed resketch → grown sketch → the exact ``svd``
+solve); attempt 0 uses the caller's context, so a healthy run is bitwise
+the unguarded one.  ``route="blendenpik"`` and ``"lsrn"`` hand the
+problem to ``solvers.accelerated``.
+
+This slice has no policy store or plan cache (ROADMAP Queue A item 3),
+so a call returns what the JAX package returns under
+``SKYLARK_POLICY=0``: with an empty store that is also its default.
+``info`` has no ``"policy"`` entry, and the ``"refine"`` and ``"exact"``
+routes and ``fault_plan=`` raise ``UnsupportedError``.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 
+from .. import guard
 from .._device import as_tensor
 from ..core.context import SketchContext
 from ..core.params import Params
@@ -27,15 +37,12 @@ __all__ = [
     "approximate_least_squares",
 ]
 
-# Routes of the JAX package that wait for later slices, with the ROADMAP
+_ITEM3 = "ROADMAP Queue A item 3: policy, plans and refine around approximate_least_squares"
+# Routes of the JAX package that wait for a later slice, with the ROADMAP
 # item that ports them.
 _DEFERRED_ROUTES = {
-    "refine": "ROADMAP Queue A: guard, policy and plans around "
-              "approximate_least_squares (mixed-precision refine)",
-    "blendenpik": "ROADMAP Queue A: randomized NLA (Blendenpik/LSRN)",
-    "lsrn": "ROADMAP Queue A: randomized NLA (Blendenpik/LSRN)",
-    "exact": "ROADMAP Queue A: guard, policy and plans around "
-             "approximate_least_squares (policy-chosen exact route)",
+    "refine": f"{_ITEM3} (mixed-precision refine)",
+    "exact": f"{_ITEM3} (policy-chosen exact route)",
 }
 
 
@@ -56,10 +63,10 @@ def _svd_lstsq(A, B):
 
 def exact_least_squares(A, B, alg: str = "qr", *, device=None):
     """Solve ``min_X ||A X - B||_F`` for tall A; returns X (n, k), or
-    (n,) for a vector B.  ``alg`` ∈ {"qr", "sne", "ne", "svd"}.  ``ne``
-    raises :class:`NumericalHealthError` when the Gram matrix has no
-    finite Cholesky factor (the JAX package's ``SKYLARK_GUARD=0``
-    behaviour)."""
+    (n,) for a vector B.  ``alg`` ∈ {"qr", "sne", "ne", "svd"}.  When the
+    Gram matrix of ``ne`` has no finite Cholesky factor, the guard
+    reroutes to the ``svd`` pseudoinverse; under ``SKYLARK_GUARD=0`` it
+    raises :class:`NumericalHealthError` instead."""
     A = as_tensor(A, device)
     B = as_tensor(B, A.device if device is None else device)
     squeeze = B.ndim == 1
@@ -74,13 +81,16 @@ def exact_least_squares(A, B, alg: str = "qr", *, device=None):
         X = torch.linalg.solve_triangular(R, Y, upper=True)
     elif alg == "ne":
         L, info = torch.linalg.cholesky_ex(A.T @ A)
-        if int(info) != 0 or not bool(torch.isfinite(L).all()):
+        if int(info) == 0 and bool(torch.isfinite(L).all()):
+            X = torch.cholesky_solve(A.T @ B, L)
+        elif guard.enabled():
+            X = _svd_lstsq(A, B)
+        else:
             raise NumericalHealthError(
                 "Cholesky of the Gram matrix failed (singular or indefinite) "
                 "in exact_least_squares(alg='ne')",
                 stage="exact_ls_ne",
             )
-        X = torch.cholesky_solve(A.T @ B, L)
     elif alg == "svd":
         X = _svd_lstsq(A, B)
     else:
@@ -96,24 +106,48 @@ def approximate_least_squares(
     alg: str = "qr",
     *,
     route: str | None = None,
+    fault_plan=None,
+    return_info: bool = False,
     device=None,
 ):
-    """Sketch-and-solve LS: sketch the rows of (A, B) with one sketch
-    S (size s × m), then solve ``min ||SA X - SB||`` exactly.
+    """Least squares by sketching: ``route`` None or ``"sketch"``
+    (sketch-and-solve with one sketch S of size s × m, then ``min ||SA X
+    - SB||`` exactly), ``"blendenpik"`` or ``"lsrn"`` (sketch to
+    precondition LSQR, :mod:`~libskylark_tpu_torch.solvers.accelerated`).
 
-    ``route`` may be None or ``"sketch"``; the JAX package's other routes
+    With ``return_info=True`` returns ``(x, info)``; ``info["recovery"]``
+    is the guard's :class:`~libskylark_tpu_torch.guard.RecoveryReport`
+    dict (``guarded=False`` under ``SKYLARK_GUARD=0``), and the
+    Blendenpik and LSRN routes add their solver's keys.  The JAX
+    package's ``"refine"`` and ``"exact"`` routes and ``fault_plan``
     raise :class:`UnsupportedError` (a ``NotImplementedError``) naming
     the ROADMAP item that ports them."""
-    if route not in (None, "sketch"):
+    if route not in (None, "sketch", "blendenpik", "lsrn"):
         if route in _DEFERRED_ROUTES:
             raise UnsupportedError(
                 f"least-squares route {route!r} is not ported yet "
                 f"({_DEFERRED_ROUTES[route]})"
             )
         raise ValueError(f"unknown least-squares route {route!r}")
+    if fault_plan is not None:
+        raise UnsupportedError(f"fault_plan= is not ported yet ({_ITEM3})")
     params = params or LeastSquaresParams()
     A = as_tensor(A, device)
     B = as_tensor(B, A.device if device is None else device)
+    squeeze = B.ndim == 1
+    if squeeze:
+        B = B[:, None]
+    if route in ("blendenpik", "lsrn"):
+        from ..solvers.accelerated import (
+            FasterLeastSquaresParams,
+            faster_least_squares,
+            lsrn_least_squares,
+        )
+
+        solver = faster_least_squares if route == "blendenpik" else lsrn_least_squares
+        X, info = solver(A, B, context, FasterLeastSquaresParams(sketch_type=params.sketch_type))
+        out = X[:, 0] if squeeze else X
+        return (out, info) if return_info else out
     if A.layout != torch.strided:
         raise UnsupportedError(
             "sparse least-squares inputs are not supported: the JAX "
@@ -121,14 +155,31 @@ def approximate_least_squares(
             "either (its hash sketch returns a sparse SA that "
             "exact_least_squares does not take; ROADMAP Queue C)"
         )
-    squeeze = B.ndim == 1
-    if squeeze:
-        B = B[:, None]
     m, n = A.shape
-    s = params.sketch_size if params.sketch_size is not None else min(4 * n, m)
+    s = int(params.sketch_size if params.sketch_size is not None else min(4 * n, m))
     stype = params.sketch_type or "FJLT"
-    S = create_sketch(stype, m, int(s), context)
-    SA = S.apply(A, Dimension.COLUMNWISE)
-    SB = S.apply(B, Dimension.COLUMNWISE)
-    X = exact_least_squares(SA, SB, alg=alg)
-    return X[:, 0] if squeeze else X
+
+    if not guard.enabled():
+        S = create_sketch(stype, m, s, context)
+        X = exact_least_squares(S.apply(A, Dimension.COLUMNWISE),
+                                S.apply(B, Dimension.COLUMNWISE), alg=alg)
+        report = guard.RecoveryReport.disabled("sketch_and_solve_ls")
+    else:
+        def attempt(ctx, s_i, i):
+            S = create_sketch(stype, m, s_i, ctx)
+            SA = S.apply(A, Dimension.COLUMNWISE)
+            SB = S.apply(B, Dimension.COLUMNWISE)
+            cert = guard.certify_sketch(SA, stage="sketch_and_solve_ls")
+            if not cert.ok:
+                return None, cert
+            X = exact_least_squares(SA, SB, alg=alg)
+            if not guard.tree_all_finite(X):
+                return None, replace(cert, verdict=guard.RESKETCH,
+                                     detail="non-finite small-problem solution")
+            return X, cert
+
+        X, report = guard.run_ladder(
+            "sketch_and_solve_ls", context, s, m, attempt,
+            lambda: exact_least_squares(A, B, alg="svd"))
+    out = X[:, 0] if squeeze else X
+    return (out, {"recovery": report.to_dict()}) if return_info else out

@@ -1,0 +1,251 @@
+"""Randomized SVD (Halko-Martinsson-Tropp; port of
+``libskylark_tpu/linalg/svd.py``, ≙ ``nla/svd.hpp``).
+
+A JLT sketch of the row space, optional power iterations, an eigh-based
+CholeskyQR2 orthonormalization (:func:`gram_orth`), then a small SVD.
+The tall products are ``torch.matmul`` in full f32 on the card (TF32 is
+off, ``_device.py``), the counterpart of the JAX package's
+``precision="highest"``; the small factorizations are torch's own.
+``A`` may be a dense or a sparse COO tensor (only products with A are
+taken).  The single-device port has no sharding, so the JAX package's
+``fully_replicated`` constraints are no-ops here (multi-device is
+ROADMAP Queue A item 9).  ``streaming_approximate_svd`` waits for the
+streaming slice (item 4).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+
+import torch
+
+from .. import guard
+from .._device import as_tensor
+from ..core.context import SketchContext
+from ..core.matrices import gaussian_matrix
+from ..core.params import Params
+from ..core.random import sample_window
+from ..resilient.chunked import ChunkedSolver
+from ..sketch.base import Dimension
+from ..sketch.dense import JLT
+from ..utils.exceptions import deferred
+from ..utils.sparse import is_sparse, linear_ops
+
+__all__ = [
+    "SVDParams",
+    "power_iteration",
+    "approximate_svd",
+    "approximate_svd_chunked",
+    "approximate_symmetric_svd",
+    "streaming_approximate_svd",
+    "synthetic_lowrank_blocks",
+    "gram_orth",
+]
+
+
+@dataclass
+class SVDParams(Params):
+    """≙ ``nla/svd.hpp:22-48`` (``approximate_svd_params_t``)."""
+
+    oversampling_ratio: int = 2
+    oversampling_additive: int = 0
+    num_iterations: int = 0
+    skip_qr: bool = False
+
+
+def gram_orth(Y: torch.Tensor, passes: int = 2) -> torch.Tensor:
+    """Orthonormalize the columns of tall-skinny ``Y`` through its Gram
+    matrix: per pass ``G = YᵀY``, ``eigh(G)`` and ``Y ← Y·V·diag(λ^-½)``.
+    Two passes give CholeskyQR2-grade orthogonality.  Eigenvalues at or
+    below ``λ_max·eps·s`` get a zero scale, so a rank-deficient Y (the
+    sketch of an exactly low-rank A) yields zero columns, not NaNs; the
+    rank-k truncation downstream drops them."""
+    for _ in range(passes):
+        G = Y.T @ Y
+        lam, V = torch.linalg.eigh(G)
+        floor = torch.clamp(lam[-1], min=0) * torch.finfo(Y.dtype).eps * G.shape[0]
+        scale = torch.where(lam > floor, torch.rsqrt(torch.maximum(lam, floor)),
+                            torch.zeros_like(lam))
+        Y = Y @ (V * scale[None, :])
+    return Y
+
+
+def _sketch_size(k: int, params: SVDParams, n: int, m: int | None = None):
+    """Validated (k, s): the oversampled sketch width clamped to n."""
+    k = int(k)
+    lim = n if m is None else min(m, n)
+    if k > lim:
+        raise ValueError(f"rank {k} exceeds min matrix dimension {lim}")
+    s = min(k * params.oversampling_ratio + params.oversampling_additive, n)
+    return k, max(s, k)
+
+
+def power_iteration(A, Q: torch.Tensor, num_iterations: int, orthogonalize: bool = True):
+    """Subspace iteration ``Q <- orth((A·Aᵀ)·Q)``, repeated
+    (≙ ``PowerIteration``, ``nla/svd.hpp:71-149``; pass ``A.T`` for the
+    adjoint flavour)."""
+    matvec, rmatvec = linear_ops(A)
+    for _ in range(max(int(num_iterations), 0)):
+        Q = matvec(rmatvec(Q))
+        if orthogonalize:
+            Q = gram_orth(Q)
+    return Q
+
+
+def approximate_svd_chunked(A, rank: int, context: SketchContext,
+                            params: SVDParams | None = None, *, device=None) -> ChunkedSolver:
+    """Chunkable randomized SVD: the power-iteration sweeps run as chunks
+    whose state is the iteration count and the current basis Y; the
+    sketch in ``init_state`` is counter-based, so a rebuilt solver makes
+    the same test matrix.  ``extract_result`` does the trailing
+    orthonormalization, ``B = AᵀQ``, the small SVD and the truncation."""
+    params = params or SVDParams()
+    A = as_tensor(A, device)
+    m, n = A.shape
+    k, s = _sketch_size(rank, params, n, m)
+    niter = max(params.num_iterations, 0)
+    orthogonalize = not params.skip_qr
+    rmatvec = linear_ops(A)[1]
+
+    def init_state():
+        # Y = A·Ωᵀ, a rowwise JLT sketch (nla/svd.hpp:255-257).
+        return dict(it=0, Y=JLT(n, s, context).apply(A, Dimension.ROWWISE))
+
+    def step_chunk(st, num_iters: int):
+        steps = max(min(num_iters, niter - st["it"]), 0)
+        return dict(it=st["it"] + steps,
+                    Y=power_iteration(A, st["Y"], steps, orthogonalize))
+
+    def extract_result(st):
+        Y = st["Y"]
+        # The sweeps end orthonormalized unless skip_qr.
+        Q = Y if (niter > 0 and orthogonalize) else gram_orth(Y)
+        B = rmatvec(Q)  # (n, s)
+        W, sv, Zt = torch.linalg.svd(B, full_matrices=False)
+        # A ≈ Q·Bᵀ = (Q·Ztᵀ)·diag(sv)·Wᵀ (nla/svd.hpp:266-285).
+        U = Q @ Zt.T
+        return U[:, :k], sv[:k], W[:, :k]
+
+    return ChunkedSolver(
+        init_state=init_state,
+        step_chunk=step_chunk,
+        extract_result=extract_result,
+        is_done=lambda st: st["it"] >= niter,
+        iteration=lambda st: st["it"],
+        kind="approximate_svd",
+    )
+
+
+def approximate_svd(A, rank: int, context: SketchContext, params: SVDParams | None = None,
+                    *, return_info: bool = False, device=None):
+    """Randomized truncated SVD: ``(U, s, V)`` with ``A ≈ U·diag(s)·Vᵀ``,
+    U (m, rank), V (n, rank) (≙ ``ApproximateSVD``, ``nla/svd.hpp:222-318``).
+
+    Guarded (``SKYLARK_GUARD``, on by default): the factors are certified
+    (``guard.certify_svd``); a failed certificate climbs the ladder
+    (fresh-seed resketch → grown oversampling → dense
+    ``torch.linalg.svd``).  Attempt 0 uses the caller's context, so a
+    healthy run is bitwise the unguarded one.  ``return_info=True``
+    returns ``((U, s, V), info)`` with the attempts in
+    ``info["recovery"]``.
+    """
+    params = params or SVDParams()
+    A = as_tensor(A, device)
+
+    def run(ctx, p):
+        sol = approximate_svd_chunked(A, rank, ctx, p)
+        return sol.extract_result(sol.step_chunk(sol.init_state(), max(p.num_iterations, 1)))
+
+    if not guard.enabled():
+        out = run(context, params)
+        if return_info:
+            return out, {"recovery": guard.RecoveryReport.disabled("randomized_svd").to_dict()}
+        return out
+
+    m, n = A.shape
+    report = guard.RecoveryReport(stage="randomized_svd")
+    out = None
+    for i in range(guard.max_retries() + 1):
+        if i == 0:
+            action, ctx, p = "initial", context, params
+        elif i == 1:
+            action, ctx, p = "resketch", guard.derived_context(context, i), params
+        else:
+            # Grow the sketch width through the additive oversampling.
+            action, ctx = "grow", guard.derived_context(context, i)
+            p = replace(params, oversampling_additive=params.oversampling_additive
+                        + rank * (2 ** (i - 1)))
+        U, sv, V = run(ctx, p)
+        cert = guard.certify_svd(A, U, sv, V)
+        report.record(action, verdict=cert.verdict, detail=cert.detail,
+                      sketch_size=_sketch_size(rank, p, n, m)[1])
+        if cert.ok:
+            report.recovered = i > 0
+            out = (U, sv, V)
+            break
+    if out is None:
+        Ad = A.to_dense() if is_sparse(A) else A
+        Uf, svf, Vtf = torch.linalg.svd(Ad, full_matrices=False)
+        out = (Uf[:, :rank], svf[:rank], Vtf[:rank].T)
+        report.record("fallback", verdict=guard.FALLBACK, detail="dense torch.linalg.svd")
+        report.recovered = True
+    if return_info:
+        return out, {"recovery": report.to_dict()}
+    return out
+
+
+def approximate_symmetric_svd(A, rank: int, context: SketchContext,
+                              params: SVDParams | None = None, *, device=None):
+    """Randomized eigendecomposition of symmetric A: ``(V, lam)`` with
+    ``A ≈ V·diag(lam)·Vᵀ``, eigenvalues by |lam| descending
+    (≙ ``ApproximateSymmetricSVD``, ``nla/svd.hpp:321-392``)."""
+    params = params or SVDParams()
+    A = as_tensor(A, device)
+    n = A.shape[0]
+    k, s = _sketch_size(rank, params, n)
+    Y = JLT(n, s, context).apply(A, Dimension.ROWWISE)  # A·Ωᵀ (A symmetric)
+    Y = power_iteration(A, Y, params.num_iterations, not params.skip_qr)
+    Q = Y if (params.num_iterations > 0 and not params.skip_qr) else gram_orth(Y)
+    # Rayleigh-Ritz on the subspace (nla/svd.hpp:360-380).
+    T = Q.T @ linear_ops(A)[0](Q)
+    T = (T + T.T) / 2
+    lam, W = torch.linalg.eigh(T)
+    order = torch.argsort(-torch.abs(lam))
+    return (Q @ W)[:, order[:k]], lam[order][:k]
+
+
+streaming_approximate_svd = deferred(
+    "streaming_approximate_svd",
+    "ROADMAP Queue A item 4: streaming; approximate_svd is its in-core base")
+
+
+def synthetic_lowrank_blocks(context: SketchContext, m: int, n: int, r: int,
+                             noise: float = 0.0, dtype=torch.float32, decay: float = 1.0,
+                             device=None):
+    """Row-panel generator of ``A = L·diag(w)·Rᵀ + noise·E`` with L (m, r),
+    R (n, r) and E (m, n) counter-generated and ``w[j] = decay^j``
+    (≙ the synthetic ``--profile`` matrix of ``nla/skylark_svd.cpp``).
+    ``block_fn(start_row, rows)`` returns rows ``[start_row, start_row +
+    rows)`` of A, each a window of the logical stream, so any panel is
+    bitwise the same rows of any other split."""
+    base_L = context.reserve(m * r)
+    base_E = context.reserve(m * n)
+    R = gaussian_matrix(context, (n, r), dtype=dtype, device=device)
+    wdtype = torch.promote_types(dtype, torch.float32)
+    w = torch.tensor(decay, dtype=wdtype, device=R.device) ** torch.arange(
+        r, device=R.device)
+    Rw = (R * w[None, :].to(dtype)).T  # (r, n)
+    scale = torch.tensor(noise, dtype=dtype, device=R.device)
+
+    def block_fn(start_row: int, rows: int) -> torch.Tensor:
+        Lb = sample_window("normal", context.seed, base_L, (m, r), offset=(start_row, 0),
+                           shape=(rows, r), dtype=dtype, device=R.device)
+        Ab = Lb @ Rw
+        if noise:
+            Eb = sample_window("normal", context.seed, base_E, (m, n),
+                               offset=(start_row, 0), shape=(rows, n), dtype=dtype,
+                               device=R.device)
+            Ab = Ab + scale * Eb
+        return Ab
+
+    return block_fn

@@ -5,8 +5,10 @@ from .exceptions import (
     NumericalHealthError,
     SkylarkError,
     UnsupportedError,
+    deferred,
 )
-from .sparse import coo_from_bcoo_arrays
+from .sparse import coo_from_bcoo_arrays, is_sparse, linear_ops
 
 __all__ = ["SkylarkError", "InvalidParameters", "UnsupportedError",
-           "NumericalHealthError", "coo_from_bcoo_arrays"]
+           "NumericalHealthError", "deferred", "coo_from_bcoo_arrays", "is_sparse",
+           "linear_ops"]

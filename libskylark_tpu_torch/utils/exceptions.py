@@ -4,7 +4,7 @@ stable error codes (``libskylark_tpu/utils/exceptions.py``)."""
 from __future__ import annotations
 
 __all__ = ["SkylarkError", "InvalidParameters", "UnsupportedError",
-           "NumericalHealthError"]
+           "NumericalHealthError", "deferred"]
 
 
 class SkylarkError(Exception):
@@ -22,10 +22,13 @@ class UnsupportedError(SkylarkError, NotImplementedError):
 
 
 class NumericalHealthError(SkylarkError):
-    """A numerical-health check fired where the only safe continuation
-    would have been a fallback (the port has no guard ladder yet, so it
-    behaves as the JAX package does under ``SKYLARK_GUARD=0``).
-    ``stage`` names the pipeline stage whose probe tripped."""
+    """A numerical-health check fired and no recovery was left: the guard
+    ladder (``guard.run_ladder``) ran out of rungs with no dense fallback,
+    a finiteness sentinel (``guard.check_finite``) tripped, or a check
+    fired under ``SKYLARK_GUARD=0`` where the guard would have fallen
+    back.  ``stage`` names the pipeline stage whose probe tripped and
+    ``report`` carries the ladder's ``RecoveryReport`` when there was
+    one."""
 
     code = 108
 
@@ -33,3 +36,16 @@ class NumericalHealthError(SkylarkError):
         super().__init__(msg)
         self.stage = stage
         self.report = report
+
+
+def deferred(name: str, item: str):
+    """A stand-in for the JAX package's ``name`` that a later slice of the
+    port brings: calling it raises :class:`UnsupportedError` naming the
+    ROADMAP ``item``."""
+
+    def unsupported(*args, **kwargs):
+        raise UnsupportedError(f"{name} is not ported yet ({item})")
+
+    unsupported.__name__ = unsupported.__qualname__ = name
+    unsupported.__doc__ = f"Not ported yet ({item}); raises UnsupportedError."
+    return unsupported

@@ -14,7 +14,7 @@ import torch
 
 from .._device import resolve_device
 
-__all__ = ["coo_from_bcoo_arrays"]
+__all__ = ["coo_from_bcoo_arrays", "is_sparse", "linear_ops"]
 
 
 def coo_from_bcoo_arrays(data, indices, shape, device=None) -> torch.Tensor:
@@ -34,3 +34,28 @@ def coo_from_bcoo_arrays(data, indices, shape, device=None) -> torch.Tensor:
     idx = torch.from_numpy(np.ascontiguousarray(indices.T, dtype=np.int64)).to(dev)
     return torch.sparse_coo_tensor(idx, torch.from_numpy(np.ascontiguousarray(data)).to(dev),
                                    tuple(int(s) for s in shape), check_invariants=False)
+
+
+def is_sparse(A) -> bool:
+    """True for a sparse COO tensor (the port's BCOO)."""
+    return isinstance(A, torch.Tensor) and A.layout == torch.sparse_coo
+
+
+def _spmm(A: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    if X.ndim == 1:
+        return torch.sparse.mm(A, X[:, None])[:, 0]
+    return torch.sparse.mm(A, X)
+
+
+def linear_ops(A):
+    """``(matvec, rmatvec)``: ``x -> A @ x`` and ``y -> Aᵀ @ y`` for a
+    dense tensor, a sparse COO tensor (coalesced once, and its transpose
+    once) or an already given ``(matvec, rmatvec)`` pair.  Vectors may be
+    1-D or 2-D (a block of columns)."""
+    if isinstance(A, tuple):
+        return A
+    if is_sparse(A):
+        A = A.coalesce()
+        At = A.t().coalesce()
+        return (lambda x: _spmm(A, x)), (lambda y: _spmm(At, y))
+    return (lambda x: A @ x), (lambda y: A.T @ y)

@@ -29,7 +29,9 @@ def test_port_files_found():
     assert {"__init__.py", "random.py", "fjlt.py", "hash.py", "kernels_scatter.py",
             "stream.py", "chip_smoke.py", "dense.py", "rft.py", "rlt.py", "frft.py",
             "ppt.py", "kernels.py", "distances.py", "coding.py", "metrics.py",
-            "model.py", "flagship.py"} <= names
+            "model.py", "flagship.py", "matrices.py", "chunked.py", "precond.py",
+            "krylov.py", "cond_est.py", "config.py", "sentinels.py", "certify.py",
+            "ladder.py", "svd.py", "accelerated.py", "regression.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
