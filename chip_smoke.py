@@ -34,7 +34,18 @@ JSON line.  The paths:
   solve with their steps replayed as CUDA graphs against eager steps
   (bitwise the same).  Each f32 solve is held against gels in f64 at
   bounds that a control (a sketch-and-solve x, a solve stopped after a
-  few steps, a least-squares x of larger norm) is shown to miss.
+  few steps, a least-squares x of larger norm) is shown to miss;
+- the kernel machine's training path (``train_path``): BlockADMM at the
+  JAX package's TPU configuration (262144 x 128, two Gaussian maps of
+  2048, hinge + l2, P = 4) with regular and Fastfood maps, its seconds
+  per iteration graphed and eager (bitwise equal); KRR/RLSC on 131072 x
+  4096 with 10 planted classes (Fastfood features, sketched by FJLT and
+  CWT, large-scale BCD at s = 8192); exact and faster KRR and the
+  nonlinear estimators on 32768 rows.  Each model is held against an f64
+  solve of the same problem or the exact solve, and its training
+  accuracy against a model of random weights, beside a control that
+  misses the bound; ADMM and approximate KRR also against the CPU route
+  on a row subset.
 
 It exits non-zero, printing no result, without a CUDA device or without
 the package beside it.  It imports nothing of JAX.
@@ -62,6 +73,7 @@ SPIN_CYCLES = 4_000_000        # ~2 ms of GPU clock: covers a call's host overhe
 GATHER_RUN = 32                # back-to-back gather launches per timed run, each its own indices
 L2_FLUSH_BYTES = 256 << 20     # read before a cold run: five times the H100's 50 MB L2
 LS_REPEATS = 3                 # timed solves per LS configuration (median kept)
+HOT_DRAWS = 3                  # draws of scatter_rows' hot-bucket check
 SEED = 20261016
 # Sparse hash sketch (the JAX package's bench.py bench_sparse_cwt shape).
 SP_ROWS, SP_COLS, SP_NNZ, SP_S = 1_000_000, 100_000, 10_000_000, 1024
@@ -94,6 +106,31 @@ NLA_F64_TOL = 1e-6             # ||x - x_gels|| / ||x_gels|| at cond 1e6, f64
 SVD_M, SVD_N, SVD_R, SVD_NOISE = 1 << 21, 1024, 100, 0.01   # bench.py:768-800, m cut
 SVD_K, SVD_PANEL, SVD_CHECK_M = 100, 1 << 17, 1 << 14
 SP_SVD_K = 6                   # skylark_svd's default rank (cli/svd.py)
+# Training path (phase 3f).  BlockADMM at the JAX package's TPU
+# configuration (bench.py bench_admm: 262144 x 128, two Gaussian maps of
+# 2048 at sigma 2, hinge + l2, P = 4), its seconds per iteration measured
+# as bench.py measures them, (t_N - t_1)/(N - 1) with N = 201, min of 2.
+ADMM_M, ADMM_D, ADMM_S, ADMM_P, ADMM_SIGMA, ADMM_ITERS = 262_144, 128, 2048, 4, 2.0, 201
+ADMM_CHECK_M, ADMM_CHECK_ITERS = 8192, 5   # rows and iterations held against the CPU route
+# KRR/RLSC on the predict phase's X (ML_ROWS x ML_DIM, ML_CLASSES classes
+# planted by a Fastfood teacher): approximate (Fastfood, s = ML_S),
+# sketched to t = 4s with FJLT and CWT, large-scale at s = 8192 in chunks
+# of max_split = 2048 (lam = 16, where the block coordinate descent stops
+# at its default tolerance within a few sweeps); exact, faster and the
+# nonlinear estimators on the first EXACT_N rows (an n x n Gram of 4 GiB
+# f32).
+KRR_LAM = 1.0
+KRR_LS_S, KRR_LS_SPLIT, KRR_LS_LAM, KRR_LS_ITERS = 8192, 2048, 16.0, 300
+KRR_CHECK_ROWS = 4096
+EXACT_N, EXACT_LAM = 32768, 0.1
+FASTER_TOL = 1e-5                  # CG's relative residual
+PCR_RANK, PCR_S, PCR_T = 512, 1024, 8192
+# Bounds of the training checks; each printed beside a control that misses it.
+TRAIN_W_TOL = 1e-3                 # ||W - W_f64|| / ||W_f64||, same features, f64 solve
+TRAIN_CPU_TOL = 1e-4               # card vs the CPU route on a row subset
+# Training accuracy on balanced planted classes; a model of random
+# weights reads ~1/classes, within ~0.002 over 32768 rows.
+ADMM_ACC_MIN, KRR_ACC_MIN, NL_ACC_MIN = 0.9, 0.3, 0.15
 # Kernel widths for 4096-dim standard normal rows, set so that k(x, y)
 # of two rows is about exp(-1): E||x - y||^2 = 2d, E||x - y||_1 =
 # 2d/sqrt(pi), E sum sqrt(|x_i| + |y_i|) = 1.2146 d.
@@ -174,6 +211,61 @@ def max_err(out: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
     out, ref = out.float(), ref.float()
     abs_err = float((out - ref).abs().max())
     return abs_err, abs_err / max(float(ref.abs().max()), 1e-30)
+
+
+def scatter_error_bound(A, b, v, segs: int, piece: int):
+    """The exact sums of ``scatter_rows(A, b, v, segs)`` (f64) and a bound
+    on its f32 rounding error per output element, for its order of
+    operations: each term fl(v·a) rounded, the terms of a bucket added in
+    entry order e = i·nnz + h within pieces of at most ``piece`` entries,
+    then the pieces in order.  Recursive summation errs by at most u times
+    the sum of its partial sums' magnitudes from the second on (Higham,
+    Accuracy and Stability of Numerical Algorithms, (4.3)); the partial
+    sums are taken exact (f64) and the factor 1.01 covers the second-order
+    terms (u·piece < 1e-3).  Also returns the control: the largest
+    bucket's first piece left out of its sum, as (row, its sum)."""
+    m = A.shape[1]
+    x = (v.T.double()[:, :, None] * A.double()[:, None, :]).reshape(-1, m)
+    key = b.T.reshape(-1).long()
+    keep = (key >= 0) & (key < segs)
+    order = torch.sort(key[keep], stable=True)
+    key, x = order.values, x[keep][order.indices]
+    del order
+    counts = torch.bincount(key, minlength=segs)
+    pos = torch.arange(key.shape[0], device=x.device) - (torch.cumsum(counts, 0) - counts)[key]
+
+    def partial_sums(vals, head):
+        """Running sums of ``vals`` restarting at each row where ``head``."""
+        heads = head.nonzero()[:, 0]
+        run = vals.cumsum(0)
+        base = torch.zeros_like(run[:heads.shape[0]])
+        base[1:] = run[heads[1:] - 1]
+        return run - base[torch.cumsum(head, 0) - 1], heads
+
+    bound = torch.zeros(segs, m, dtype=torch.float64, device=x.device)
+    bound.index_add_(0, key, x.abs())
+    T, heads = partial_sums(x, pos % piece == 0)      # within each piece
+    exact = torch.zeros_like(bound).index_add_(0, key, x)
+    del x
+    bucket = key[heads]
+    absT = torch.zeros(heads.shape[0], m, dtype=torch.float64, device=T.device)
+    bound.index_add_(0, bucket, absT.index_add_(
+        0, torch.cumsum(pos % piece == 0, 0) - 1, T.abs()) - T[heads].abs())
+    P = T[torch.cat([heads[1:] - 1, heads.new_tensor([key.shape[0] - 1])])]  # piece sums
+    del T, absT
+    F, fheads = partial_sums(P, pos[heads] == 0)      # the fold, bucket by bucket
+    bound.index_add_(0, bucket, F.abs()).index_add_(0, bucket[fheads], -F[fheads].abs())
+    row = int(counts.argmax())
+    first = int(((bucket == row) & (pos[heads] == 0)).nonzero()[0, 0])
+    return exact, bound * (2.0 ** -24 * 1.01), (row, P[first])
+
+
+def bound_ratio(out, exact, bound) -> float:
+    """max |out - exact| / bound over the elements (inf where the bound is
+    0 and the error is not)."""
+    err = (out.double() - exact).abs()
+    return float(torch.where(bound > 0, err / bound.clamp(min=1e-300),
+                             torch.where(err > 0, math.inf, 0.0)).max())
 
 
 def host_median(fn, reps: int = ML_REPEATS) -> tuple[float, list[float]]:
@@ -643,6 +735,408 @@ def nla_path(sky, dev, reset_counts, read_counts, A_sp) -> None:
     torch.cuda.empty_cache()
 
 
+def train_path(sky, dev, reset_counts, read_counts, smi) -> None:
+    """Phase 3f: the kernel machine's training path at full width: the
+    BlockADMM trainer at bench.py's configuration, the KRR/RLSC
+    strategies and the nonlinear estimators, each trained model checked
+    against a bound that a control misses.  Every launch of the phase
+    counts for the ``train`` path; data is made on the card from the
+    seed."""
+    from libskylark_tpu_torch.resilient import chunked
+    from libskylark_tpu_torch.sketch import kernels_fut as kf
+
+    from libskylark_tpu_torch.sketch import kernels_window as kw
+
+    ml = sky.ml
+    f64 = torch.float64
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    card = f"[{smi}]"
+    rfut = kf.rfut_rowwise  # the kernel itself: its launch counter
+
+    # Each kernel the path launches is held against its plain version on
+    # the same inputs at the path's own shapes: the first launch of each
+    # signature (kernel, input shapes and dtypes, bucket count), beside a
+    # control that misses.  The plain runs launch no kernel.
+    held = set()
+
+    class Held:
+        """Stands in for the kernel's wrapper in its module, whose launch
+        count (the wrapper adds to it by its module name) stays the
+        wrapper's own."""
+
+        def __init__(self, kernel, name, compare):
+            self.kernel, self.name, self.compare = kernel, name, compare
+
+        @property
+        def launches(self):
+            return self.kernel.launches
+
+        @launches.setter
+        def launches(self, count):
+            self.kernel.launches = count
+
+        def __call__(self, *args, **kwargs):
+            out = self.kernel(*args, **kwargs)
+            sig = (self.name,) + tuple((tuple(a.shape), a.dtype) if torch.is_tensor(a) else a
+                                       for a in args)
+            if sig not in held:
+                held.add(sig)
+                self.compare(out, *args, **kwargs)
+            return out
+
+    def hold(mod, name, compare):
+        kernel = getattr(mod, name)
+        setattr(mod, name, Held(kernel, name, compare))
+        return kernel
+
+    def rfut_held(out, x, d, nb):
+        tol = 1e-5 if x.dtype == torch.float32 else 1e-2
+        _, r = max_err(out, kf.rfut_rowwise_plain(x, d, nb))
+        d_ctl = d.clone()
+        d_ctl[0] = -d_ctl[0]
+        _, c = max_err(out, kf.rfut_rowwise_plain(x, d_ctl, nb))
+        print(f"train rfut_rowwise x {tuple(x.shape)} {x.dtype}, NB = {nb}: vs its plain version "
+              f"rel {r:.3g} (tol {tol:g}); control (the plain version with d[0] negated) {c:.3g}")
+        check(r <= tol and c > tol, f"train rfut_rowwise {tuple(x.shape)}: {r}, control {c}")
+
+    def gather_held(out, T, idx, scale):
+        ok = torch.equal(out, kw.gather_scaled_rows_plain(T, idx, scale))
+        ctl = kw.gather_scaled_rows_plain(T, (idx + 1) % T.shape[0], scale)
+        c = float((ctl - out).abs().max())
+        print(f"train gather_scaled_rows T {tuple(T.shape)} {T.dtype}, S = {idx.numel()}: bitwise "
+              f"its plain version {ok}; control (each row one index over) max abs diff {c:.3g}")
+        check(ok and c > 0, f"train gather_scaled_rows {tuple(T.shape)}: bitwise {ok}")
+
+    def scatter_held(out, A, b, v, segs, **kwargs):
+        check(not kwargs, f"train scatter_rows called with {sorted(kwargs)}")
+        b, v = (b[None], v[None]) if b.ndim == 1 else (b, v)
+        exact, err_bound, (row, piece) = scatter_error_bound(A, b, v, segs, kw._L)
+        r = bound_ratio(out, exact, err_bound)
+        rp = bound_ratio(kw.scatter_rows_plain(A, b, v, segs), exact, err_bound)
+        c = bound_ratio(out[row].double() - piece, exact[row], err_bound[row])
+        print(f"train scatter_rows A {tuple(A.shape)} {A.dtype} -> {segs}, nnz = {b.shape[0]}: "
+              f"max |out - exact| / rounding bound {r:.3g} (must be <= 1; plain version {rp:.3g}); "
+              f"control (bucket {row}'s first piece left out) {c:.3g}")
+        check(r <= 1.0 and c > 1.0, f"train scatter_rows {tuple(A.shape)}: {r}, control {c}")
+
+    kernels = [(kf, "rfut_rowwise", hold(kf, "rfut_rowwise", rfut_held)),
+               (kw, "gather_scaled_rows", hold(kw, "gather_scaled_rows", gather_held)),
+               (kw, "scatter_rows", hold(kw, "scatter_rows", scatter_held))]
+    reset_counts()
+    t_path = time.perf_counter()
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    def clock(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    def rel(a, b):
+        a, b = a.double(), b.double()
+        return float((a - b).abs().max() / b.abs().max())
+
+    def acc(labels, y):
+        return float((labels.cpu() == torch.as_tensor(y).cpu()).double().mean())
+
+    def solve64(Z, T, lam):
+        """The ridge normal equations of the same features in f64."""
+        Z = Z.double()
+        G = Z.T @ Z
+        G.diagonal().add_(lam)
+        return torch.cholesky_solve(Z.T @ T.double(), torch.linalg.cholesky(G))
+
+    def against64(label, W, Z, T, lam, bound=TRAIN_W_TOL, factor=2.0):
+        """W against the f64 solve of the same ridge problem; the control
+        (the f64 solve at ``factor`` lam) must miss the bound."""
+        W64 = solve64(Z, T, lam)
+        err, ctl = rel(W, W64), rel(solve64(Z, T, factor * lam), W64)
+        print(f"{label}: ||W - W_f64|| / ||W_f64|| {err:.3g} (bound {bound}); control "
+              f"(the f64 solve at {factor:g} lam) {ctl:.3g}")
+        check(err <= bound, f"{label}: W off the f64 solve by {err}")
+        check(ctl > bound, f"{label}: the {factor:g} lam control passes ({ctl})")
+
+    def accurate(label, model, Xm, y, classes, minimum):
+        """Training accuracy against a model of random W on the same maps."""
+        a = acc(model.predict_labels(Xm), y)
+        ctl_model = ml.FeatureMapModel(model.maps, randn(*model.W.shape), classes=model.classes)
+        c = acc(ctl_model.predict_labels(Xm), y)
+        print(f"{label}: training accuracy {a:.4f} (bound {minimum}); control (random W on "
+              f"the same maps) {c:.4f}; chance {1 / classes:.3f}")
+        check(a >= minimum, f"{label}: training accuracy {a}")
+        check(c < minimum, f"{label}: the random-W control passes ({c})")
+
+    # (a) BlockADMM, 262144 x 128, two Gaussian maps of 2048, hinge + l2,
+    # P = 4; labels planted by a teacher on the regular maps.
+    Xa = randn(ADMM_M, ADMM_D)
+    kernel = ml.GaussianKernel(ADMM_D, ADMM_SIGMA)
+
+    def admm_maps(tag):
+        ctx = sky.SketchContext(seed=41)
+        return [kernel.create_rft(ADMM_S, tag, ctx) for _ in range(2)]
+
+    # Split at the teacher's median, so that the classes are balanced and
+    # a model unrelated to the labels scores ~0.5.
+    score = ml.FeatureMapModel(admm_maps("regular"), randn(2 * ADMM_S, 1)).predict(Xa)[:, 0]
+    ya = np.where((score > score.median()).cpu().numpy(), 1.0, -1.0)
+    del score
+
+    def admm(tag, iters, X=Xa, y=ya, graphs=True, loss="hinge"):
+        chunked.CUDA_GRAPHS = graphs
+        try:
+            solver = ml.BlockADMMSolver(loss, "l2", admm_maps(tag), ml.ADMMParams(
+                maxiter=iters, data_partitions=ADMM_P))
+            return solver.train(X, y)
+        finally:
+            chunked.CUDA_GRAPHS = True
+
+    # The logistic loss's prox reads the device once per chunk of Newton
+    # steps, so its steps run eagerly only.
+    per_iter, models = {}, {}
+    for loss, tag, modes in (("hinge", "regular", (True, False)), ("hinge", "fast", (True, False)),
+                             ("logistic", "regular", (False,))):
+        rfut0 = rfut.launches
+        for graphs in modes:
+            t1 = min(clock(lambda: admm(tag, 1, graphs=graphs, loss=loss))[0] for _ in range(2))
+            runs = [clock(lambda: admm(tag, ADMM_ITERS, graphs=graphs, loss=loss))
+                    for _ in range(2)]
+            tN = min(r[0] for r in runs)
+            per_iter[loss, tag, graphs] = (tN - t1) / (ADMM_ITERS - 1)
+            models[loss, tag, graphs] = runs[-1][1]
+        mg, me = models[loss, tag, modes[0]], models[loss, tag, False]
+        h = mg.history
+        bitwise = torch.equal(mg.W, me.W) and mg.history == me.history
+        tm = mg.timers
+        graphed = (f"graphed {per_iter[loss, tag, True]!r}, " if True in modes else "")
+        print(f"ADMM {tag} maps {ADMM_M} x {ADMM_D} -> 2 x {ADMM_S}, {loss} + l2, P = {ADMM_P}: "
+              f"s/iter {graphed}eager {per_iter[loss, tag, False]!r} "
+              f"((t_{ADMM_ITERS} - t_1)/{ADMM_ITERS - 1}, min of 2); transform "
+              f"{tm.totals['transform']!r} s, factor {tm.totals['factor']!r} s; graphed W and "
+              f"objective bitwise the eager ones: {bitwise if True in modes else 'not graphed'}; "
+              f"objective {h[0]:.6g} -> {h[1]:.6g} -> {h[-1]:.6g}; rfut_rowwise launches "
+              f"{rfut.launches - rfut0} {card}")
+        check(bool(torch.isfinite(mg.W).all()), f"ADMM {loss} {tag}: non-finite W")
+        check(bitwise, f"ADMM {loss} {tag}: the graphed run is not bitwise the eager one")
+        check(h[-1] < h[1] and max(h[2:]) <= h[1],
+              f"ADMM {loss} {tag}: objective not below its second iterate: {h[:3]} ... {h[-1]}")
+    for loss, graphs in (("hinge", True), ("logistic", False)):
+        accurate(f"ADMM {loss} regular, {ADMM_ITERS} iterations", models[loss, "regular", graphs],
+                 Xa, ya, 2, ADMM_ACC_MIN)
+    # Where an iteration's time goes: its device kernels (profiler, five
+    # eager steps) against the bytes of its eight passes over the blocks.
+    bytes_ms = 8 * ADMM_M * ADMM_S * 4 / MEM_BYTES_PER_S * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for loss in ("hinge", "logistic"):
+        run = ml.BlockADMMSolver(loss, "l2", admm_maps("regular"), ml.ADMMParams(
+            maxiter=7, data_partitions=ADMM_P))._prepare(Xa, ya)
+        st = run.step(run.step(run.state0))
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(5):
+                st = run.step(st)
+            torch.cuda.synchronize()
+        kern = sorted((e for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA),
+                      key=lambda e: -e.self_device_time_total)
+        dev_ms = sum(e.self_device_time_total for e in kern) / 5e3
+        eager_ms = per_iter[loss, "regular", False] * 1e3
+        print(f"ADMM {loss} iteration split: device kernels {dev_ms!r} ms per eager iteration "
+              f"(bytes bound {bytes_ms!r} ms; eager host clock {eager_ms!r} ms, device idle "
+              f"{1 - dev_ms / eager_ms:.3f}); top: " + "; ".join(
+                  f"{e.key[:48]} x{e.count // 5} {e.self_device_time_total / 5e3:.3f} ms"
+                  for e in kern[:5]) + f" {card}")
+        del run, st, prof
+    # The card against the port's CPU route on the first rows.
+    sub = slice(0, ADMM_CHECK_M)
+    for loss in ("hinge", "logistic"):
+        card_W = admm("regular", ADMM_CHECK_ITERS, Xa[sub], ya[sub], loss=loss).W
+        cpu_W = admm("regular", ADMM_CHECK_ITERS, Xa[sub].cpu(), ya[sub], loss=loss).W
+        r = rel(card_W.cpu(), cpu_W)
+        print(f"ADMM {loss} regular on rows 0-{ADMM_CHECK_M - 1}, {ADMM_CHECK_ITERS} iterations: "
+              f"W vs the CPU route rel {r:.3g} (tol {TRAIN_CPU_TOL})")
+        check(r <= TRAIN_CPU_TOL, f"ADMM {loss}: card vs CPU route rel {r}")
+    del Xa, models, card_W, cpu_W
+    torch.cuda.empty_cache()
+
+    # (b) KRR/RLSC on X (ML_ROWS x ML_DIM) with ML_CLASSES planted classes.
+    X = randn(ML_ROWS, ML_DIM)
+    kern = ml.GaussianKernel(ML_DIM, ML_SIGMA)
+
+    def ctx():
+        return sky.SketchContext(seed=SEED + 50)
+
+    # The teacher's scores centred per class, so that the classes come out
+    # near balanced and a model unrelated to the labels scores ~1/10.
+    score = ml.FeatureMapModel([kern.create_rft(ML_S, "fast", ctx())],
+                               randn(ML_S, ML_CLASSES)).predict(X)
+    y = (score - score.mean(0)).argmax(1).cpu().numpy()
+    del score
+    print(f"planted classes: largest share {np.bincount(y).max() / y.size:.4f} of {ML_ROWS} rows, "
+          f"smallest {np.bincount(y, minlength=ML_CLASSES).min() / y.size:.4f}")
+    T32 = ml.dummy_coding(y, device=dev)[0]
+    fast = ml.KrrParams(use_fast=True)
+
+    def timed_fit(label, fn, reps=3):
+        runs = []
+        for _ in range(reps):
+            secs, model = clock(fn)
+            runs.append(secs)
+        print(f"{label}: median {statistics.median(runs)!r} s of {[round(x, 4) for x in runs]} "
+              f"{card}")
+        return model
+
+    m = timed_fit(f"approximate_kernel_rlsc Fastfood s = {ML_S} on ({ML_ROWS}, {ML_DIM})",
+                  lambda: ml.approximate_kernel_rlsc(kern, X, y, KRR_LAM, ML_S, ctx(), fast))
+    check(m.info["recovery"]["attempts"] == [], f"approximate KRR: {m.info['recovery']}")
+    Z = m.maps[0].apply(X, "rowwise")
+    against64("approximate_kernel_rlsc", m.W, Z, T32, KRR_LAM)
+    accurate("approximate_kernel_rlsc", m, X, y, ML_CLASSES, KRR_ACC_MIN)
+    rows = slice(0, KRR_CHECK_ROWS)
+    Ws = [ml.approximate_kernel_rlsc(kern, Xs, y[rows], KRR_LAM, ML_S, ctx(), fast).W.cpu()
+          for Xs in (X[rows], X[rows].cpu())]
+    r = rel(*Ws)
+    print(f"approximate_kernel_rlsc on rows 0-{KRR_CHECK_ROWS - 1}: W vs the CPU route rel "
+          f"{r:.3g} (tol {TRAIN_CPU_TOL})")
+    check(r <= TRAIN_CPU_TOL, f"approximate KRR: card vs CPU route rel {r}")
+
+    for sk_type in ("FJLT", "CWT"):
+        p = ml.KrrParams(use_fast=True, fast_sketch=sk_type == "CWT")
+        m = timed_fit(f"sketched_approximate_kernel_rlsc {sk_type} t = {4 * ML_S}", lambda: (
+            ml.sketched_approximate_kernel_rlsc(kern, X, y, KRR_LAM, ML_S, ctx(), p)))
+        c = ctx()
+        kern.create_rft(ML_S, "fast", c)
+        R = sky.sketch.create_sketch(sk_type, ML_ROWS, 4 * ML_S, c)
+        against64(f"sketched {sk_type}", m.W, R.apply(Z, "columnwise"),
+                  R.apply(T32, "columnwise"), KRR_LAM)
+        accurate(f"sketched {sk_type}", m, X, y, ML_CLASSES, KRR_ACC_MIN)
+    del Z, R
+
+    sweeps = []
+    p = ml.KrrParams(max_split=KRR_LS_SPLIT, iter_lim=KRR_LS_ITERS)
+    p.log = lambda level, msg: sweeps.append(msg)
+    m = timed_fit(f"large_scale_kernel_ridge s = {KRR_LS_S}, max_split = {KRR_LS_SPLIT}, lam = "
+                  f"{KRR_LS_LAM}", lambda: ml.large_scale_kernel_ridge(
+                      kern, X, T32, KRR_LS_LAM, KRR_LS_S, ctx(), p), reps=1)
+    print(f"large_scale: {len(m.maps)} chunks, stopped at {sweeps[-1]} (tolerance {p.tolerance})")
+    check(len(sweeps) < KRR_LS_ITERS - 1, f"large_scale: no stop in {KRR_LS_ITERS} sweeps")
+    m.classes = list(range(ML_CLASSES))
+    # The same block coordinate descent in f64 on the same features (the
+    # updates of krr.large_scale_kernel_ridge), for as many sweeps.
+    n_sweeps = len(sweeps) + 1
+    Zc = [S.apply(X, "rowwise").double().T for S in m.maps]  # (s_c, n) per chunk
+
+    def bcd64(lam):
+        R, Ws = T32.double(), [torch.zeros(Z.shape[0], ML_CLASSES, dtype=f64, device=dev)
+                               for Z in Zc]
+        Ls = [torch.linalg.cholesky(Z @ Z.T + lam * torch.eye(Z.shape[0], dtype=f64, device=dev))
+              for Z in Zc]
+        for _ in range(n_sweeps):
+            for c, Z in enumerate(Zc):
+                delta = torch.cholesky_solve(Z @ R - lam * Ws[c], Ls[c])
+                Ws[c] = Ws[c] + delta
+                R = R - Z.T @ delta
+        return torch.cat(Ws)
+
+    W64 = bcd64(KRR_LS_LAM)
+    err, ctl = rel(m.W, W64), rel(bcd64(2 * KRR_LS_LAM), W64)
+    print(f"large_scale: ||W - W_f64|| / ||W_f64|| {err:.3g} (bound {TRAIN_W_TOL}), W_f64 the "
+          f"same {n_sweeps} sweeps in f64; control (the f64 sweeps at 2 lam) {ctl:.3g}")
+    check(err <= TRAIN_W_TOL and ctl > TRAIN_W_TOL, f"large_scale: {err}, control {ctl}")
+    accurate("large_scale", m, X, y, ML_CLASSES, KRR_ACC_MIN)
+    del Zc, W64, m
+    torch.cuda.empty_cache()
+
+    # (c) Exact and faster KRR, and the nonlinear estimators, on the first
+    # EXACT_N rows.
+    Xe, ye = X[:EXACT_N].contiguous(), y[:EXACT_N]
+    del X
+    Te = ml.dummy_coding(ye, device=dev)[0]
+    ex = timed_fit(f"kernel_rlsc n = {EXACT_N}", lambda: ml.kernel_rlsc(kern, Xe, ye, EXACT_LAM),
+                   reps=2)
+
+    def exact64(lam):
+        K = kern.gram(Xe.double())
+        K.diagonal().add_(lam)
+        return torch.cholesky_solve(Te.double(), torch.linalg.cholesky(K))
+
+    A64 = exact64(EXACT_LAM)
+    err, ctl = rel(ex.A, A64), rel(exact64(2 * EXACT_LAM), A64)
+    print(f"kernel_rlsc: ||A - A_f64|| / ||A_f64|| {err:.3g} (bound {TRAIN_W_TOL}); control (the "
+          f"f64 solve at 2 lam) {ctl:.3g}")
+    check(err <= TRAIN_W_TOL and ctl > TRAIN_W_TOL, f"kernel_rlsc: {err}, control {ctl}")
+    del A64
+
+    fp = ml.KrrParams(tolerance=FASTER_TOL)
+    fk = timed_fit(f"faster_kernel_rlsc n = {EXACT_N}, s = {ML_S}", lambda: (
+        ml.faster_kernel_rlsc(kern, Xe, ye, EXACT_LAM, ML_S, ctx(), fp)), reps=2)
+    its, flag = int(fk.info["iterations"]), int(fk.info["flag"])
+    short = ml.faster_kernel_rlsc(kern, Xe, ye, EXACT_LAM, ML_S, ctx(),
+                                  ml.KrrParams(tolerance=FASTER_TOL, iter_lim=2))
+    err, ctl = rel(fk.A, ex.A), rel(short.A, ex.A)
+    print(f"faster_kernel_rlsc: CG {its} iterations (flag {flag}, iter_lim {fp.iter_lim}); "
+          f"||A - A_exact|| / ||A_exact|| {err:.3g} (bound {TRAIN_W_TOL}); control (CG stopped "
+          f"at 2 iterations) {ctl:.3g}")
+    check(flag == 0 and its < fp.iter_lim, f"faster_kernel_rlsc: {its} iterations, flag {flag}")
+    check(err <= TRAIN_W_TOL and ctl > TRAIN_W_TOL, f"faster_kernel_rlsc: {err}, control {ctl}")
+    del fk, short
+
+    rls = timed_fit(f"RLS n = {EXACT_N}", lambda: ml.RLS(kern).train(Xe, ye, EXACT_LAM), reps=1)
+    check(torch.equal(rls.alpha, ex.A), "RLS is not bitwise kernel_rlsc")
+    a = acc(rls.predict(Xe), ye)
+    print(f"RLS: alpha bitwise kernel_rlsc's A; training accuracy {a:.4f}")
+    del rls, ex
+    torch.cuda.empty_cache()
+    def pcr64(est, rank):
+        """SketchPCR's regression in f64 on its features and its basis:
+        the top-rank right singular vectors of their CWT, whitened in f32
+        as the estimator does (the CWT on CPU copies, bitwise the card's
+        without a launch; its SVD on the card, as the estimator's)."""
+        c = ctx()
+        kern.create_rft(PCR_S, "regular", c)
+        Z = est.rft.apply(Xe, "rowwise")
+        SZ = sky.sketch.CWT(EXACT_N, PCR_T, c).apply(Z.cpu(), "columnwise").to(dev)
+        _, sig, Vt = torch.linalg.svd(SZ, full_matrices=False)
+        whiten = (Vt[:rank].T / torch.clamp(sig[:rank], min=1e-12)).double()
+        return whiten @ torch.linalg.lstsq(Z.double() @ whiten, Te.double()).solution
+
+    for name, fn, features in (
+            (f"SketchRLS s = {ML_S}", lambda: ml.SketchRLS(kern).train(
+                Xe, ye, ctx(), random_features=ML_S, regularization=KRR_LAM),
+             lambda est: est.rft.apply(Xe, "rowwise")),
+            (f"NystromRLS l = {ML_S}", lambda: ml.NystromRLS(kern).train(
+                Xe, ye, ctx(), random_features=ML_S, regularization=KRR_LAM),
+             lambda est: kern.gram(Xe, est.SX) @ est.U),
+            (f"SketchPCR rank {PCR_RANK}, s = {PCR_S}, CWT t = {PCR_T}", lambda: ml.SketchPCR(
+                kern).train(Xe, ye, ctx(), rank=PCR_RANK, s=PCR_S, t=PCR_T), None)):
+        est = timed_fit(name, fn, reps=3)
+        if features is None:
+            W64 = pcr64(est, PCR_RANK)
+            err, ctl = rel(est.weights, W64), rel(pcr64(est, PCR_RANK // 2), W64)
+            print(f"{name}: ||W - W_f64|| / ||W_f64|| {err:.3g} (bound {TRAIN_W_TOL}), W_f64 "
+                  f"the regression in f64 on the same features and basis; control (rank "
+                  f"{PCR_RANK // 2}) {ctl:.3g}")
+            check(err <= TRAIN_W_TOL and ctl > TRAIN_W_TOL, f"{name}: {err}, control {ctl}")
+        else:
+            against64(name, est.weights, features(est), Te, KRR_LAM)
+        a = acc(est.predict(Xe), ye)
+        W = getattr(est, "weights")
+        est.weights = randn(*W.shape).to(W.dtype)
+        c = acc(est.predict(Xe), ye)
+        print(f"{name}: training accuracy {a:.4f} (bound {NL_ACC_MIN}); control (random "
+              f"weights) {c:.4f}")
+        check(a >= NL_ACC_MIN and c < NL_ACC_MIN, f"{name}: accuracy {a}, control {c}")
+    del Xe, Te
+    torch.cuda.empty_cache()
+    for mod, name, kernel in kernels:
+        setattr(mod, name, kernel)
+    check({sig[0] for sig in held} == {name for _, name, _ in kernels},
+          f"train: kernels held against their plain versions: {sorted(held)}")
+    read_counts("train", t_path, ("rfut_rowwise", "gather_scaled_rows", "scatter_rows"))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
@@ -694,7 +1188,7 @@ def main() -> None:
     errs["rfut_rowwise_sampled"] = a
     # Each NB is its own kernel instance: check every one, with padding.
     sweep = 0.0
-    for log2nb in range(9, 16):
+    for log2nb in range(7, 16):
         nb = 1 << log2nb
         xs, ds = randn(5, nb - 3), d.new_ones(nb - 3)
         ids = torch.from_numpy(rng.integers(0, nb, 256).astype(np.int32)).to(dev)
@@ -706,7 +1200,7 @@ def main() -> None:
             check(max(r, r2) <= tol, f"rfut at NB={nb} {dtype} disagrees: {r}, {r2}")
             if dtype == torch.float32:
                 sweep = max(sweep, r, r2)
-    print(f"rfut NB 2^9..2^15, n = NB - 3, f32 and bf16: f32 worst rel {sweep:.3g} (tol 1e-5)")
+    print(f"rfut NB 2^7..2^15, n = NB - 3, f32 and bf16: f32 worst rel {sweep:.3g} (tol 1e-5)")
 
     T = randn(1 << 20, 512)
     gidx = torch.from_numpy(rng.integers(0, 1 << 20, 2048).astype(np.int32)).to(dev)
@@ -814,25 +1308,37 @@ def main() -> None:
                   "plain version on CPU copies")
             check(rows_partition_bitwise(b_bad, 2048), "scatter_partition with buckets out "
                   "of range is not bitwise scatter_partition_plain")
-            # A hot bucket with half the entries: cut into pieces of kw._L,
-            # held against the f64 sum.
-            b_hot = b.clone()
-            b_hot[0, torch.from_numpy(rng.choice(k_, k_ // 2, replace=False)).to(dev)] = 7
-            hot = kw.scatter_rows(A, b_hot, v, 2048)
-            ref = torch.zeros(2048, cols, dtype=torch.float64, device=dev).index_add_(
-                0, b_hot[0].long(), v[0].double()[:, None] * A.double())
-            _, r_hot = max_err(hot, ref)
-            _, r_plain = max_err(kw.scatter_rows_plain(A, b_hot, v, 2048), ref)
-            print(f"scatter_rows A ({k_}, {cols}), {k_ // 2} entries in one bucket: vs f64 "
-                  f"sum rel {r_hot:.3g} (tol 1e-5; plain version {r_plain:.3g}); 1 % of "
-                  "buckets out of range: bitwise the kept entries' result and the plain "
-                  "version on CPU copies")
-            check(r_hot <= 1e-5, f"scatter_rows hot bucket m={cols}: rel {r_hot} vs f64 sum")
-            check(torch.equal(hot, kw.scatter_rows(A, b_hot, v, 2048)),
-                  f"scatter_rows hot bucket m={cols} differs run to run")
-            check(torch.equal(kw.scatter_rows(A, b_hot, v, 2048, acc=acc), acc + hot),
-                  f"scatter_rows hot bucket m={cols} acc fold is not bitwise")
-            del b_bad, keep, out_bad, b_hot, hot, ref
+            # A hot bucket with half the entries, cut into pieces of kw._L,
+            # on HOT_DRAWS draws: held to the rounding-error bound of the
+            # kernel's order of additions, which a sum with one piece left
+            # out misses.
+            for draw in range(HOT_DRAWS):
+                b_hot = b.clone()
+                b_hot[0, torch.from_numpy(rng.choice(k_, k_ // 2, replace=False)).to(dev)] = 7
+                v_hot = randn(nnz, k_)
+                hot = kw.scatter_rows(A, b_hot, v_hot, 2048)
+                exact, err_bound, (row, piece) = scatter_error_bound(A, b_hot, v_hot, 2048, kw._L)
+                r_hot = bound_ratio(hot, exact, err_bound)
+                r_plain = bound_ratio(kw.scatter_rows_plain(A, b_hot, v_hot, 2048), exact,
+                                      err_bound)
+                r_ctl = float((piece.abs() / err_bound[row]).max())
+                print(f"scatter_rows A ({k_}, {cols}), {k_ // 2} entries in one bucket, draw "
+                      f"{draw}: max |out - exact| / rounding bound {r_hot:.3g} (must be <= 1; "
+                      f"plain version, whose atomics add in no fixed order, {r_plain:.3g}); "
+                      f"control (bucket {row}'s first piece left out) {r_ctl:.3g}")
+                check(r_hot <= 1.0, f"scatter_rows hot bucket m={cols} draw {draw}: error "
+                      f"{r_hot} times its rounding bound")
+                check(r_ctl > 1.0, f"scatter_rows hot bucket m={cols}: the control passes")
+                if draw == 0:
+                    check(torch.equal(hot, kw.scatter_rows(A, b_hot, v_hot, 2048)),
+                          f"scatter_rows hot bucket m={cols} differs run to run")
+                    check(torch.equal(kw.scatter_rows(A, b_hot, v_hot, 2048, acc=acc),
+                                      acc + hot),
+                          f"scatter_rows hot bucket m={cols} acc fold is not bitwise")
+                del exact, err_bound, piece
+            print("scatter_rows: 1 % of buckets out of range: bitwise the kept entries' result "
+                  "and the plain version on CPU copies")
+            del b_bad, keep, out_bad, b_hot, v_hot, hot
     print("scatter_rows: bitwise run to run, acc fold bitwise acc + out, scatter_partition "
           "bitwise scatter_partition_plain")
     errs["scatter_rows"] = worst
@@ -1124,6 +1630,9 @@ def main() -> None:
     nla_path(sky, dev, reset_counts, read_counts, A_sp)
     del A_sp
 
+    # -- 3f. the kernel machine's training path, at full width ------------
+    train_path(sky, dev, reset_counts, read_counts, smi)
+
     # -- 4. times at main-path shapes ------------------------------------
     kernels = []
 
@@ -1149,6 +1658,21 @@ def main() -> None:
         time_ms(lambda: kf.rfut_rowwise(A, d, rn)),
         time_ms(lambda: kf.rfut_rowwise_plain(A, d, rn), reps=3, warmup=1),
         4 * (rm * rn + rn + rm * rn), wht_ops, None)
+    # The NB = 128 instance at BlockADMM's Fastfood shape (two launches per
+    # block of 128 features on the train path), on draws of its own.
+    ga = torch.Generator(device=dev).manual_seed(SEED + 9)
+    xa = torch.randn(ADMM_M, ADMM_D, generator=ga, device=dev)
+    da = torch.where(torch.randn(ADMM_D, generator=ga, device=dev) > 0, 1.0, -1.0)
+    a_err, r = max_err(kf.rfut_rowwise(xa, da, ADMM_D), kf.rfut_rowwise_plain(xa, da, ADMM_D))
+    check(r <= 1e-5, f"rfut_rowwise at NB = {ADMM_D} disagrees with its plain version: {r}")
+    row("rfut_rowwise", "libskylark_tpu_torch/csrc/rfut.cu",
+        "libskylark_tpu/sketch/pallas_fut.py:192",
+        time_ms(lambda: kf.rfut_rowwise(xa, da, ADMM_D)),
+        time_ms(lambda: kf.rfut_rowwise_plain(xa, da, ADMM_D), reps=3, warmup=1),
+        4 * (2 * ADMM_M * ADMM_D + ADMM_D), ADMM_M * (ADMM_D * math.log2(ADMM_D) + ADMM_D),
+        None, path_count=path_launches["train"]["rfut_rowwise"], err=a_err,
+        shape=f"x {ADMM_M} x {ADMM_D} f32, NB = {ADMM_D} (Fastfood in BlockADMM)")
+    del xa, da
     sidx = torch.from_numpy(rng.integers(0, rn, 1024).astype(np.int32)).to(dev)
     row("rfut_rowwise_sampled", "libskylark_tpu_torch/csrc/rfut.cu",
         "libskylark_tpu/sketch/pallas_fut.py:150",

@@ -17,7 +17,10 @@ adjacency sketch with its Nyström eigensolve (``graph``); and the
 predict path of the random-feature kernel machine (``ml``: the six
 kernels, the RFT/Fastfood/RLT/PPT feature maps and the dense sketches,
 ``FeatureMapModel``/``KernelModel`` in the JAX package's file format,
-and the flagship forward step, ``flagship.entry``).  Sparse
+and the flagship forward step, ``flagship.entry``); and its in-core
+training path (``ml``: KRR's five strategies and RLSC, the BlockADMM
+trainer over the loss/regularizer prox library ``solvers.prox``, and
+the RLS, SketchRLS, NystromRLS and SketchPCR estimators).  Sparse
 matrices are ``torch.sparse_coo_tensor``s
 (``utils.coo_from_bcoo_arrays`` builds one from a BCOO's arrays).
 """

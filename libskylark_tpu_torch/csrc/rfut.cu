@@ -20,7 +20,7 @@
 // stage.  The first pass runs over the top index bits so that the loads of x
 // and d are coalesced, and the last over bits >= 3 so that a warp's stores
 // cover whole 32-byte sectors.  NB is a template parameter (one instance per
-// power of two from 2^9 to 2^15), so the pass schedule and every shared-memory
+// power of two from 2^7 to 2^15), so the pass schedule and every shared-memory
 // index fold at compile time into a per-thread base plus constants.  The row
 // buffer is NB + NB/32 floats (padded against bank conflicts), 132 KiB at
 // NB = 2^15, above the 48 KB default, hence the MaxDynamicSharedMemorySize
@@ -219,13 +219,16 @@ int launch_sampled_nb(const void* x, const void* d, const int* idx, void* out, i
   return (int)cudaGetLastError();
 }
 
-// NB is a power of two in [512, 2^15] (checked by the wrapper); anything else
-// is refused with cudaErrorInvalidValue.
+// NB is a power of two in [128, 2^15] (checked by the wrapper); anything else
+// is refused with cudaErrorInvalidValue.  Below 512 a block is 16 (NB = 128)
+// or 32 (NB = 256) threads: one row still never leaves the SM.
 template <typename T>
 int launch_rowwise(const void* x, const void* d, void* out, int m, int n, int nb,
                    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   switch (nb) {
+    case 1 << 7: return launch_rowwise_nb<T, 7>(x, d, out, m, n, st);
+    case 1 << 8: return launch_rowwise_nb<T, 8>(x, d, out, m, n, st);
     case 1 << 9: return launch_rowwise_nb<T, 9>(x, d, out, m, n, st);
     case 1 << 10: return launch_rowwise_nb<T, 10>(x, d, out, m, n, st);
     case 1 << 11: return launch_rowwise_nb<T, 11>(x, d, out, m, n, st);
@@ -242,6 +245,8 @@ int launch_sampled(const void* x, const void* d, const int* idx, void* out, int 
                    int nb, int s, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   switch (nb) {
+    case 1 << 7: return launch_sampled_nb<T, 7>(x, d, idx, out, m, n, s, st);
+    case 1 << 8: return launch_sampled_nb<T, 8>(x, d, idx, out, m, n, s, st);
     case 1 << 9: return launch_sampled_nb<T, 9>(x, d, idx, out, m, n, s, st);
     case 1 << 10: return launch_sampled_nb<T, 10>(x, d, idx, out, m, n, s, st);
     case 1 << 11: return launch_sampled_nb<T, 11>(x, d, idx, out, m, n, s, st);

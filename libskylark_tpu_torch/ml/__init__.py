@@ -1,7 +1,13 @@
-"""Machine-learning layer of the port: kernels, distances, label coding,
-metrics and the predict path of the random-feature and kernel models
-(training waits for a later slice, ROADMAP Queue A)."""
+"""Machine-learning layer of the port (≙ reference ``ml/``): kernels,
+the KRR/RLSC solver families, the BlockADMM kernel-machine trainer,
+the nonlinear estimators, label coding and model persistence.
 
+Not ported yet: the streaming KRR solvers (``streaming_kernel_ridge``,
+``streaming_approximate_kernel_ridge``, ROADMAP Queue A item 4, raising
+``UnsupportedError``) and ``ml/distributed.py`` (item 9).
+"""
+
+from .admm import ADMMParams, BlockADMMSolver
 from .coding import decode_labels, dummy_coding
 from .distances import (
     euclidean_distance_matrix,
@@ -18,8 +24,25 @@ from .kernels import (
     PolynomialKernel,
     kernel_by_name,
 )
+from .krr import (
+    KrrParams,
+    approximate_kernel_ridge,
+    faster_kernel_ridge,
+    kernel_ridge,
+    large_scale_kernel_ridge,
+    sketched_approximate_kernel_ridge,
+    streaming_approximate_kernel_ridge,
+    streaming_kernel_ridge,
+)
 from .metrics import classification_accuracy, mean_squared_error
 from .model import FeatureMapModel, KernelModel, load_model
+from .nonlinear import RLS, NystromRLS, SketchPCR, SketchRLS
+from .rlsc import (
+    approximate_kernel_rlsc,
+    faster_kernel_rlsc,
+    kernel_rlsc,
+    sketched_approximate_kernel_rlsc,
+)
 
 __all__ = [
     "Kernel",
@@ -30,6 +53,18 @@ __all__ = [
     "ExpSemigroupKernel",
     "MaternKernel",
     "kernel_by_name",
+    "KrrParams",
+    "kernel_ridge",
+    "approximate_kernel_ridge",
+    "sketched_approximate_kernel_ridge",
+    "faster_kernel_ridge",
+    "large_scale_kernel_ridge",
+    "streaming_kernel_ridge",
+    "streaming_approximate_kernel_ridge",
+    "kernel_rlsc",
+    "approximate_kernel_rlsc",
+    "sketched_approximate_kernel_rlsc",
+    "faster_kernel_rlsc",
     "dummy_coding",
     "decode_labels",
     "euclidean_distance_matrix",
@@ -37,6 +72,12 @@ __all__ = [
     "expsemigroup_distance_matrix",
     "classification_accuracy",
     "mean_squared_error",
+    "RLS",
+    "SketchRLS",
+    "NystromRLS",
+    "SketchPCR",
+    "ADMMParams",
+    "BlockADMMSolver",
     "FeatureMapModel",
     "KernelModel",
     "load_model",

@@ -12,11 +12,23 @@ from .._device import resolve_device
 __all__ = ["dummy_coding", "decode_labels"]
 
 
+def host_labels(y) -> np.ndarray:
+    """Labels as a numpy array (a tensor is copied from its device)."""
+    return y.detach().cpu().numpy() if isinstance(y, torch.Tensor) else np.asarray(y)
+
+
+def label_dtype(X: torch.Tensor) -> torch.dtype:
+    """The dtype of a coding matrix for features X: X's floating dtype
+    promoted to at least f32."""
+    dt = X.dtype if X.is_floating_point() else torch.float32
+    return torch.promote_types(dt, torch.float32)
+
+
 def dummy_coding(y, classes=None, dtype=None, device=None):
     """y (n,) labels → (T, classes): T (n, k) with +1 for the true class
     and −1 elsewhere; ``classes`` sorted (explicit ones are sorted and
     checked).  ``dtype`` defaults to torch's default float."""
-    y = np.asarray(y)
+    y = host_labels(y)
     if classes is None:
         classes = np.unique(y)
     else:

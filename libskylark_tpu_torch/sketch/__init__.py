@@ -20,7 +20,7 @@ from .hash import CWT, MMT, SJLT, WZT, HashSketch
 from .ppt import PPT
 from .rft import RFT, GaussianRFT, LaplacianRFT, MaternRFT
 from .rlt import ExpSemigroupRLT
-from .sampling import UST
+from .sampling import NURST, UST
 
 COLUMNWISE = Dimension.COLUMNWISE
 ROWWISE = Dimension.ROWWISE
@@ -41,6 +41,7 @@ __all__ = [
     "FJLT",
     "RFUT",
     "UST",
+    "NURST",
     "HashSketch",
     "CWT",
     "MMT",

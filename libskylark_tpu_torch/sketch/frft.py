@@ -14,7 +14,7 @@ unstable sort would give another permutation.
 
 Routes, the same on the card and on the CPU:
 
-- 2-D f32/bf16 input with NB in the RFUT kernels' range (512..2^15):
+- 2-D f32/bf16 input with NB in the RFUT kernels' range (128..2^15):
   each block is two ``kernels_fut.rfut_rowwise`` launches on the rowwise
   (batch, NB) layout, H·(B ⊙ x) and H·(G ⊙ Πy), with the permutation an
   ``index_select`` of columns between them (columnwise input is

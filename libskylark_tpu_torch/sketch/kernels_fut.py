@@ -7,10 +7,12 @@ wrapper launches its kernel for a CUDA tensor and counts the launch in
 its ``launches`` attribute; a CPU tensor takes the plain PyTorch
 version beside it, which the tests compare with the JAX kernel.
 
-Gates.  NB is a power of 2 in [512, 2^15], as on the TPU.  The TPU's
-VMEM row-tile budgets do not carry over: one block holds one padded row
-of NB float32, 128 KiB at NB = 2^15, under the 227 KB a Hopper block may
-use, and any row count works (one block per row).  The sampled variant
+Gates.  NB is a power of 2 in [128, 2^15].  The JAX package's Pallas
+kernels start at 512 (the TPU's lane tiles); here one block holds one
+padded row of NB float32 (16 threads at NB = 128, 128 KiB at NB = 2^15,
+under the 227 KB a Hopper block may use), and any row count works (one
+block per row), so Fastfood at d = 128 (BlockADMM's width) takes the
+kernels too.  The sampled variant
 keeps JAX's ``S ≥ 128, S % 128 == 0`` condition, so both kernels stay on
 a path; its sample indices are read from global memory (L2), so S adds
 nothing to the shared-memory need.
@@ -36,7 +38,7 @@ __all__ = [
     "rfut_rowwise_sampled_plain",
 ]
 
-MIN_NB = 512
+MIN_NB = 128
 MAX_NB = 1 << 15
 _DTYPES = (torch.float32, torch.bfloat16)
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}

@@ -1,12 +1,17 @@
-"""Uniform sampling sketch UST (port of ``libskylark_tpu/sketch/
-sampling.py``): pure coordinate selection, no rescaling.
+"""Sampling sketches UST (uniform) and NURST (non-uniform), port of
+``libskylark_tpu/sketch/sampling.py``: pure coordinate selection, no
+rescaling.
 
 Without replacement, the S smallest of N counter-derived uniform keys
 give a uniform S-subset (a stable argsort, as ``jnp.argsort`` is).
+NURST draws S counter-derived f32 uniforms and selects by inverse CDF
+over the normalized probabilities (an f64 cumulative sum, as the JAX
+package computes it with x64 on): the same rows as the JAX package's.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .._device import as_tensor
@@ -14,7 +19,7 @@ from ..core.context import SketchContext
 from ..core.random import sample
 from .base import Dimension, SketchTransform, register_sketch
 
-__all__ = ["UST"]
+__all__ = ["UST", "NURST"]
 
 
 @register_sketch
@@ -73,3 +78,49 @@ class UST(SketchTransform):
     @classmethod
     def _from_param_dict(cls, d, context):
         return cls(d["N"], d["S"], context, replace=d.get("replace", True))
+
+
+@register_sketch
+class NURST(SketchTransform):
+    """Non-uniform (weighted, with-replacement) row sampling transform
+    (≙ python-skylark's NURST)."""
+
+    sketch_type = "NURST"
+
+    def __init__(self, n, s, context: SketchContext, probs):
+        super().__init__(n, s, context)
+        self.probs = np.asarray(probs, dtype=np.float64)
+        if self.probs.shape != (n,):
+            raise ValueError(f"probs must have shape ({n},), got {self.probs.shape}")
+        if (self.probs < 0).any():
+            raise ValueError("probs must be nonnegative")
+        total = self.probs.sum()
+        if total <= 0:
+            raise ValueError("probs must sum to a positive value")
+        self.probs = self.probs / total
+        self._seed = context.seed
+        self._base = context.reserve(s)
+
+    def samples(self, device=None) -> torch.Tensor:
+        """The S selected input coordinates (int32, deterministic)."""
+        u = sample("uniform", self._seed, self._base, self.s, dtype=torch.float32,
+                   device=device)
+        cdf = torch.as_tensor(np.cumsum(self.probs), device=u.device)
+        idx = torch.searchsorted(cdf, u.to(cdf.dtype))
+        return torch.clamp(idx, 0, self.n - 1).to(torch.int32)
+
+    def apply(self, A, dim: Dimension | str = Dimension.COLUMNWISE, *,
+              device=None):
+        dim = Dimension.of(dim)
+        A = as_tensor(A, device)
+        idx = self.samples(A.device).long()
+        if dim is Dimension.COLUMNWISE:
+            return A.index_select(0, idx)
+        return A.index_select(A.ndim - 1, idx)
+
+    def _param_dict(self):
+        return {"probs": self.probs.tolist()}
+
+    @classmethod
+    def _from_param_dict(cls, d, context):
+        return cls(d["N"], d["S"], context, probs=d["probs"])

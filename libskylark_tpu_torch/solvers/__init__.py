@@ -6,12 +6,13 @@
 - ``accelerated``: Blendenpik / LSRN sketch-to-precondition least squares;
 - ``cond_est``: condition-number estimation with certificates
   (≙ ``nla/CondEst.hpp``);
-- ``regression``: the regression-problem dispatch.
+- ``regression``: the regression-problem dispatch;
+- ``prox``: loss/regularizer prox library (≙ ``algorithms/regression/
+  loss.hpp``, ``regularizers.hpp``).
 
 Not ported yet, each raising ``UnsupportedError`` naming its ROADMAP
 item: ``refine_least_squares`` (item 3), ``asy_fcg`` and
-``randomized_block_gauss_seidel`` (item 10), the prox library's
-``get_loss``/``get_regularizer`` (item 7).
+``randomized_block_gauss_seidel`` (item 10).
 """
 
 from ..utils.exceptions import deferred
@@ -29,6 +30,7 @@ from .krylov import (
     lsqr_chunked,
 )
 from .precond import IdPrecond, MatPrecond, TriInversePrecond
+from .prox import LOSSES, REGULARIZERS, get_loss, get_regularizer
 from .regression import RegressionProblem, solve_regression
 
 refine_least_squares = deferred(
@@ -37,8 +39,6 @@ refine_least_squares = deferred(
 asy_fcg = deferred("asy_fcg", "ROADMAP Queue A item 10: solvers/asynch.py")
 randomized_block_gauss_seidel = deferred(
     "randomized_block_gauss_seidel", "ROADMAP Queue A item 10: solvers/gauss_seidel.py")
-get_loss = deferred("get_loss", "ROADMAP Queue A item 7: solvers/prox.py")
-get_regularizer = deferred("get_regularizer", "ROADMAP Queue A item 7: solvers/prox.py")
 
 __all__ = [
     "KrylovParams",
@@ -64,6 +64,8 @@ __all__ = [
     "refine_least_squares",
     "asy_fcg",
     "randomized_block_gauss_seidel",
+    "LOSSES",
+    "REGULARIZERS",
     "get_loss",
     "get_regularizer",
 ]

@@ -29,7 +29,7 @@ from .._device import as_tensor
 from ..core.params import Params
 from ..resilient.chunked import ChunkedSolver, graphable, stepper
 from ..utils.sparse import linear_ops
-from .precond import IdPrecond, MatPrecond, TriInversePrecond
+from .precond import IdPrecond
 
 __all__ = [
     "KrylovParams",
@@ -84,10 +84,10 @@ def _converged(s):
 
 
 def _graphable(A, precond) -> bool:
-    """A dense CUDA matrix and one of this package's preconditioners: a
-    step that can be captured as a CUDA graph."""
-    return graphable(A) and (precond is None or isinstance(
-        precond, (IdPrecond, MatPrecond, TriInversePrecond)))
+    """A dense CUDA matrix and a preconditioner that says it is
+    ``graphable`` (this package's, KRR's feature-map one): a step that
+    can be captured as a CUDA graph."""
+    return graphable(A) and (precond is None or getattr(precond, "graphable", False))
 
 
 def _chunked(kind, init_state, body, extract_result, iter_lim, done_of=_converged,

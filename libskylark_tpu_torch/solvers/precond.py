@@ -10,7 +10,11 @@ __all__ = ["IdPrecond", "MatPrecond", "TriInversePrecond"]
 
 
 class IdPrecond:
-    """Identity (≙ ``id_precond_t``)."""
+    """Identity (≙ ``id_precond_t``).  ``graphable``: its apply is pure
+    tensor work, so a Krylov step over it may be captured as a CUDA
+    graph (as for the two below)."""
+
+    graphable = True
 
     def apply(self, x):
         return x
@@ -21,6 +25,8 @@ class IdPrecond:
 
 class MatPrecond:
     """Multiply by a fixed matrix M (≙ ``mat_precond_t``)."""
+
+    graphable = True
 
     def __init__(self, M: torch.Tensor):
         self.M = M
@@ -35,6 +41,8 @@ class MatPrecond:
 class TriInversePrecond:
     """Solve against a triangular factor R (≙ ``tri_inverse_precond_t``),
     applied as R⁻¹ / R⁻ᵀ."""
+
+    graphable = True
 
     def __init__(self, R: torch.Tensor, lower: bool = False):
         self.R = R

@@ -31,7 +31,8 @@ def test_port_files_found():
             "ppt.py", "kernels.py", "distances.py", "coding.py", "metrics.py",
             "model.py", "flagship.py", "matrices.py", "chunked.py", "precond.py",
             "krylov.py", "cond_est.py", "config.py", "sentinels.py", "certify.py",
-            "ladder.py", "svd.py", "accelerated.py", "regression.py"} <= names
+            "ladder.py", "svd.py", "accelerated.py", "regression.py", "timer.py",
+            "prox.py", "sampling.py", "krr.py", "rlsc.py", "admm.py", "nonlinear.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -77,7 +77,8 @@ def test_rfut_rowwise_sampled_plain_matches_pallas(rng, n, s):
 def test_rfut_gates():
     assert kernels_fut.supported(7, 4096, 4096)        # any row count
     assert kernels_fut.supported(1, 20000, 1 << 15)
-    assert not kernels_fut.supported(8, 256, 256)      # below 512
+    assert not kernels_fut.supported(8, 64, 64)        # below 128
+    assert kernels_fut.supported(8, 100, 128)          # the smallest instance
     assert not kernels_fut.supported(8, 1 << 16, 1 << 16)
     assert not kernels_fut.supported(8, 600, 600)      # not a power of 2
     assert not kernels_fut.supported(8, 600, 512)      # n > nb

@@ -301,8 +301,11 @@ def test_exports():
                  "MatPrecond", "TriInversePrecond"):
         assert hasattr(T.solvers, name)
     assert T.resilient.ChunkedSolver is tk.ChunkedSolver
-    for name in ("asy_fcg", "randomized_block_gauss_seidel", "get_loss", "refine_least_squares"):
+    for name in ("asy_fcg", "randomized_block_gauss_seidel", "refine_least_squares"):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
             getattr(T.solvers, name)()
+    # The prox library is ported (tests/test_torch_prox.py).
+    assert T.solvers.get_loss("hinge").name == "hinge"
+    assert T.solvers.get_regularizer("l1").name == "l1"
     with pytest.raises(NotImplementedError, match="item 8"):
         T.resilient.ResilientRunner(None)
