@@ -45,7 +45,18 @@ JSON line.  The paths:
   solve of the same problem or the exact solve, and its training
   accuracy against a model of random weights, beside a control that
   misses the bound; ADMM and approximate KRR also against the CPU route
-  on a row subset.
+  on a row subset;
+- out-of-core streaming (``stream_path``): the fused stream chunk
+  (``scatter_rows`` with its ``acc`` fold) against the unfused one at
+  8 x 65536 x 2048 -> 1024 (CWT, MMT); the overlapped streamed sketch of
+  8 pinned host batches against the serial one and the resident apply,
+  and the FJLT rowwise form; streaming sketch-and-solve least squares of
+  a 2^22 x 512 A (8 GiB) in 32 pinned batches, killed after batch 17
+  and resumed; the north-star streaming KRR at 10^7 x 4096 -> 2048 bf16
+  with its check at n = 2^20; the streaming randomized SVD of a rank-100
+  2^21 x 1024 matrix in bf16 panels; the graph of the third path
+  streamed in edge blocks of 2^22.  Each bitwise pin (fused, overlap,
+  resume, streamed graph) and each bound beside a control that misses.
 
 It exits non-zero, printing no result, without a CUDA device or without
 the package beside it.  It imports nothing of JAX.
@@ -138,6 +149,35 @@ ML_SIGMA = math.sqrt(ML_DIM)
 ML_LAPLACE_SIGMA = 2 * ML_DIM / math.sqrt(math.pi)
 ML_MATERN_L = math.sqrt(3.0) * math.sqrt(2 * ML_DIM)
 ML_BETA = 1.0 / (1.2146 * ML_DIM)
+# Streaming (phase 3g).  (a) bench.py:440-484's fused stream chunk and (b)
+# bench.py:487-555's overlapped pass: 8 chunks of 65536 x 2048 f32 -> 1024.
+ST_CHUNK, ST_N, ST_S, ST_CHUNKS = 65_536, 2048, 1024, 8
+ST_REPEATS = 5                     # timed passes (min kept, as bench.py keeps it)
+# (c) streaming sketch-and-solve: A 2^22 x 512 f32 (8 GiB) plus b in 32
+# pinned host batches, the default sketch (JLT, s = 4n); killed after
+# batch 17 (chunk 8 of two batches) and resumed.
+LSQ_M, LSQ_N, LSQ_BATCH, LSQ_EVERY, LSQ_KILL_CHUNK = 1 << 22, 512, 131_072, 2, 8
+LSQ_NOISE = 1.0
+# (d) the north star, bench.py:719-766: 10^7 x 4096 -> 2048 Gaussian
+# features (sigma 8), bf16, hot panels of 125000 rows, lam 0.1, 3 sweeps.
+NS_N, NS_D, NS_S, NS_BR, NS_SIGMA, NS_LAM, NS_SWEEPS = (
+    10_000_000, 4096, 2048, 125_000, 8.0, 0.1, 3)
+# Its correctness check: n = 2^20 on the same block_fn, at a lam where W
+# depends on it (at lam 0.1 the Gram's eigenvalues, ~n/s = 512, make a 2 lam
+# control move W by ~2e-4 only); W against the same sweeps in core (bf16
+# state: NS_INCORE_TOL) and against an f64 solve of the same bf16 features
+# (NS_W_TOL: the residual update takes delta rounded to bf16, as the JAX
+# package's does, so W keeps ~2^-9 of sweep 0's update, 2.8e-3 on the card;
+# tests/test_torch_streaming.py::test_streaming_kernel_ridge_bf16_matches_jax
+# holds the bf16 path against the JAX package's on the CPU).
+NS_CHECK_N, NS_CHECK_LAM, NS_INCORE_TOL, NS_W_TOL = 1 << 20, 50.0, 2e-2, 1e-2
+# (e) the streaming randomized SVD: bench.py:768-800's matrix (rank 100,
+# 1024 columns, noise 0.01, bf16 panels), m cut from 10^7 to 2^21 as in
+# phase 3e (the counter stream makes a 10^7 pass ~14 s; PERF.md).
+SSVD_M, SSVD_N, SSVD_R, SSVD_BR, SSVD_NOISE, SSVD_TOL = 1 << 21, 1024, 100, 262_144, 0.01, 1e-2
+SSVD_CTL_R = 50                    # the control: a rank-50 matrix's sigma
+# (f) the streamed graph: phase 3c's planted graph in edge blocks of 2^22.
+GRAPH_BATCH = 1 << 22
 
 
 def fail(msg: str) -> None:
@@ -266,6 +306,48 @@ def bound_ratio(out, exact, bound) -> float:
     err = (out.double() - exact).abs()
     return float(torch.where(bound > 0, err / bound.clamp(min=1e-300),
                              torch.where(err > 0, math.inf, 0.0)).max())
+
+
+def signature(name, args) -> tuple:
+    """A kernel launch's signature: its name, each tensor argument's shape
+    and dtype, and the other arguments."""
+    return (name,) + tuple((tuple(a.shape), a.dtype) if torch.is_tensor(a) else a for a in args)
+
+
+class Held:
+    """Stands in for a kernel's wrapper in its module while a path runs,
+    so that the first launch of each signature (kernel, input shapes and
+    dtypes, the other arguments) is held against the plain version on
+    the same inputs by ``compare(out, *args, **kwargs)``; signatures go
+    into ``held``.  The launch count (the wrapper adds to it by its
+    module name) stays the wrapper's own, and the plain runs launch no
+    kernel."""
+
+    def __init__(self, kernel, name, compare, held: set):
+        self.kernel, self.name, self.compare, self.held = kernel, name, compare, held
+
+    @property
+    def launches(self):
+        return self.kernel.launches
+
+    @launches.setter
+    def launches(self, count):
+        self.kernel.launches = count
+
+    def __call__(self, *args, **kwargs):
+        out = self.kernel(*args, **kwargs)
+        sig = signature(self.name, args)
+        if sig not in self.held:
+            self.held.add(sig)
+            self.compare(out, *args, **kwargs)
+        return out
+
+
+def hold(mod, name, compare, held: set):
+    """Put a :class:`Held` in place of ``mod.name``; returns the wrapper."""
+    kernel = getattr(mod, name)
+    setattr(mod, name, Held(kernel, name, compare, held))
+    return kernel
 
 
 def host_median(fn, reps: int = ML_REPEATS) -> tuple[float, list[float]]:
@@ -759,36 +841,6 @@ def train_path(sky, dev, reset_counts, read_counts, smi) -> None:
     # control that misses.  The plain runs launch no kernel.
     held = set()
 
-    class Held:
-        """Stands in for the kernel's wrapper in its module, whose launch
-        count (the wrapper adds to it by its module name) stays the
-        wrapper's own."""
-
-        def __init__(self, kernel, name, compare):
-            self.kernel, self.name, self.compare = kernel, name, compare
-
-        @property
-        def launches(self):
-            return self.kernel.launches
-
-        @launches.setter
-        def launches(self, count):
-            self.kernel.launches = count
-
-        def __call__(self, *args, **kwargs):
-            out = self.kernel(*args, **kwargs)
-            sig = (self.name,) + tuple((tuple(a.shape), a.dtype) if torch.is_tensor(a) else a
-                                       for a in args)
-            if sig not in held:
-                held.add(sig)
-                self.compare(out, *args, **kwargs)
-            return out
-
-    def hold(mod, name, compare):
-        kernel = getattr(mod, name)
-        setattr(mod, name, Held(kernel, name, compare))
-        return kernel
-
     def rfut_held(out, x, d, nb):
         tol = 1e-5 if x.dtype == torch.float32 else 1e-2
         _, r = max_err(out, kf.rfut_rowwise_plain(x, d, nb))
@@ -819,9 +871,9 @@ def train_path(sky, dev, reset_counts, read_counts, smi) -> None:
               f"control (bucket {row}'s first piece left out) {c:.3g}")
         check(r <= 1.0 and c > 1.0, f"train scatter_rows {tuple(A.shape)}: {r}, control {c}")
 
-    kernels = [(kf, "rfut_rowwise", hold(kf, "rfut_rowwise", rfut_held)),
-               (kw, "gather_scaled_rows", hold(kw, "gather_scaled_rows", gather_held)),
-               (kw, "scatter_rows", hold(kw, "scatter_rows", scatter_held))]
+    kernels = [(kf, "rfut_rowwise", hold(kf, "rfut_rowwise", rfut_held, held)),
+               (kw, "gather_scaled_rows", hold(kw, "gather_scaled_rows", gather_held, held)),
+               (kw, "scatter_rows", hold(kw, "scatter_rows", scatter_held, held))]
     reset_counts()
     t_path = time.perf_counter()
 
@@ -1135,6 +1187,464 @@ def train_path(sky, dev, reset_counts, read_counts, smi) -> None:
     check({sig[0] for sig in held} == {name for _, name, _ in kernels},
           f"train: kernels held against their plain versions: {sorted(held)}")
     read_counts("train", t_path, ("rfut_rowwise", "gather_scaled_rows", "scatter_rows"))
+
+
+def stream_path(sky, dev, reset_counts, read_counts, smi, graph) -> dict:
+    """Phase 3g: the out-of-core streaming stack at full width: (a) the
+    fused stream chunk against the unfused one, (b) the overlapped
+    streamed sketch of pinned host batches against the serial one, (c)
+    streaming sketch-and-solve least squares with a kill and a resume,
+    (d) the north-star streaming KRR, (e) the streaming randomized SVD,
+    (f) the streamed graph sketch and ASE.  Each kernel the path
+    launches is held against its plain version first; then every launch
+    of (a)-(f) counts for the ``streaming`` path.  Returns the fused
+    chunk's inputs for the kernel table."""
+    import tempfile
+
+    from libskylark_tpu_torch.resilient import FaultPlan, SimulatedPreemption, chunked
+    from libskylark_tpu_torch.sketch import kernels_fut as kf
+    from libskylark_tpu_torch.sketch import kernels_scatter as ks
+    from libskylark_tpu_torch.sketch import kernels_window as kw
+    from libskylark_tpu_torch.streaming import StreamParams
+    from libskylark_tpu_torch.streaming.engine import accumulate_slice
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    f64, bf16 = torch.float64, torch.bfloat16
+    card = f"[{smi}]"
+    u = 2.0 ** -24
+
+    def clock(fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    def rel(a, b):
+        a, b = a.double(), b.double()
+        return float((a - b).abs().max() / b.abs().max())
+
+    # Each kernel the path launches is held against its plain version on
+    # the same inputs at the path's own shapes, the first launch of each
+    # signature, beside a control that misses (as phase 3f holds its own).
+    held = set()
+
+    def scatter_held(out, A, b, v, segs, acc=None, label="(held)"):
+        part, err_bound, (row, piece) = scatter_error_bound(A, b, v, segs, kw._L)
+        exact = part if acc is None else acc.double() + part
+        if acc is not None:
+            err_bound = err_bound + u * 1.01 * exact.abs()  # the fused emit's one add
+        r = bound_ratio(out, exact, err_bound)
+        plain = kw.scatter_rows_plain(A.cpu(), b.cpu(), v.cpu(), segs,
+                                      acc=None if acc is None else acc.cpu())
+        rp = bound_ratio(plain.to(dev), exact, err_bound)
+        c = bound_ratio(out[row].double() - piece, exact[row], err_bound[row])
+        # Where no bucket holds more than _L entries, the kernel sums each
+        # in entry order, as its plain version does: bitwise on CPU copies.
+        flat = b[(b >= 0) & (b < segs)].long()
+        one_piece = int(torch.bincount(flat, minlength=segs).max()) <= kw._L
+        same = torch.equal(out.cpu(), plain)
+        print(f"stream {label} scatter_rows{'(acc=)' if acc is not None else ''} A "
+              f"{tuple(A.shape)} {A.dtype} -> {segs}, nnz = {b.shape[0]}: max |out - exact| / "
+              f"rounding bound {r:.3g} (must be <= 1; plain version {rp:.3g}, bitwise equal "
+              f"{same}, required {one_piece}); control (bucket {row}'s first piece left out) "
+              f"{c:.3g}")
+        check(r <= 1.0 and rp <= 1.0 and c > 1.0 and (same or not one_piece),
+              f"stream {label} scatter_rows {tuple(A.shape)}: {r}, plain {rp}, bitwise {same}, "
+              f"control {c}")
+        return float((out.cpu() - plain).abs().max())
+
+    def segsum_held(out, vals, keys, segs):
+        ref = ks.segment_sum_flat_plain(vals, keys, segs)
+        _, r = max_err(out, ref)
+        i = int(vals.abs().argmax())
+        ctl = ks.segment_sum_flat_plain(torch.cat([vals[:i], vals[i + 1:]]),
+                                        torch.cat([keys[:i], keys[i + 1:]]), segs)
+        _, c = max_err(out, ctl)
+        print(f"stream (held) segment_sum_flat {vals.shape[0]} -> {segs} {vals.dtype}: vs its "
+              f"plain version rel {r:.3g} (tol 1e-5); control (the plain version without entry "
+              f"{i}) {c:.3g}")
+        check(r <= 1e-5 and c > 1e-5, f"stream segment_sum_flat {vals.shape[0]}: {r}, control {c}")
+
+    def rfut_held(out, x, d, nb, idx):
+        _, r = max_err(out, kf.rfut_rowwise_sampled_plain(x, d, nb, idx))
+        d_ctl = d.clone()
+        d_ctl[0] = -d_ctl[0]
+        _, c = max_err(out, kf.rfut_rowwise_sampled_plain(x, d_ctl, nb, idx))
+        print(f"stream (held) rfut_rowwise_sampled x {tuple(x.shape)} {x.dtype}, NB = {nb}, S = "
+              f"{idx.shape[0]}: vs its plain version rel {r:.3g} (tol 1e-5); control (the plain "
+              f"version with d[0] negated) {c:.3g}")
+        check(r <= 1e-5 and c > 1e-5, f"stream rfut_rowwise_sampled {tuple(x.shape)}: {r}, "
+              f"control {c}")
+
+    # (a) inputs, and each chunk kernel against its plain version (before
+    # the counts are reset: these launches do not count).
+    m_a = ST_CHUNK * ST_CHUNKS
+    X = torch.randn(ST_CHUNK, ST_N, generator=g, device=dev)
+    chunk_sketches = {name: sky.sketch.create_sketch(name, m_a, ST_S, sky.SketchContext(seed=61))
+                      for name in ("CWT", "MMT")}
+    chunk_err = 0.0
+    for name, S in chunk_sketches.items():
+        acc0 = torch.randn(ST_S, ST_N, generator=g, device=dev)
+        b, v = S._slice_hashes(3 * ST_CHUNK, ST_CHUNK, torch.float32, dev)
+        out = kw.scatter_rows(X, b, v, ST_S, acc=acc0)
+        chunk_err = max(chunk_err, scatter_held(out, X, b, v, ST_S, acc=acc0,
+                                                label=f"(a) {name} chunk:"))
+        held.add(signature("scatter_rows", (X, b, v, ST_S)))
+        del acc0, b, v, out
+    torch.cuda.empty_cache()
+
+    # (b) inputs: 8 pinned host batches, made on the card from the seed.
+    H = torch.empty(m_a, ST_N, pin_memory=True)
+    for i in range(ST_CHUNKS):
+        H[i * ST_CHUNK:(i + 1) * ST_CHUNK].copy_(
+            torch.randn(ST_CHUNK, ST_N, generator=g, device=dev))
+    host_batches = [H[i * ST_CHUNK:(i + 1) * ST_CHUNK] for i in range(ST_CHUNKS)]
+
+    kernels = [(kw, "scatter_rows", hold(kw, "scatter_rows", scatter_held, held)),
+               (ks, "segment_sum_flat", hold(ks, "segment_sum_flat", segsum_held, held)),
+               (kf, "rfut_rowwise_sampled", hold(kf, "rfut_rowwise_sampled", rfut_held, held))]
+    reset_counts()
+    t_path = time.perf_counter()
+
+    # (a) the fused stream chunk, bench.py's pass: 8 chunks folded into
+    # one (1024, 2048) accumulator, fused against the unfused composite.
+    # Warm: the whole (nnz, N) hash arrays a stream's windows are cut
+    # from stay memoized from pass to pass, so the pass draws no hash.
+    # Cold: each pass ends in finalize_slices, which drops them, so each
+    # pass draws them once, as a user's one pass over a sketch does.
+    # Drawn: the side above the memo's limit (set to 0 on a second sketch
+    # of the same seed), each chunk's windows drawn for the chunk.
+    for name, S in chunk_sketches.items():
+        def chunk_pass(fused, sketch=S, finalize=False):
+            acc = torch.zeros(ST_S, ST_N, device=dev)
+            for c in range(ST_CHUNKS):
+                acc = accumulate_slice(sketch, acc, X, c * ST_CHUNK, fused=fused)
+            return sketch.finalize_slices(acc) if finalize else acc
+
+        outs = {fused: clock(chunk_pass, fused)[1] for fused in (True, False)}
+        warm = {fused: min(clock(chunk_pass, fused)[0] for _ in range(ST_REPEATS))
+                for fused in (True, False)}
+        S.finalize_slices(outs[True])
+        cold = min(clock(chunk_pass, True, S, True)[0] for _ in range(ST_REPEATS))
+        S_d = sky.sketch.create_sketch(name, m_a, ST_S, sky.SketchContext(seed=61))
+        S_d._SLICE_MEMO_LIMIT = 0
+        t_d, out_d = clock(chunk_pass, True, S_d)
+        drawn = min([t_d] + [clock(chunk_pass, True, S_d)[0] for _ in range(ST_REPEATS - 1)])
+        same = torch.equal(outs[True], outs[False])
+        same_d = torch.equal(out_d, outs[True])
+        print(f"stream (a) {name} fused stream-chunk columnwise {ST_CHUNKS}x{ST_CHUNK}x{ST_N}"
+              f"->{ST_S}: warm (hash arrays memoized) fused {m_a / warm[True] / 1e6:.1f} Mrows/s "
+              f"({warm[True]!r} s), unfused {m_a / warm[False] / 1e6:.1f} Mrows/s "
+              f"({warm[False]!r} s), fused / unfused speed {warm[False] / warm[True]:.3f}; cold "
+              f"(each pass draws the whole arrays) fused {m_a / cold / 1e6:.1f} Mrows/s "
+              f"({cold!r} s); drawn per chunk (above the memo limit) fused "
+              f"{m_a / drawn / 1e6:.1f} Mrows/s ({drawn!r} s); bitwise fused = unfused {same}, "
+              f"drawn = memoized {same_d} {card}")
+        check(same, f"stream (a) {name}: fused and unfused passes differ")
+        check(same_d, f"stream (a) {name}: drawn and memoized hash windows differ")
+        check(bool(torch.isfinite(outs[True]).all()), f"stream (a) {name}: non-finite sketch")
+        check(not S.__dict__.get("_slice_memo"), f"stream (a) {name}: finalize kept the memo")
+    del outs, out_d, S_d
+
+    # (b) the overlapped streamed sketch of the pinned host batches,
+    # overlap against serial, and against the exact sum in f64.
+    S_b = sky.sketch.CWT(m_a, ST_S, sky.SketchContext(seed=71))
+
+    def stream_pass(overlap, params=None):
+        params = params or StreamParams(overlap=overlap)
+        return sky.streaming.sketch(lambda start: iter(host_batches[start:]), S_b,
+                                    ncols=ST_N, dtype=torch.float32, params=params)
+
+    outs = {ov: clock(stream_pass, ov)[1] for ov in (True, False)}
+    times = {ov: min(clock(stream_pass, ov)[0] for _ in range(ST_REPEATS)) for ov in (True, False)}
+    params = StreamParams(overlap=True)
+    clock(stream_pass, True, params)
+    st = params.prefetch_stats
+    same = torch.equal(outs[True], outs[False])
+    gbs = H.numel() * 4 / times[True] / 1e9
+    print(f"stream (b) CWT overlapped stream columnwise {ST_CHUNKS}x{ST_CHUNK}x{ST_N}->{ST_S} "
+          f"from pinned host batches: overlap {m_a / times[True] / 1e6:.1f} Mrows/s "
+          f"({times[True]!r} s, {gbs:.1f} GB/s host->card), serial "
+          f"{m_a / times[False] / 1e6:.1f} Mrows/s ({times[False]!r} s), serial / overlap "
+          f"{times[False] / times[True]:.3f}; bitwise equal {same}; prefetch: {st.produced} "
+          f"staged, hits {st.hits}, waits {st.waits}, producer {st.producer_seconds:.4f} s, "
+          f"consumer waited {st.wait_seconds:.4f} s, hidden fraction {st.hidden():.3f} {card}")
+    check(same, "stream (b): overlapped and serial passes differ")
+    # The exact sum in f64 (CWT values are ±1, so each term is exact).
+    # Any order of summation errs by at most (n_b - 1)·u·Σ|x| in a bucket
+    # of n_b terms (Higham (4.3)).
+    A_res = H.to(dev)
+    bkt = S_b.buckets(0, m_a, device=dev).long()
+    val = S_b.values(torch.float32, 0, m_a, device=dev).double()
+    n_b = torch.bincount(bkt, minlength=ST_S).double()
+    exact = torch.zeros(ST_S, ST_N, dtype=f64, device=dev)
+    absum = torch.zeros(ST_S, ST_N, dtype=f64, device=dev)
+    for i in range(ST_CHUNKS):
+        sl = slice(i * ST_CHUNK, (i + 1) * ST_CHUNK)
+        A_d = A_res[sl].double()
+        exact.index_add_(0, bkt[sl], val[sl, None] * A_d)
+        absum.index_add_(0, bkt[sl], A_d.abs())
+    del A_d
+    order_bound = 1.01 * u * (n_b - 1).clamp(min=0)[:, None] * absum
+    r = bound_ratio(outs[True], exact, order_bound)
+    b0 = int(bkt[0])
+    ctl = bound_ratio(outs[True][b0], exact[b0] - val[0] * A_res[0].double(), order_bound[b0])
+    print(f"stream (b): streamed vs the exact sum (f64) of the resident {H.numel() * 4 >> 30} GiB "
+          f"A: max diff / rounding bound of any summation order {r:.3g} (must be <= 1); control "
+          f"(row 0 left out of bucket {b0}) {ctl:.3g}")
+    check(r <= 1.0 and ctl > 1.0, f"stream (b): streamed vs exact {r}, control {ctl}")
+    # The rowwise form of the same batches: FJLT, a sketch per batch.
+    S_r = sky.sketch.FJLT(ST_N, ST_S, sky.SketchContext(seed=73))
+    t_r, rowwise = clock(lambda: torch.cat(list(sky.streaming.sketch_batches(
+        lambda start: iter(host_batches[start:]), S_r))))
+    ok = torch.equal(rowwise, S_r.apply(A_res, "rowwise"))
+    print(f"stream (b) FJLT({ST_N}, {ST_S}) rowwise sketch_batches of the same batches: "
+          f"{t_r!r} s, bitwise S.apply of the resident A {ok}")
+    check(ok, "stream (b): rowwise sketch_batches differ from the resident apply")
+    del outs, exact, absum, order_bound, A_res, rowwise, bkt, val, H, host_batches
+    torch.cuda.empty_cache()
+
+    # (c) streaming sketch-and-solve LS over 32 pinned host batches.
+    A_h = torch.empty(LSQ_M, LSQ_N, pin_memory=True)
+    b_h = torch.empty(LSQ_M, pin_memory=True)
+    x_true = torch.randn(LSQ_N, generator=g, device=dev)
+    for r0 in range(0, LSQ_M, LSQ_BATCH):
+        Ap = torch.randn(LSQ_BATCH, LSQ_N, generator=g, device=dev)
+        A_h[r0:r0 + LSQ_BATCH].copy_(Ap)
+        b_h[r0:r0 + LSQ_BATCH].copy_(Ap @ x_true + LSQ_NOISE * torch.randn(
+            LSQ_BATCH, generator=g, device=dev))
+    nb = LSQ_M // LSQ_BATCH
+
+    def lsq_source(start):
+        return ((A_h[i * LSQ_BATCH:(i + 1) * LSQ_BATCH], b_h[i * LSQ_BATCH:(i + 1) * LSQ_BATCH])
+                for i in range(start, nb))
+
+    def lsq(params=None, fault_plan=None, s=None):
+        return sky.linalg.streaming_least_squares(
+            lsq_source, LSQ_M, LSQ_N, sky.SketchContext(seed=SEED),
+            sky.linalg.LeastSquaresParams(sketch_size=s), stream_params=params,
+            fault_plan=fault_plan)
+
+    secs, (x_hat, info) = clock(lsq)
+    with tempfile.TemporaryDirectory() as ck:
+        killed = StreamParams(checkpoint_dir=ck, checkpoint_every=LSQ_EVERY)
+        t_kill = time.perf_counter()
+        try:
+            lsq(killed, FaultPlan(preempt_after_chunk=LSQ_KILL_CHUNK))
+            fail("stream (c): the fault plan did not kill the pass")
+        except SimulatedPreemption:
+            pass
+        t_kill = time.perf_counter() - t_kill
+        steps = sky.utils.CheckpointStore(ck).steps()
+        t_res, (x_res, info_res) = clock(lsq, StreamParams(
+            checkpoint_dir=ck, checkpoint_every=LSQ_EVERY, resume=True))
+    same = torch.equal(x_hat, x_res)
+    # The control: a sketch of only n rows (s = n/2 leaves the small
+    # problem underdetermined, which the QR solve refuses).
+    _, (x_ctl, _) = clock(lsq, None, None, LSQ_N)
+    # The exact solve in f64 from the normal equations (cond(A) ~ 1.05).
+    G = torch.zeros(LSQ_N, LSQ_N, dtype=f64, device=dev)
+    c = torch.zeros(LSQ_N, dtype=f64, device=dev)
+    for A_p, b_p in lsq_source(0):
+        A_p, b_p = A_p.to(dev).double(), b_p.to(dev).double()
+        G += A_p.T @ A_p
+        c += A_p.T @ b_p
+    x_star = torch.cholesky_solve(c[:, None], torch.linalg.cholesky(G))[:, 0]
+    res = {"x*": 0.0, "x": 0.0, "control": 0.0}
+    for A_p, b_p in lsq_source(0):
+        A_p, b_p = A_p.to(dev).double(), b_p.to(dev).double()
+        for key, x in (("x*", x_star), ("x", x_hat), ("control", x_ctl)):
+            res[key] += float(torch.linalg.vector_norm(A_p @ x.double() - b_p) ** 2)
+    ratio, ratio_ctl = (math.sqrt(res["x"] / res["x*"]), math.sqrt(res["control"] / res["x*"]))
+    gb = (A_h.numel() + b_h.numel()) * 4 / 1e9
+    print(f"stream (c) streaming_least_squares {LSQ_M} x {LSQ_N} f32 in {nb} pinned batches of "
+          f"{LSQ_BATCH}, default sketch (JLT, s = {4 * LSQ_N}): {secs!r} s, {gb / secs:.2f} GB/s "
+          f"host->card ({gb:.2f} GB), info {{rows {info['rows']}, batches {info['batches']}, "
+          f"seconds {info['seconds']}, certificate "
+          f"{info['recovery']['attempts'][0]['verdict']}}}; residual / f64 exact residual "
+          f"{ratio:.4f} (bound {LS_RATIO_BOUND}); control (s = n = {LSQ_N}) "
+          f"{ratio_ctl:.4g} {card}")
+    print(f"stream (c) killed after batch {LSQ_EVERY * (LSQ_KILL_CHUNK + 1) - 1} ({t_kill:.2f} s, "
+          f"slots {steps}) and resumed ({t_res:.2f} s): bitwise the uninterrupted x {same}")
+    check(info["rows"] == LSQ_M and info["batches"] == nb, f"stream (c): info {info}")
+    check(ratio <= LS_RATIO_BOUND and ratio_ctl > LS_RATIO_BOUND,
+          f"stream (c): residual ratio {ratio}, control {ratio_ctl}")
+    check(same and info_res["rows"] == LSQ_M, "stream (c): the resumed pass differs")
+    del A_h, b_h, G, c, x_star
+    torch.cuda.empty_cache()
+
+    # (d) the north star: 10^7 x 4096 -> 2048, bf16 features, hot panels.
+    X0 = torch.randn(NS_BR, NS_D, generator=g, device=dev).to(bf16)
+
+    def block_fn(start, rows, X0):
+        # A per-panel row rotation of one resident panel stands in for IO.
+        return torch.roll(X0, start // rows, dims=0)[:rows]
+
+    kernel = sky.ml.GaussianKernel(NS_D, NS_SIGMA)
+
+    def ns_fit(n, lam, params=None, timer=None):
+        y = torch.sign(torch.randn(n, generator=torch.Generator(device=dev).manual_seed(SEED),
+                                   device=dev))
+        return sky.ml.streaming_kernel_ridge(
+            kernel, block_fn, (n, NS_D), y, lam, NS_S, sky.SketchContext(seed=72),
+            params or sky.ml.KrrParams(max_split=0, iter_lim=NS_SWEEPS, tolerance=0.0),
+            block_rows=NS_BR, feature_dtype=bf16, block_args=(X0,), timer=timer), y
+
+    timer = sky.utils.PhaseTimer()
+    secs, (model, _) = clock(ns_fit, NS_N, NS_LAM, None, timer)
+    per = timer.totals["sweep"] / timer.counts["sweep"]
+    resid = model.info["residual"]
+    print(f"stream (d) north-star streaming KRR {NS_N}x{NS_D}->{NS_S} bf16 (hot panels of "
+          f"{NS_BR}, lam {NS_LAM}, {NS_SWEEPS} sweeps): {per!r} s/sweep (sweep 0 "
+          f"{timer.totals['sweep0']!r} s: Gram, factor, ZR and update passes), total "
+          f"{secs!r} s; ||R|| after each sweep {resid} (||y|| "
+          f"{math.sqrt(NS_N):.4f}) {card}")
+    check(bool(torch.isfinite(model.W).all()), "stream (d): W not finite")
+    # One feature chunk (max_split = 0): sweep 0 is the ridge solve, and
+    # later sweeps refine what the bf16 rounding of its update lost, so
+    # the residual falls in sweep 0 and never rises after.
+    check(resid[0] < math.sqrt(NS_N) and all(b <= a for a, b in zip(resid, resid[1:])),
+          f"stream (d): the residual rose in a sweep: {resid}")
+    # Where a sweep's time goes: the device kernels of eight ZR panel steps
+    # (profiler, eager), against the sweep's 160 panel steps.
+    from libskylark_tpu_torch.ml.krr import _panel_mm
+    S0, npan = model.maps[0], 8
+    ops = S0.hoistable_operands(bf16, dev)
+    Rp = torch.randn(NS_BR, 1, generator=g, device=dev)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for p in range(npan):
+            Zp = S0.apply_with_operands(ops, block_fn(p * NS_BR, NS_BR, X0), "rowwise")
+            _panel_mm(Zp.T, Rp)
+        torch.cuda.synchronize()
+    kern = sorted((e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda e: -e.self_device_time_total)
+    dev_ms = sum(e.self_device_time_total for e in kern) / (npan * 1e3)
+    print(f"stream (d) one ZR panel step ({NS_BR} x {NS_D} -> {NS_S} bf16): device kernels "
+          f"{dev_ms!r} ms (x {2 * NS_N // NS_BR} panel steps a sweep = "
+          f"{dev_ms * 2 * NS_N / NS_BR / 1e3!r} s); top: " + "; ".join(
+              f"{e.key[:48]} x{e.count // npan} {e.self_device_time_total / (npan * 1e3):.3f} ms"
+              for e in kern[:6]) + f" {card}")
+    del model, prof, Zp, ops, Rp
+    torch.cuda.empty_cache()
+    # Correctness at n = 2^20: W against the same sweeps in core on the
+    # materialized X, and against an f64 solve of the same bf16 features;
+    # the graphed passes against eager ones, bitwise.
+    n_c = NS_CHECK_N
+    check_params = sky.ml.KrrParams(max_split=0, iter_lim=NS_SWEEPS, tolerance=0.0)
+    (model, y) = ns_fit(n_c, NS_CHECK_LAM, check_params)
+    chunked.CUDA_GRAPHS = False
+    try:
+        eager, _ = ns_fit(n_c, NS_CHECK_LAM, check_params)
+    finally:
+        chunked.CUDA_GRAPHS = True
+    graphed_same = torch.equal(model.W, eager.W)
+    br = max(b for b in range(1, NS_BR + 1) if n_c % b == 0)
+    Xc = torch.cat([block_fn(p * br, br, X0) for p in range(n_c // br)])
+    incore = {lam: sky.ml.large_scale_kernel_ridge(kernel, Xc, y, lam, NS_S,
+                                                   sky.SketchContext(seed=72), check_params).W
+              for lam in (NS_CHECK_LAM, 2 * NS_CHECK_LAM)}
+    S_c = model.maps[0]
+    Gf = torch.zeros(NS_S, NS_S, dtype=f64, device=dev)
+    cf = torch.zeros(NS_S, 1, dtype=f64, device=dev)
+    for p in range(n_c // br):
+        Z = S_c.apply(Xc[p * br:(p + 1) * br], "rowwise").double()
+        Gf += Z.T @ Z
+        cf += Z.T @ y[p * br:(p + 1) * br, None].double()
+    del Xc, Z
+
+    def solve64(lam):
+        return torch.cholesky_solve(cf, torch.linalg.cholesky(
+            Gf + lam * torch.eye(NS_S, dtype=f64, device=dev)))
+
+    W64 = solve64(NS_CHECK_LAM)
+    e_ic, c_ic = rel(model.W, incore[NS_CHECK_LAM]), rel(incore[2 * NS_CHECK_LAM],
+                                                         incore[NS_CHECK_LAM])
+    e64, c64 = rel(model.W, W64), rel(solve64(2 * NS_CHECK_LAM), W64)
+    print(f"stream (d) check at n = {n_c} (panels of {br}), lam {NS_CHECK_LAM}: W vs in-core "
+          f"large_scale_kernel_ridge (bf16 state) {e_ic:.3g} (bound {NS_INCORE_TOL}; control "
+          f"in core at 2 lam {c_ic:.3g}); vs the f64 solve of the same bf16 features {e64:.3g} "
+          f"(bound {NS_W_TOL}; control at 2 lam {c64:.3g}); graphed passes bitwise eager "
+          f"{graphed_same}")
+    check(e_ic <= NS_INCORE_TOL and c_ic > NS_INCORE_TOL,
+          f"stream (d): vs in-core {e_ic}, control {c_ic}")
+    check(e64 <= NS_W_TOL and c64 > NS_W_TOL, f"stream (d): vs f64 {e64}, control {c64}")
+    check(graphed_same, "stream (d): graphed and eager passes differ")
+    del model, eager, incore, Gf, cf, W64, X0
+    torch.cuda.empty_cache()
+
+    # (e) the streaming randomized SVD, bf16 panels, one power iteration.
+    block = sky.linalg.synthetic_lowrank_blocks(sky.SketchContext(seed=SEED), SSVD_M, SSVD_N,
+                                                SSVD_R, noise=SSVD_NOISE, dtype=bf16, device=dev)
+
+    def ssvd(blk):
+        return sky.linalg.streaming_approximate_svd(
+            blk, (SSVD_M, SSVD_N), SSVD_R, sky.SketchContext(seed=SEED + 1),
+            sky.linalg.SVDParams(num_iterations=1), block_rows=SSVD_BR)
+
+    secs, (u_block, sv, V) = clock(ssvd, block)
+    passes = 3  # the power sweep, the G/M pass, the whitening pass
+    gram = torch.zeros(SSVD_N, SSVD_N, dtype=f64, device=dev)
+    for i in range(SSVD_M // SSVD_BR):
+        P = block(i * SSVD_BR, SSVD_BR).double()
+        gram += P.T @ P
+    exact = torch.linalg.eigvalsh(gram).flip(0)[:SSVD_R].clamp(min=0).sqrt()
+    err = float(((sv.double() - exact).abs() / exact).max())
+    ctl_block = sky.linalg.synthetic_lowrank_blocks(sky.SketchContext(seed=SEED), SSVD_M, SSVD_N,
+                                                    SSVD_CTL_R, dtype=bf16, device=dev)
+    sv_ctl = ssvd(ctl_block)[1]
+    ctl = float(((sv_ctl.double() - exact).abs() / exact).max())
+    U0 = u_block(0)
+    print(f"stream (e) streaming_approximate_svd {SSVD_M} x {SSVD_N} bf16 (m cut from 10^7), "
+          f"rank {SSVD_R}, panels of {SSVD_BR}, q = 1: {secs!r} s = {passes} passes, "
+          f"{secs / passes!r} s per pass, {secs / (passes * SSVD_M) * 1e9:.3f} ns per row per "
+          f"pass; sigma vs sqrt(eigvalsh(A^T A)) in f64 max rel {err:.3g} (bound {SSVD_TOL}); "
+          f"control (a rank-{SSVD_CTL_R} matrix's sigma) {ctl:.3g} {card}")
+    check(err <= SSVD_TOL and ctl > SSVD_TOL, f"stream (e): sigma rel {err}, control {ctl}")
+    check(tuple(U0.shape) == (SSVD_BR, SSVD_R) and bool(torch.isfinite(U0).all()),
+          "stream (e): U panel not finite of shape (block_rows, k)")
+    del gram, P, U0
+    torch.cuda.empty_cache()
+
+    # (f) the streamed graph: phase 3c's edges in blocks of 2^22.
+    lo, hi, SA_ref, lam_ref, S_g = graph
+    n_v = S_g.n
+
+    def edge_source(start):
+        for e0 in range(start * GRAPH_BATCH, lo.size, GRAPH_BATCH):
+            l, h = lo[e0:e0 + GRAPH_BATCH], hi[e0:e0 + GRAPH_BATCH]
+            yield {"rows": np.concatenate([l, h]), "cols": np.concatenate([h, l]),
+                   "vals": np.ones(2 * l.size, dtype=np.float32)}
+
+    from libskylark_tpu_torch.graph import stream as gs
+
+    secs, SA = clock(lambda: gs.streamed_adjacency_sketch(edge_source, S_g, ncols=n_v,
+                                                          dtype=torch.float32))
+    same = torch.equal(SA.cpu(), SA_ref)
+    secs_ase, (Xe, lam) = clock(lambda: gs.streaming_ase(edge_source, n_v, ASE_K,
+                                                         sky.SketchContext(seed=SEED),
+                                                         dtype=torch.float32))
+    lam_same = torch.equal(lam.cpu(), lam_ref)
+    nblk = -(-lo.size // GRAPH_BATCH)
+    print(f"stream (f) streamed_adjacency_sketch of {lo.size} edges in {nblk} blocks of "
+          f"{GRAPH_BATCH}: {secs!r} s, bitwise the in-core sketch {same}; streaming_ase k = "
+          f"{ASE_K}: {secs_ase!r} s, eigenvalues bitwise the in-core route's {lam_same} {card}")
+    check(same and lam_same, f"stream (f): streamed graph sketch {same}, eigenvalues {lam_same}")
+    check(bool(torch.isfinite(Xe).all()), "stream (f): embedding not finite")
+    del SA, Xe
+    for mod, name, kernel in kernels:
+        setattr(mod, name, kernel)
+    counts = read_counts("streaming", t_path,
+                         ("scatter_rows", "segment_sum_flat", "rfut_rowwise_sampled"))
+    launched = {name for name, count in counts.items() if count}
+    check(launched <= {sig[0] for sig in held},
+          f"stream: kernels launched {sorted(launched)}, held against their plain versions "
+          f"{sorted({sig[0] for sig in held})}")
+    torch.cuda.empty_cache()
+    return {"X": X, "S": chunk_sketches["CWT"], "err": chunk_err}
 
 
 def main() -> None:
@@ -1585,7 +2095,7 @@ def main() -> None:
     torch.cuda.synchronize()
     print(f"graph: {n} vertices, {lo.size} edges, {g_idx.shape[1]} stored entries, drawn and "
           f"deduplicated in {t_made:.1f} s, on the card after {time.perf_counter() - t0:.1f} s")
-    del lo, hi, g_idx
+    del g_idx
     S_g = sky.sketch.SJLT(n, 2 * ASE_K, sky.SketchContext(seed=SEED))
     reset_counts()
     t0 = time.perf_counter()
@@ -1620,7 +2130,8 @@ def main() -> None:
     rows_g, cols_g = A_g._indices()
     g_keys = (S_g.buckets(0, n, device=dev).long()[rows_g] * n + cols_g).int()
     g_vals = A_g._values() * S_g.values(torch.float32, 0, n, device=dev)[rows_g]
-    del A_cpu, A_g, SA, SA_ref, V, X, rows_g, cols_g
+    graph = (lo, hi, SA_ref, lam.cpu(), S_g)  # phase 3g streams the same edges
+    del A_cpu, A_g, SA, V, X, rows_g, cols_g
     torch.cuda.synchronize()
 
     # -- 3d. random-feature kernel machine: flagship and full-width predict
@@ -1632,6 +2143,10 @@ def main() -> None:
 
     # -- 3f. the kernel machine's training path, at full width ------------
     train_path(sky, dev, reset_counts, read_counts, smi)
+
+    # -- 3g. out-of-core streaming, at full width -------------------------
+    chunk = stream_path(sky, dev, reset_counts, read_counts, smi, graph)
+    del graph
 
     # -- 4. times at main-path shapes ------------------------------------
     kernels = []
@@ -1734,6 +2249,26 @@ def main() -> None:
               f"{ms - p1:.4f} ms")
         del vA, lib_out
     del T, A
+    # scatter_rows with its acc fold at the stream chunk's shape (phase 3g
+    # (a)): one launch per chunk of the fused fold, at its launch count.
+    Xc = chunk["X"]
+    b, v = chunk["S"]._slice_hashes(0, ST_CHUNK, torch.float32, dev)
+    acc_c = randn(ST_S, ST_N)
+    vX = v[0][:, None] * Xc
+    lib_acc = acc_c.clone()
+    p1 = time_ms(lambda: kw.scatter_partition(b, ST_S))
+    ms = time_ms(lambda: kw.scatter_rows(Xc, b, v, ST_S, acc=acc_c))
+    row("scatter_rows", "libskylark_tpu_torch/csrc/window.cu",
+        "libskylark_tpu/sketch/pallas_window.py:228", ms,
+        time_ms(lambda: kw.scatter_rows_plain(Xc, b, v, ST_S, acc=acc_c), reps=3, warmup=1),
+        4 * (ST_CHUNK * ST_N + 2 * ST_CHUNK + 2 * ST_S * ST_N), 2 * ST_CHUNK * ST_N + ST_S * ST_N,
+        time_ms(lambda: lib_acc.index_add_(0, b[0].long(), vX)),
+        path_count=path_launches["streaming"]["scatter_rows"], err=chunk["err"],
+        shape=f"A {ST_CHUNK} x {ST_N} f32 -> {ST_S}, nnz = 1, acc folded (stream chunk)",
+        split={"pass1_ms": p1, "pass2_ms": ms - p1})
+    print(f"scatter_rows (acc, {ST_CHUNK} x {ST_N}): total {ms:.4f} ms = pass 1 {p1:.4f} ms + "
+          f"pass 2 {ms - p1:.4f} ms")
+    del chunk, Xc, b, v, acc_c, vX, lib_acc
 
     for path, keys, vals, segs, err in (
             ("sparse sketch", sp_keys, sp_vals, SP_S * SP_COLS, errs["segment_sum_flat"]),

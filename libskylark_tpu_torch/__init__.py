@@ -23,13 +23,20 @@ trainer over the loss/regularizer prox library ``solvers.prox``, and
 the RLS, SketchRLS, NystromRLS and SketchPCR estimators).  Sparse
 matrices are ``torch.sparse_coo_tensor``s
 (``utils.coo_from_bcoo_arrays`` builds one from a BCOO's arrays).
+Out of core (``streaming``): the sketches' slice protocol folded over
+batch sources by a checkpointable engine on the resilient runner
+(``resilient``, ``utils.checkpoint``), with pinned, prefetched
+host→device copies; streaming least squares, KRR (the
+feature-and-example-streamed north star), the randomized SVD and the
+graph sketch ride it.
 """
 
 from ._device import set_default_device
-from . import core, flagship, graph, guard, linalg, ml, resilient, sketch, solvers, utils
+from . import (core, flagship, graph, guard, linalg, ml, resilient, sketch, solvers, streaming,
+               utils)
 from .core.context import SketchContext
 
 __version__ = "0.1.0"
 
 __all__ = ["SketchContext", "sketch", "linalg", "solvers", "guard", "resilient", "graph",
-           "ml", "flagship", "core", "utils", "set_default_device"]
+           "ml", "flagship", "core", "utils", "streaming", "set_default_device"]

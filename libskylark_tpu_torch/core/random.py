@@ -80,27 +80,42 @@ def _mul_u32(a_hi, a_lo, c: int):
     return hi & _MASK32, lo
 
 
-def raw_bits(seed: int, base: int, num: int, lane: int = 0, offset: int = 0,
+def raw_bits(seed: int, base: int, num: int, lane: int = 0, offset=0,
              device=None):
     """64 random bits for counters ``base+offset .. base+offset+num`` as
-    two int64 tensors of uint32 words ``(hi, lo)``."""
-    dev = resolve_device(device)
-    start = (int(base) + int(offset)) % (1 << 64)
-    idx = torch.arange(num, dtype=torch.int64, device=dev)
+    two int64 tensors of uint32 words ``(hi, lo)``.  ``offset`` is a host
+    int, or a 0-d int64 tensor below 2^32 on the device (read without a
+    host sync)."""
+    if isinstance(offset, torch.Tensor):
+        dev = offset.device
+        start = int(base) % (1 << 64)
+        idx = torch.arange(num, dtype=torch.int64, device=dev) + offset
+    else:
+        dev = resolve_device(device)
+        start = (int(base) + int(offset)) % (1 << 64)
+        idx = torch.arange(num, dtype=torch.int64, device=dev)
     hi, lo = _add64(start >> 32, start & _MASK32, 0, idx)
     return _threefry2x32(*_key(seed, lane), hi, lo)
 
 
-def window_bits(seed: int, base: int, full_cols: int, row0: int, col0: int,
+def _index(x):
+    """A window offset as it enters the counter arithmetic: a host int,
+    or a 0-d int64 tensor left on its device."""
+    return x if isinstance(x, torch.Tensor) else int(x)
+
+
+def window_bits(seed: int, base: int, full_cols: int, row0, col0,
                 rows: int, cols: int, lane: int = 0, device=None):
     """Bits for a (rows, cols) window of a row-major logical array:
     element (i, j) uses counter ``base + (row0+i)*full_cols + (col0+j)``,
-    with the reference's 32-bit wrap of ``row0+i`` and ``col0+j``."""
-    dev = resolve_device(device)
+    with the reference's 32-bit wrap of ``row0+i`` and ``col0+j``.
+    ``row0``/``col0`` are host ints or 0-d int64 tensors on the device."""
+    dev = next((x.device for x in (row0, col0) if isinstance(x, torch.Tensor)), None)
+    dev = resolve_device(device) if dev is None else dev
     i = torch.arange(rows, dtype=torch.int64, device=dev)[:, None]
     j = torch.arange(cols, dtype=torch.int64, device=dev)[None, :]
-    r_hi, r_lo = _mul_u32(0, (i + int(row0)) & _MASK32, full_cols)
-    hi, lo = _add64(r_hi, r_lo, 0, (j + int(col0)) & _MASK32)
+    r_hi, r_lo = _mul_u32(0, (i + _index(row0)) & _MASK32, full_cols)
+    hi, lo = _add64(r_hi, r_lo, 0, (j + _index(col0)) & _MASK32)
     b = int(base) % (1 << 64)
     hi, lo = _add64(hi, lo, b >> 32, b & _MASK32)
     return _threefry2x32(*_key(seed, lane), hi.contiguous(), lo.contiguous())
@@ -210,9 +225,9 @@ DISTRIBUTIONS = {
 
 
 def sample(dist: str, seed: int, base: int, num: int, dtype=torch.float32,
-           lane: int = 0, offset: int = 0, device=None, **params: Any):
+           lane: int = 0, offset=0, device=None, **params: Any):
     """1-D stream sample: values for counters ``base+offset ..
-    base+offset+num``."""
+    base+offset+num`` (``offset`` as :func:`raw_bits` takes it)."""
     hi, lo = raw_bits(seed, base, num, lane, offset=offset, device=device)
     return DISTRIBUTIONS[dist](hi, lo, dtype, **params)
 

@@ -1,13 +1,17 @@
 """Graph layer of the port: the graph container, the in-core adjacency
-sketch and its edge-block fold, and the Nyström eigensolve from the
-sketch."""
+sketch, its edge-block fold and the streamed fold on the streaming
+engine, and the Nyström eigensolve from the sketch (in core or from one
+streamed pass)."""
 
 from .graph import SimpleGraph
 from .stream import (
     adjacency_sketch_fold,
     ase_from_sketch,
+    chained_adjacency_sketch,
     graph_block_source,
     incore_adjacency_sketch,
+    streamed_adjacency_sketch,
+    streaming_ase,
 )
 
 __all__ = [
@@ -15,5 +19,8 @@ __all__ = [
     "graph_block_source",
     "adjacency_sketch_fold",
     "incore_adjacency_sketch",
+    "streamed_adjacency_sketch",
+    "chained_adjacency_sketch",
     "ase_from_sketch",
+    "streaming_ase",
 ]

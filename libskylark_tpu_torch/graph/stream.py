@@ -17,10 +17,12 @@ so every partial sum is an exact dyadic rational and IEEE addition is
 exact in any order.  Block boundaries and summation schedules (the
 kernel's or ``index_add_``'s) cannot change a bit.
 
-The streamed, chained and elastic routes (``streamed_adjacency_sketch``,
-``chained_adjacency_sketch``, ``streaming_ase``) need the streaming
-engine and the sharded schedules, which wait for later slices (ROADMAP
-Queue A items 5 and 10).
+:func:`streamed_adjacency_sketch` runs the fold on the streaming
+engine (prefetch, checkpoint/resume), bitwise the in-core sketch, and
+:func:`streaming_ase` embeds a graph from that one pass.  The elastic
+route (``partition=``) and ``chained_adjacency_sketch`` need the
+multi-device layer (ROADMAP Queue A item 9) and raise
+``UnsupportedError`` naming it.
 """
 
 from __future__ import annotations
@@ -30,14 +32,20 @@ import torch
 
 from .._device import resolve_device
 from ..sketch.hash import HashSketch, _segment_sum
-from ..utils.exceptions import InvalidParameters
+from ..utils.exceptions import InvalidParameters, UnsupportedError, deferred
 
 __all__ = [
     "graph_block_source",
     "adjacency_sketch_fold",
     "incore_adjacency_sketch",
+    "streamed_adjacency_sketch",
+    "chained_adjacency_sketch",
     "ase_from_sketch",
+    "streaming_ase",
 ]
+
+_ITEM9 = "ROADMAP Queue A item 9: multi-device (elastic edge partitions, sharded schedules)"
+chained_adjacency_sketch = deferred("chained_adjacency_sketch", _ITEM9)
 
 
 def graph_block_source(G, batch_edges: int = 65536, dtype=np.float64):
@@ -149,3 +157,60 @@ def ase_from_sketch(SA, S, k: int):
     lam, W = torch.linalg.eigh((T + T.T) / 2)
     order = torch.argsort(-lam.abs())[:k]
     return (Q @ W)[:, order], lam[order]
+
+
+def streamed_adjacency_sketch(source, S, *, ncols: int, dtype=torch.float64, partition=None,
+                              params=None, fault_plan=None, epoch: int = 0):
+    """One-pass columnwise ``S·A`` over a stream of edge blocks
+    (:func:`graph_block_source`, or any iterable or factory of
+    ``{"rows", "cols", "vals"}`` blocks), on the resilient streaming
+    engine: checkpoint/resume through ``params`` (a
+    :class:`~libskylark_tpu_torch.streaming.StreamParams`, whose placer
+    stages the blocks and places the accumulator).  Bitwise
+    :func:`incore_adjacency_sketch` (module docstring).  ``partition=``
+    (elastic edge partitions) raises ``UnsupportedError`` (ROADMAP Queue A
+    item 9)."""
+    from .. import guard
+    from ..sketch.base import Dimension
+    from ..streaming.engine import StreamParams, run_stream, stream_device
+
+    if partition is not None:
+        raise UnsupportedError(f"streamed_adjacency_sketch(partition=) is not ported yet "
+                               f"({_ITEM9})")
+    params = params or StreamParams()
+    kind = "graph_streaming_sketch"
+    init_at, step = adjacency_sketch_fold(S, ncols, dtype, device=stream_device(params))
+    report = guard.RecoveryReport(stage=kind)
+    acc, _ = run_stream(source, step, init_at(0), params, kind=kind,
+                        fault_plan=fault_plan, report=report)
+    out = S.finalize_slices(acc["sa"], Dimension.COLUMNWISE)
+    if guard.enabled():
+        guard.check_finite(out, kind, report=report)
+    return out
+
+
+def streaming_ase(source, n: int, k: int, context, params=None, *, dtype=torch.float64,
+                  partition=None, fault_plan=None, epoch: int = 0, stream_params=None):
+    """Streaming randomized adjacency spectral embedding: ``(X, lam)``
+    from ONE pass over the edges.  The only O(edges) work is the streamed
+    fold ``SA = Ω·A`` (SJLT Ω of the oversampled width ``_sketch_size``
+    gives); the embedding ``X = V·√|λ|`` follows from
+    :func:`ase_from_sketch`.  Subspace iteration would re-stream the
+    edges, so ``num_iterations > 0`` is refused.  ``stream_params``
+    places and checkpoints the fold; ``partition=`` raises (ROADMAP
+    Queue A item 9)."""
+    from ..linalg.svd import SVDParams, _sketch_size
+    from ..sketch.hash import SJLT
+
+    params = params or SVDParams()
+    if getattr(params, "num_iterations", 0):
+        raise InvalidParameters(
+            f"streaming ASE is one-pass: subspace iteration (num_iterations="
+            f"{params.num_iterations}) would re-stream the edges; use the in-core route "
+            "or num_iterations=0")
+    k, s = _sketch_size(k, params, n)
+    S = SJLT(n, s, context)
+    SA = streamed_adjacency_sketch(source, S, ncols=n, dtype=dtype, partition=partition,
+                                   params=stream_params, fault_plan=fault_plan, epoch=epoch)
+    V, lam = ase_from_sketch(SA, S, k)
+    return V * torch.sqrt(lam.abs())[None, :], lam

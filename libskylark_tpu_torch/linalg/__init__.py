@@ -1,6 +1,6 @@
 """Randomized NLA of the port (port of ``libskylark_tpu/linalg``):
 exact, sketch-and-solve, Blendenpik and LSRN least squares, the
-randomized SVD and condition estimation."""
+randomized SVD and condition estimation, in core and streamed."""
 
 from ..solvers.accelerated import (
     FasterLeastSquaresParams,
@@ -12,6 +12,7 @@ from .least_squares import (
     LeastSquaresParams,
     approximate_least_squares,
     exact_least_squares,
+    streaming_least_squares,
 )
 from .svd import (
     SVDParams,
@@ -36,6 +37,7 @@ __all__ = [
     "LeastSquaresParams",
     "approximate_least_squares",
     "exact_least_squares",
+    "streaming_least_squares",
     "FasterLeastSquaresParams",
     "faster_least_squares",
     "lsrn_least_squares",

@@ -16,6 +16,10 @@ so a call returns what the JAX package returns under
 ``SKYLARK_POLICY=0``: with an empty store that is also its default.
 ``info`` has no ``"policy"`` entry, and the ``"refine"`` and ``"exact"``
 routes and ``fault_plan=`` raise ``UnsupportedError``.
+``streaming_least_squares`` is the out-of-core face: the same
+sketch-and-solve over ``(A_block, b_block)`` batches
+(``streaming.sketch_least_squares``), JLT by default (FJLT has no
+columnwise slice rule), CWT for sparse streams.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ __all__ = [
     "LeastSquaresParams",
     "exact_least_squares",
     "approximate_least_squares",
+    "streaming_least_squares",
 ]
 
 _ITEM3 = "ROADMAP Queue A item 3: policy, plans and refine around approximate_least_squares"
@@ -183,3 +188,32 @@ def approximate_least_squares(
             lambda: exact_least_squares(A, B, alg="svd"))
     out = X[:, 0] if squeeze else X
     return (out, {"recovery": report.to_dict()}) if return_info else out
+
+
+def streaming_least_squares(source, nrows: int, ncols: int, context: SketchContext,
+                            params: LeastSquaresParams | None = None, alg: str = "qr", *,
+                            targets: int = 1, sparse: bool = False, stream_params=None,
+                            fault_plan=None, partition=None):
+    """Out-of-core sketch-and-solve least squares over ``(A_block,
+    b_block)`` batches: ``S·A`` and ``S·b`` accumulate per batch, so A is
+    never resident.  ``params`` picks the sketch as the JAX package's
+    default decision does: ``sketch_type`` (default JLT, CWT for a
+    ``sparse`` stream) and ``sketch_size`` (default ``min(4·ncols,
+    nrows)``).  ``nrows``/``ncols`` are A's global shape (the rows address
+    the sketch's counter stream).  ``stream_params`` is a
+    :class:`~libskylark_tpu_torch.streaming.StreamParams` (prefetch,
+    placer, checkpoint/resume); ``fault_plan`` injects the guard's
+    faults by batch index.  Returns ``(x, info)`` with ``info`` keys
+    ``rows``, ``batches``, ``seconds`` and ``recovery``; ``info["policy"]``
+    waits for the policy layer (ROADMAP Queue A item 3).  ``partition=``
+    raises ``UnsupportedError`` (ROADMAP Queue A item 9)."""
+    from .. import streaming
+
+    params = params or LeastSquaresParams()
+    stype = params.sketch_type or ("CWT" if sparse else "JLT")
+    s = int(params.sketch_size if params.sketch_size is not None
+            else min(4 * ncols, nrows))
+    S = create_sketch(stype, nrows, s, context)
+    return streaming.sketch_least_squares(
+        source, S, ncols=ncols, targets=targets, alg=alg, params=stream_params,
+        fault_plan=fault_plan, partition=partition)

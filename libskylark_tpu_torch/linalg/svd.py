@@ -9,8 +9,10 @@ off, ``_device.py``), the counterpart of the JAX package's
 ``A`` may be a dense or a sparse COO tensor (only products with A are
 taken).  The single-device port has no sharding, so the JAX package's
 ``fully_replicated`` constraints are no-ops here (multi-device is
-ROADMAP Queue A item 9).  ``streaming_approximate_svd`` waits for the
-streaming slice (item 4).
+ROADMAP Queue A item 9).  ``streaming_approximate_svd`` is the
+matrix-free form for A too large for the card: row panels regenerated
+(or re-streamed) per pass, only one panel and the small accumulators
+resident.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from ..core.random import sample_window
 from ..resilient.chunked import ChunkedSolver
 from ..sketch.base import Dimension
 from ..sketch.dense import JLT
-from ..utils.exceptions import deferred
+from ..utils.exceptions import UnsupportedError
 from ..utils.sparse import is_sparse, linear_ops
 
 __all__ = [
@@ -214,9 +216,111 @@ def approximate_symmetric_svd(A, rank: int, context: SketchContext,
     return (Q @ W)[:, order[:k]], lam[order][:k]
 
 
-streaming_approximate_svd = deferred(
-    "streaming_approximate_svd",
-    "ROADMAP Queue A item 4: streaming; approximate_svd is its in-core base")
+def _acc_mm(a, b, acc):
+    """a·b in the accumulator dtype from panel-dtype operands (exact
+    upcasts): the JAX package's ``preferred_element_type=acc``."""
+    return torch.matmul(a.to(acc), b.to(acc))
+
+
+def _whiten(G, rel_floor):
+    """``V·diag(λ^-½)`` of G's eigendecomposition, directions at or below
+    ``λ_max·rel_floor`` given a zero scale."""
+    lam, V = torch.linalg.eigh(G)
+    floor = torch.clamp(lam[-1], min=0) * rel_floor
+    scale = torch.where(lam > floor, torch.rsqrt(torch.maximum(lam, floor)),
+                        torch.zeros_like(lam))
+    return V * scale[None, :]
+
+
+def streaming_approximate_svd(block_fn, shape: tuple[int, int], rank: int,
+                              context: SketchContext, params: SVDParams | None = None,
+                              block_rows: int = 65536, materialize_u: bool = False, mesh=None):
+    """Randomized truncated SVD of a row-streamed A (m, n).
+
+    ``block_fn(start_row, rows)`` returns the (rows, n) panel of A and
+    must return the same panel every time (each pass asks for every panel
+    again; the whitening amplifies any drift by 1/σ_min).  O(q + 3) passes
+    over A, O(B·n + n·s) memory.  Math as the JAX package's (≙
+    ``ApproximateSVD`` with an explicit Gaussian Ω): power sweeps
+    ``W ← Aᵀ(A·W)`` orthonormalized by :func:`gram_orth`; one pass
+    accumulating ``G = YᵀY`` and ``M = YᵀA`` (Y = A·Ω); a second streamed
+    whitening pass (CholeskyQR2, the factors kept apart); the small SVD
+    of ``B = QᵀA``.  Y panels are in the panel dtype, every accumulation
+    in the panel dtype promoted to at least f32.
+
+    Returns ``(u_block, s, V)``, ``u_block(i)`` giving rows ``[i·B,
+    (i+1)·B)`` of U; with ``materialize_u=True``, U itself (m, k).  Without
+    ``params`` one power iteration runs (the f32 whitening needs it on a
+    noisy spectrum).  ``mesh=`` (panels sharded over devices) raises
+    ``UnsupportedError`` (ROADMAP Queue A item 9).
+    """
+    if mesh is not None:
+        raise UnsupportedError(
+            "streaming_approximate_svd(mesh=) is not ported yet (ROADMAP Queue A item 9: "
+            "multi-device)")
+    params = params or SVDParams(num_iterations=1)
+    m, n = shape
+    k, s = _sketch_size(rank, params, n, m)
+    if block_rows <= 0:
+        raise ValueError(f"block_rows must be positive, got {block_rows}")
+    if m % block_rows:
+        raise ValueError(f"m={m} not divisible by block_rows={block_rows}")
+    nblocks = m // block_rows
+    # Panel 0 tells the dtype and device; it serves the first pass too.
+    first = [block_fn(0, block_rows)]
+    dtype, dev = first[0].dtype, first[0].device
+    acc = torch.promote_types(dtype, torch.float32)
+
+    def panels():
+        for i in range(nblocks):
+            yield first.pop() if i == 0 and first else block_fn(i * block_rows, block_rows)
+
+    def panel_y(Ab, Om):
+        return Ab @ Om.to(Ab.dtype)
+
+    def sweep(Om):
+        W = torch.zeros((n, s), dtype=acc, device=dev)
+        for Ab in panels():
+            W += _acc_mm(Ab.T, panel_y(Ab, Om), acc)
+        return W
+
+    Om = gaussian_matrix(context, (n, s), dtype=acc, device=dev)
+    W = Om
+    for _ in range(max(params.num_iterations, 0)):
+        # skip_qr ≙ the reference's ortho flag: raw power sweeps.
+        W = sweep(W) if params.skip_qr else gram_orth(sweep(W))
+    Omq = W if params.num_iterations > 0 else Om
+
+    G = torch.zeros((s, s), dtype=acc, device=dev)
+    M = torch.zeros((s, n), dtype=acc, device=dev)
+    for Ab in panels():
+        Yb = panel_y(Ab, Omq)
+        G += _acc_mm(Yb.T, Yb, acc)
+        M += _acc_mm(Yb.T, Ab, acc)
+    # Stage 1 keeps directions a few times above the representation noise
+    # (4·eps); stage 2 re-accumulates the Gram of the whitened panels,
+    # where genuine directions land near 1 and noise far below (0.25).
+    eps = torch.finfo(acc).eps
+    T1 = _whiten(G, 4.0 * eps)
+    G2 = torch.zeros((s, s), dtype=acc, device=dev)
+    for Ab in panels():
+        Qb = panel_y(Ab, Omq) @ T1.to(Ab.dtype)
+        G2 += _acc_mm(Qb.T, Qb, acc)
+    T2 = _whiten(G2, 0.25)
+    # T1 and T2 stay factored: their product mixes column scales that
+    # span orders of magnitude before the whitening of Y·T1.
+    B = T2.T @ (T1.T @ M)  # = QᵀA (s, n)
+    Ub, sv, Vt = torch.linalg.svd(B, full_matrices=False)
+    rot2 = T2 @ Ub[:, :k]  # (Y·T1)·rot2 = U
+
+    def u_block(i: int):
+        """Rows [i·block_rows, (i+1)·block_rows) of U."""
+        Ab = block_fn(i * block_rows, block_rows)
+        return (panel_y(Ab, Omq) @ T1.to(Ab.dtype)) @ rot2.to(Ab.dtype)
+
+    if materialize_u:
+        return torch.cat([u_block(i) for i in range(nblocks)], dim=0), sv[:k], Vt[:k].T
+    return u_block, sv[:k], Vt[:k].T
 
 
 def synthetic_lowrank_blocks(context: SketchContext, m: int, n: int, r: int,

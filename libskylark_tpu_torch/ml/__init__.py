@@ -2,9 +2,9 @@
 the KRR/RLSC solver families, the BlockADMM kernel-machine trainer,
 the nonlinear estimators, label coding and model persistence.
 
-Not ported yet: the streaming KRR solvers (``streaming_kernel_ridge``,
-``streaming_approximate_kernel_ridge``, ROADMAP Queue A item 4, raising
-``UnsupportedError``) and ``ml/distributed.py`` (item 9).
+The streaming KRR solvers (``streaming_kernel_ridge``,
+``streaming_approximate_kernel_ridge``) ride the ``streaming`` layer.
+Not ported yet: ``ml/distributed.py`` (ROADMAP Queue A item 9).
 """
 
 from .admm import ADMMParams, BlockADMMSolver

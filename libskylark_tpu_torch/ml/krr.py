@@ -31,8 +31,14 @@ The JAX package's ``policy.consult`` (bf16-first routing) waits for the
 port's policy layer (ROADMAP Queue A item 3): the port returns what the
 JAX package returns under ``SKYLARK_POLICY=0`` and writes no
 ``info["policy"]``.  Not ported yet, each raising ``UnsupportedError``:
-``KrrParams.checkpoint_dir`` (checkpointed CG, item 8) and the streaming
-solvers (item 4).
+``KrrParams.checkpoint_dir`` (checkpointed CG, item 8).
+
+Out of core: ``streaming_approximate_kernel_ridge`` accumulates the
+feature normal equations over ``(X_block, y_block)`` batches
+(``streaming.kernel_ridge``), and ``streaming_kernel_ridge`` streams
+examples and features both (the block coordinate descent of
+``large_scale_kernel_ridge`` with each chunk's features regenerated per
+row panel).
 """
 
 from __future__ import annotations
@@ -49,7 +55,8 @@ from ..core.params import Params
 from ..core.random import _const
 from ..sketch.base import Dimension, create_sketch
 from ..solvers.krylov import KrylovParams, cg
-from ..utils.exceptions import UnsupportedError, deferred
+from ..resilient import chunked
+from ..utils.exceptions import UnsupportedError
 from .kernels import Kernel, _dense
 from .model import FeatureMapModel, KernelModel
 
@@ -64,7 +71,6 @@ __all__ = [
     "streaming_approximate_kernel_ridge",
 ]
 
-_ITEM4 = "ROADMAP Queue A item 4: streaming slices and the streaming engine"
 _ITEM8 = "ROADMAP Queue A item 8: robustness (resilient runner, checkpoints)"
 
 
@@ -361,6 +367,218 @@ def large_scale_kernel_ridge(
     return FeatureMapModel(maps, W)
 
 
-streaming_approximate_kernel_ridge = deferred("streaming_approximate_kernel_ridge", _ITEM4)
-streaming_kernel_ridge = deferred("streaming_kernel_ridge", _ITEM4)
-streaming_krr_chunk_programs = deferred("streaming_krr_chunk_programs", _ITEM4)
+def streaming_approximate_kernel_ridge(kernel: Kernel, source, lam: float, s: int,
+                                       context: SketchContext, params: KrrParams | None = None,
+                                       *, targets: int = 1, stream_params=None,
+                                       fault_plan=None):
+    """One-pass :func:`approximate_kernel_ridge` over ``(X_block,
+    y_block)`` batches, X never resident: the normal equations accumulate
+    per batch through the ``streaming`` engine, which brings the prefetch
+    pipeline and checkpoint/resume (``stream_params``, a
+    :class:`~libskylark_tpu_torch.streaming.StreamParams`).  Trained on
+    the same ``context`` the model equals the in-core solver's up to the
+    per-batch order of summation.  A batch that NaN-poisons the
+    accumulators is replayed at its chunk boundary, a non-finite Cholesky
+    factor reroutes to the eigh pseudoinverse, and ``fault_plan``
+    (``nan_at``/``bad_sketch_at`` by batch index) injects those faults;
+    ``model.info["recovery"]`` records them."""
+    from .. import streaming
+
+    return streaming.kernel_ridge(source, kernel, lam, s, context, targets=targets,
+                                  krr_params=params, params=stream_params,
+                                  fault_plan=fault_plan)
+
+
+def _panel_mm(a, b):
+    """a·b in f32 from operands in the feature dtype or f32: the JAX
+    package's ``dot_general(..., preferred_element_type=f32)`` — exact
+    upcasts, products and sums in f32."""
+    return torch.matmul(a.to(torch.float32), b.to(torch.float32))
+
+
+def streaming_krr_chunk_programs(maps, c, sz, nb, block_rows, t, lam, block_fn, feature_dtype):
+    """The three panel passes of feature chunk ``c`` in the streaming-KRR
+    sweep: ``(gram(*bargs), zr(out, R3, Wc, *bargs), apply_delta(R3,
+    delta, *bargs))``.
+
+    Each pass regenerates the chunk's (block_rows, sz) feature panel from
+    ``block_fn(start, block_rows, *bargs)`` panel by panel, with the map's
+    W realized once (``hoistable_operands``), and contracts it in f32:
+
+    - ``gram``: ``Σ_p Z_pᵀ·Z_p + λI``, returned;
+    - ``zr``: ``Σ_p Z_pᵀ·R_p − λ·W_c`` written into ``out``;
+    - ``apply_delta``: ``R_p ← R_p − Z_p·δ`` in place on the panel-major
+      (nb, block_rows, t) residual.
+
+    ``zr`` and ``apply_delta`` write into their arguments and create no
+    tensor from a Python number, so a whole pass can be captured as a
+    CUDA graph over fixed buffers and replayed.
+    """
+    S = maps[c]
+
+    def panels(bargs, device):
+        ops = S.hoistable_operands(feature_dtype, device)
+        for p in range(nb):
+            Xp = block_fn(p * block_rows, block_rows, *bargs).to(feature_dtype)
+            yield p, S.apply_with_operands(ops, Xp, Dimension.ROWWISE)
+
+    def gram(*bargs, device=None):
+        G = None
+        for _, Zp in panels(bargs, device):
+            blk = _panel_mm(Zp.T, Zp)
+            G = blk if G is None else G + blk
+        return G + _const(lam, torch.float32, G.device) * torch.eye(
+            sz, dtype=torch.float32, device=G.device)
+
+    def zr(out, R3, Wc, lam_t, *bargs):
+        acc = torch.zeros((sz, t), dtype=torch.float32, device=R3.device)
+        for p, Zp in panels(bargs, R3.device):
+            acc += _panel_mm(Zp.T, R3[p])
+        out.copy_(acc - lam_t * Wc)
+        return out
+
+    def apply_delta(R3, delta, *bargs):
+        for p, Zp in panels(bargs, R3.device):
+            R3[p] -= _panel_mm(Zp, delta.to(Zp.dtype))
+        return R3
+
+    return gram, zr, apply_delta
+
+
+class _Pass:
+    """A panel pass run eagerly, or captured once as a CUDA graph over
+    its (fixed) argument tensors and replayed: the same kernels on the
+    same buffers, so the two are bitwise the same.  The passes of one
+    solve share a memory ``pool``: only their temporaries live there,
+    and they are replayed in the order they were captured."""
+
+    def __init__(self, fn, args, graphed: bool, pool=None):
+        self.fn, self.args, self.graph = fn, args, None
+        if graphed:
+            device = args[0].device
+            side = chunked._capture_stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(side):
+                self.graph.capture_begin(pool=pool)
+                try:
+                    fn(*args)
+                finally:
+                    self.graph.capture_end()
+            torch.cuda.current_stream(device).wait_stream(side)
+
+    def __call__(self):
+        if self.graph is None:
+            self.fn(*self.args)
+        else:
+            self.graph.replay()
+
+
+def streaming_kernel_ridge(
+    kernel: Kernel,
+    block_fn,
+    shape: tuple[int, int],
+    Y,
+    lam: float,
+    s: int,
+    context: SketchContext,
+    params: KrrParams | None = None,
+    block_rows: int = 262_144,
+    feature_dtype=torch.bfloat16,
+    block_args: tuple = (),
+    timer=None,
+    *,
+    device=None,
+):
+    """Row-streamed block coordinate descent: the single-card face of the
+    10M × 4096 north-star shape, where neither X (80 GB in bf16) nor a
+    chunk's (n, s) features fit.
+
+    ``block_fn(start_row, rows, *block_args)`` returns rows ``[start_row,
+    start_row + rows)`` of X; it must return the same panel every time it
+    is called.  Each chunk's features are regenerated per panel, so only
+    O(panel · max(d, sz)) feature memory plus the (n, t) f32 residual is
+    resident.  Per sweep each chunk makes two panel passes (ZR = Z_c·R,
+    then R ← R − Z_cᵀ·δ) with ``large_scale_kernel_ridge``'s update
+    equations; sweep 0 also accumulates the chunk's Gram and caches its
+    Cholesky factor.  Features are in ``feature_dtype`` (bf16 by
+    default), every contraction in f32.
+
+    On the card each ZR and update pass is captured as a CUDA graph at
+    its first use and replayed on later sweeps (the panels' shapes
+    repeat); ``resilient.chunked.CUDA_GRAPHS = False`` runs them eagerly,
+    bitwise the same.  A captured ``block_fn`` must not read the host.
+
+    ``timer``: an optional ``utils.PhaseTimer``; sweep 0 lands in phase
+    ``"sweep0"``, later sweeps in ``"sweep"``.  ``model.info`` holds
+    ``"residual"`` (‖R‖ after each sweep, read with the relative update)
+    and ``"relupdate"``.
+    """
+    import contextlib
+
+    params = params or KrrParams()
+    n, d = shape
+    if n % block_rows:
+        # The largest divisor of n up to the request, unless n splits only
+        # into tiny panels (the panel size shapes memory, not results).
+        best = max(b for b in range(1, block_rows + 1) if n % b == 0)
+        if best < n and best < max(256, block_rows // 16):
+            raise ValueError(
+                f"n={n} has no usable panel divisor <= {block_rows} (best is {best}); pad "
+                "n to a composite size or pass a block_rows that divides it")
+        block_rows = best
+    nb = n // block_rows
+    Y2 = _as2d(as_tensor(Y, device))
+    dev = Y2.device
+    t = Y2.shape[1]
+
+    sizes = _chunk_sizes(d, s, params)
+    maps = [kernel.create_rft(sz, _tag(params), context) for sz in sizes]
+    programs = [streaming_krr_chunk_programs(maps, c, sizes[c], nb, block_rows, t, lam,
+                                             block_fn, feature_dtype)
+                for c in range(len(maps))]
+    graphed = chunked.graphable(Y2)
+    pool = torch.cuda.graph_pool_handle() if graphed else None
+    lam_t = _const(lam, torch.float32, dev)
+    factors = []
+    Ws = [torch.zeros((sz, t), dtype=torch.float32, device=dev) for sz in sizes]
+    ZRs = [torch.empty((sz, t), dtype=torch.float32, device=dev) for sz in sizes]
+    deltas = [torch.empty((sz, t), dtype=torch.float32, device=dev) for sz in sizes]
+    # Panel-major residual, this solver's own buffer (updated in place).
+    R = Y2.to(torch.float32).reshape(nb, block_rows, t).clone()
+    passes = [None] * len(maps)
+    residuals, relupdates = [], []
+
+    # Sweep 0 always runs (the factors must exist): iter_lim=0 is one pass.
+    for it in range(max(params.iter_lim, 1)):
+        phase = (timer.phase("sweep0" if it == 0 else "sweep") if timer is not None
+                 else contextlib.nullcontext())
+        with phase as ph:
+            delsize = torch.zeros((), dtype=torch.float64, device=dev)
+            for c, (gram, zr, apply_delta) in enumerate(programs):
+                if it == 0:
+                    factors.append(_cholesky(gram(*block_args, device=dev)))
+                if passes[c] is None:
+                    passes[c] = (
+                        _Pass(zr, (ZRs[c], R, Ws[c], lam_t, *block_args), graphed, pool),
+                        _Pass(apply_delta, (R, deltas[c], *block_args), graphed, pool))
+                passes[c][0]()
+                deltas[c].copy_(_cho_solve(factors[c], ZRs[c]))
+                Ws[c] += deltas[c]
+                passes[c][1]()
+                delsize = delsize + torch.sum(deltas[c] * deltas[c]).double()
+            if ph is not None:
+                ph.result = R
+        wnorm = torch.sqrt(sum(torch.sum(W * W) for W in Ws)).double()
+        rnorm = torch.linalg.vector_norm(R.double())
+        delsize, wnorm, rnorm = torch.stack([delsize, wnorm, rnorm]).tolist()  # one host read
+        reldel = (delsize ** 0.5) / max(wnorm, 1e-30)
+        residuals.append(rnorm)
+        relupdates.append(reldel)
+        params.log(2, f"iteration {it}, relupdate = {reldel:.2e}")
+        if it > 0 and reldel < params.tolerance:
+            break
+
+    model = FeatureMapModel(maps, torch.cat(Ws, dim=0))
+    model.info = {"residual": residuals, "relupdate": relupdates}
+    return model

@@ -1,16 +1,42 @@
-"""Chunked solver runtime of the port (port of the ``chunked`` part of
+"""Preemption-safe solver runtime of the port (port of
 ``libskylark_tpu/resilient``).
 
-``ChunkedSolver`` is the contract the Krylov solvers and the randomized
-SVD expose (``init_state`` / ``step_chunk`` / ``extract_result``).  The
-checkpointing ``ResilientRunner`` waits for ROADMAP Queue A item 8
-(robustness) and raises ``UnsupportedError``.
+- ``chunked``: the ``ChunkedSolver`` contract (``init_state`` /
+  ``step_chunk`` / ``extract_result``) that the Krylov solvers, the
+  randomized SVD and the streaming engine expose;
+- ``runner``: ``ResilientRunner``, host rounds of device iterations with
+  rotated CRC-guarded checkpoints, resume, IO retries and the divergence
+  guard;
+- ``faults``: deterministic fault injection (preemption, corruption,
+  transient IO, the guard's numerical faults) and ``with_retries``.
+
+The host and fleet fault plans of the elastic and serving layers raise
+``UnsupportedError`` naming their ROADMAP items.
 """
 
-from ..utils.exceptions import deferred
 from .chunked import ChunkedSolver
+from .faults import (
+    FaultPlan,
+    FleetFaultPlan,
+    HostFaultPlan,
+    SimulatedPreemption,
+    corrupt_checkpoint,
+    corrupt_manifest,
+    tear_ledger_tail,
+    with_retries,
+)
+from .runner import ResilientParams, ResilientRunner
 
-_ITEM8 = "ROADMAP Queue A item 8: robustness (resilient runner, checkpoints)"
-ResilientRunner = deferred("ResilientRunner", _ITEM8)
-
-__all__ = ["ChunkedSolver", "ResilientRunner"]
+__all__ = [
+    "ChunkedSolver",
+    "ResilientParams",
+    "ResilientRunner",
+    "FaultPlan",
+    "FleetFaultPlan",
+    "HostFaultPlan",
+    "SimulatedPreemption",
+    "corrupt_checkpoint",
+    "corrupt_manifest",
+    "tear_ledger_tail",
+    "with_retries",
+]

@@ -23,6 +23,8 @@ import json
 import warnings
 from typing import Any, ClassVar
 
+import torch
+
 from ..core.context import SketchContext
 
 __all__ = [
@@ -97,6 +99,100 @@ class SketchTransform(abc.ABC):
 
     def __call__(self, A, dim: Dimension | str = Dimension.COLUMNWISE):
         return self.apply(A, dim)
+
+    # -- partial-sketch protocol (streaming / out-of-core) -------------------
+    #
+    # Every transform is a linear map (or linear-then-pointwise feature
+    # map) with counter-addressed randomness, so ``S·A`` decomposes into
+    # per-block contributions that never need the whole A or Omega:
+    #
+    # - COLUMNWISE (A is (N, m)): rows [start, start+k) contribute
+    #   ``Omega[:, start:start+k] @ A_block``; contributions merge by sum,
+    #   then :meth:`finalize_slices` (identity for linear sketches, the
+    #   cos epilogue for RFT).
+    # - ROWWISE (A is (m, N)): a block of rows is sketched whole;
+    #   contributions merge by concatenation in stream order.
+
+    #: Whether :meth:`apply_slice_kernel` is implemented.
+    supports_slice_kernel: ClassVar[bool] = False
+
+    def apply_slice(self, A_block, start: int, dim: Dimension | str = Dimension.COLUMNWISE):
+        """Exact contribution of the block of A starting at row ``start``
+        (a host int) of the sketched axis.
+
+        COLUMNWISE: ``A_block`` is rows [start, start+k) of the (N, m)
+        input; returns the (S, m) partial ``Omega[:, start:start+k] @
+        A_block``.  Summed over a disjoint cover of [0, N) and passed
+        through :meth:`finalize_slices`, it gives ``apply(A)`` up to the
+        order of summation.  ROWWISE: the finished (k, S) sketch of the
+        block (``start`` only records the stream position).
+        """
+        dim = Dimension.of(dim)
+        if dim is Dimension.ROWWISE:
+            return self.apply(A_block, dim)
+        start = int(start)
+        k = A_block.shape[0]
+        if start < 0 or start + k > self.n:
+            raise ValueError(
+                f"slice [{start}, {start + k}) outside the sketch domain [0, {self.n})")
+        squeeze = A_block.ndim == 1
+        if squeeze:
+            A_block = A_block[:, None]
+        out = self._apply_slice_columnwise(A_block, start)
+        return out[:, 0] if squeeze else out
+
+    def _apply_slice_columnwise(self, A_block, start: int):
+        """Subclass hook for the COLUMNWISE partial product; ``A_block``
+        is 2-D and bounds-checked."""
+        from ..utils.exceptions import UnsupportedError
+
+        raise UnsupportedError(
+            f"{self.sketch_type} has no columnwise partial-sketch rule; "
+            "stream ROWWISE, or use a dense (JLT/CT), hash "
+            "(CWT/SJLT/MMT/WZT), or RFT transform"
+        )
+
+    def apply_slice_kernel(self, A_block, start):
+        """COLUMNWISE partial without a bounds check: ``start`` is a host
+        int or a 0-d int64 tensor on the device (read without a host
+        sync), and the window may run past the sketch domain.  Operand
+        entries past the domain are zeroed, so a zero-padded ``A_block``
+        contributes exactly the in-domain partial."""
+        from ..utils.exceptions import UnsupportedError
+
+        raise UnsupportedError(
+            f"{self.sketch_type} has no slice kernel; stream it through "
+            "apply_slice"
+        )
+
+    def apply_slice_kernel_acc(self, acc, A_block, start):
+        """One streaming chunk step: ``acc + apply_slice_kernel(A_block,
+        start)`` cast to ``acc.dtype``.  Engines with a fused kernel (the
+        hash sketches) fold the add into the kernel's emit and must stay
+        bitwise equal to this composite."""
+        part = self.apply_slice_kernel(A_block, start)
+        return acc + part.to(acc.dtype)
+
+    def finalize_slices(self, acc, dim: Dimension | str = Dimension.COLUMNWISE):
+        """Turn the merged COLUMNWISE slice-sum into the final sketch
+        (identity for linear transforms; feature maps apply their
+        pointwise epilogue here).  ROWWISE results pass through."""
+        return acc
+
+    # -- loop-invariant operand hoisting ------------------------------------
+
+    def hoistable_operands(self, dtype=torch.float32, device=None):
+        """Counter-derived tensors that the apply realizes and that do not
+        depend on the input (the sketch operand, ...), or None; a
+        streaming consumer realizes them once and passes them to
+        :meth:`apply_with_operands`.  Default: nothing to hoist."""
+        return None
+
+    def apply_with_operands(self, ops, A, dim: Dimension | str = Dimension.COLUMNWISE,
+                            *, device=None):
+        """:meth:`apply` with pre-realized :meth:`hoistable_operands`
+        (bitwise the same); the default ignores ``ops``."""
+        return self.apply(A, dim, device=device)
 
     def __mul__(self, A):
         return self.apply(A, Dimension.COLUMNWISE)

@@ -11,8 +11,14 @@ along N and accumulates, so at most one (S, panel) window is live.
 
 Sparse input is a ``torch.sparse_coo_tensor``; its product with the
 realized Omega is dense.  A dense sketch of a sparse input above the
-limit raises, as in the JAX package.  ``apply_slice_columnwise`` and
-``apply_slice_kernel`` wait for the streaming slice (ROADMAP Queue A).
+limit raises, as in the JAX package.
+
+Streaming slices (``apply_slice``, ``apply_slice_kernel``) realize only
+the (S, k) column window ``Omega[:, start:start+k]`` of a row block;
+``apply_slice_kernel`` zeroes the window's columns past N.  The last
+window realized by a host-int ``start`` is kept, so a streaming pass
+that sketches two blocks at the same rows (least squares' A and b)
+realizes it once; :meth:`DenseSketch.finalize_slices` drops it.
 """
 
 from __future__ import annotations
@@ -68,6 +74,7 @@ class DenseSketch(SketchTransform):
         self._seed = context.seed
         self._base = context.reserve(n * s)
         self._hoist_cache: dict[tuple[torch.dtype, torch.device], torch.Tensor] = {}
+        self._last_window = None
 
     def realize(self, dtype=torch.float32, offset: tuple[int, int] = (0, 0),
                 shape: tuple[int, int] | None = None, device=None) -> torch.Tensor:
@@ -82,6 +89,43 @@ class DenseSketch(SketchTransform):
     def apply(self, A, dim: Dimension | str = Dimension.COLUMNWISE, *,
               device=None):
         return self._apply_impl(as_tensor(A, device), Dimension.of(dim), omega=None)
+
+    # -- streaming slices ---------------------------------------------------
+
+    supports_slice_kernel = True
+
+    def _slice_window(self, start, k: int, dtype, device) -> torch.Tensor:
+        """``Omega[:, start:start+k]`` in ``dtype``, columns past N
+        included as the counter stream has them; a host-int window is
+        kept for the next call at the same rows."""
+        if isinstance(start, torch.Tensor):
+            return self.realize(dtype, offset=(0, start), shape=(self.s, k), device=device)
+        key = (int(start), k, dtype, torch.device(device))
+        if self._last_window is None or self._last_window[0] != key:
+            self._last_window = None  # release the old window first
+            self._last_window = (key, self.realize(dtype, offset=(0, int(start)),
+                                                   shape=(self.s, k), device=device))
+        return self._last_window[1]
+
+    def _apply_slice_columnwise(self, A_block, start: int):
+        dtype = _float_dtype(A_block)
+        w = self._slice_window(start, A_block.shape[0], dtype, A_block.device)
+        if A_block.layout == torch.sparse_coo:
+            return _matmul(w, A_block)
+        return _matmul(w, A_block.to(dtype))
+
+    def apply_slice_kernel(self, A_block, start):
+        k = A_block.shape[0]
+        dtype = _float_dtype(A_block)
+        w = self._slice_window(start, k, dtype, A_block.device)
+        dev = A_block.device
+        valid = torch.arange(k, device=dev) + start < self.n
+        w = torch.where(valid[None, :], w, torch.zeros((), dtype=dtype, device=dev))
+        return _matmul(w, A_block.to(dtype))
+
+    def finalize_slices(self, acc, dim: Dimension | str = Dimension.COLUMNWISE):
+        self._last_window = None
+        return acc
 
     def hoistable_operands(self, dtype=torch.float32, device=None):
         """The realized (S, N) Omega, for callers that apply the sketch

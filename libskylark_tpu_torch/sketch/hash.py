@@ -29,8 +29,17 @@ on the card, its plain version on the CPU; f64 takes a plain
 ``index_add_`` in f64, the reference's XLA branch).  Without it, the
 hashed coordinates are relabelled and ``coalesce()`` sums the
 duplicates, the counterpart of the reference's ``sum_duplicates``.
-Other sparse layouts (CSR, ...), ``apply_slice*`` and the streaming
-fusions wait for later slices (ROADMAP Queue A items 5 and 10).
+Other sparse layouts (CSR, ...) raise ``UnsupportedError``.
+
+Streaming slices regenerate only the k-coordinate hash windows of a row
+block (flat counter index ``h·N + start + i``).  A dense f32/bf16/f16
+block takes ONE ``scatter_rows`` launch for all nnz hashes, with buckets
+and f32 values stacked (nnz, k); ``apply_slice_kernel`` zeroes the
+values past N, and ``apply_slice_kernel_acc`` with an f32 accumulator
+hands it to the kernel (``scatter_rows(..., acc=acc)``), whose result
+is bitwise ``acc + scatter_rows(...)``: one launch per stream chunk.
+f64 blocks take ``index_add_`` in f64; sparse COO blocks one segment
+sum per hash keyed ``b[rows]·m + cols``.
 """
 
 from __future__ import annotations
@@ -38,7 +47,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._device import as_tensor
+from .._device import as_tensor, resolve_device
 from ..core.context import SketchContext
 from ..core.precision import bf16_split3, f32_accumulable
 from ..core.random import sample
@@ -97,23 +106,60 @@ class HashSketch(SketchTransform):
         self._idx_base = context.reserve(self.nnz * n)
         self._val_base = context.reserve(self.nnz * n)
 
-    def _window(self, start: int, num: int | None, total: int):
+    def _window(self, start, num: int | None, total: int):
+        """``(start, num)`` of a flat window: ``start`` a host int, or a
+        0-d int64 device tensor (then ``num`` is required)."""
+        if isinstance(start, torch.Tensor):
+            if num is None:
+                raise ValueError("a tensor window start needs an explicit length")
+            return start, int(num)
         start = int(start)
         return start, (total - start if num is None else int(num))
 
-    def buckets(self, start: int = 0, num: int | None = None, device=None):
+    def buckets(self, start=0, num: int | None = None, device=None):
         """bucket[i] for i in [start, start+num) of the flat (nnz·N)
         layout, int32."""
         start, num = self._window(start, num, self.nnz * self.n)
-        return sample("uniform_int", self._seed, self._idx_base + start, num,
+        return sample("uniform_int", self._seed, self._idx_base, num, offset=start,
                       dtype=torch.int32, device=device, low=0, high=self.s - 1)
 
-    def values(self, dtype=torch.float32, start: int = 0,
-               num: int | None = None, device=None):
+    def values(self, dtype=torch.float32, start=0, num: int | None = None, device=None):
         """Signed values, same flat layout as :meth:`buckets`."""
         start, num = self._window(start, num, self.nnz * self.n)
-        return sample(self.value_dist, self._seed, self._val_base + start, num,
+        return sample(self.value_dist, self._seed, self._val_base, num, offset=start,
                       dtype=dtype, device=device)
+
+    # Up to this many nnz·N entries, a stream's hash windows are windows
+    # of the whole (nnz, N) arrays, realized once per dtype and device and
+    # dropped by finalize_slices: a window costs ~300 small launches of
+    # the counter stream, which set the time of a stream chunk otherwise.
+    # The limit is a memory budget: int32 buckets and f32 values take
+    # 8 B an entry, so 2^25 entries hold 256 MiB on the device during a
+    # pass.  Above it each window is drawn for its chunk.
+    _SLICE_MEMO_LIMIT = 1 << 25
+
+    def _slice_hashes(self, start, k: int, vdtype, device):
+        """Stacked (nnz, k) buckets and values of coordinates [start,
+        start + k), hash h at flat index ``h·N + start``: views of the
+        memoized whole arrays where the window lies in [0, N) and they
+        are small enough, else drawn for the window (the same counters,
+        so the same bits)."""
+        if (not isinstance(start, torch.Tensor) and 0 <= start and start + k <= self.n
+                and self.nnz * self.n <= self._SLICE_MEMO_LIMIT):
+            key = (vdtype, resolve_device(device))
+            memo = self.__dict__.setdefault("_slice_memo", {})
+            if key not in memo:
+                memo[key] = self._slice_hashes_drawn(0, self.n, vdtype, key[1])
+            b, v = memo[key]
+            return b[:, start:start + k], v[:, start:start + k]
+        return self._slice_hashes_drawn(start, k, vdtype, device)
+
+    def _slice_hashes_drawn(self, start, k: int, vdtype, device):
+        b = torch.stack([self.buckets(h * self.n + start, k, device=device)
+                         for h in range(self.nnz)])
+        v = torch.stack([self.values(vdtype, h * self.n + start, k, device=device)
+                         for h in range(self.nnz)])
+        return b, v
 
     # -- apply --------------------------------------------------------------
 
@@ -257,6 +303,108 @@ class HashSketch(SketchTransform):
         # axis on the rows the kernel accumulates.
         return _segment_sum_rows(A.T, b, v, self.s).T.to(dtype)
 
+    # -- streaming slices ---------------------------------------------------
+
+    supports_slice_kernel = True
+
+    def _apply_slice_columnwise(self, A_block, start: int):
+        """Partial scatter-add over the hash windows of coordinates
+        [start, start + k): sparse COO blocks one segment sum per hash
+        keyed by their local rows, dense blocks one stacked row scatter."""
+        k, m = A_block.shape
+        dev = A_block.device
+        if A_block.layout == torch.sparse_coo:
+            idx, data = A_block._indices(), A_block._values()
+            dtype = data.dtype if data.is_floating_point() else torch.float32
+            data = data.to(dtype)
+            rows, cols = idx[0], idx[1]
+            out = torch.zeros((self.s, m), dtype=dtype, device=dev)
+            for h in range(self.nnz):
+                b = self.buckets(h * self.n + start, k, device=dev).long()
+                v = self.values(dtype, h * self.n + start, k, device=dev)
+                key = (b[rows] * m + cols).int()
+                out = out + _segment_sum(data * v[rows], key,
+                                         self.s * m).to(dtype).reshape(self.s, m)
+            return out
+        return self._slice_kernel_impl(A_block, start, None)
+
+    def _slice_kernel_impl(self, A_block, start, acc):
+        """Shared body of the dense slices: the stacked (nnz, k) windows
+        in one row scatter, values past N zeroed unless a host start
+        puts the window inside the domain (an out-of-domain counter
+        stream can hold non-finite draws, WZT's 1/Exp, and inf·0 from a
+        padded row would poison the sum).  With an f32 ``acc`` and an
+        f32 block the accumulator add is the kernel's emit: one launch
+        per chunk, bitwise ``acc + part``."""
+        dtype = A_block.dtype if A_block.is_floating_point() else torch.float32
+        A_block = A_block.to(dtype)
+        k = A_block.shape[0]
+        dev = A_block.device
+        vdtype = torch.float32 if f32_accumulable(dtype) else dtype
+        b, v = self._slice_hashes(start, k, vdtype, dev)
+        if isinstance(start, torch.Tensor) or start + k > self.n:
+            valid = torch.arange(k, device=dev) + start < self.n
+            v = torch.where(valid[None, :], v, torch.zeros((), dtype=vdtype, device=dev))
+        if acc is not None and dtype == torch.float32 and acc.dtype == torch.float32:
+            return kernels_window.scatter_rows(A_block.contiguous(), b, v.contiguous(),
+                                               self.s, acc=acc)
+        out = _segment_sum_rows(A_block, b, v, self.s).to(dtype)
+        return out if acc is None else acc + out.to(acc.dtype)
+
+    def apply_slice_kernel(self, A_block, start):
+        return self._slice_kernel_impl(A_block, start, None)
+
+    def apply_slice_kernel_acc(self, acc, A_block, start):
+        return self._slice_kernel_impl(A_block, start, acc)
+
+    def finalize_slices(self, acc, dim: Dimension | str = Dimension.COLUMNWISE):
+        """Ends a pass of slices: drops the memoized hash arrays."""
+        self.__dict__.pop("_slice_memo", None)
+        return acc
+
+    # -- loop-invariant operands ---------------------------------------------
+
+    def hoistable_operands(self, dtype=torch.float32, device=None):
+        """The bf16-exact one-hot operands of the dense apply (the sign
+        matrix for CWT/SJLT, per-hash (P01, v) pairs for MMT/WZT), the
+        O(N·S) build a streaming consumer should not repeat per block;
+        None where the apply takes no one-hot route.  Memoized per dtype
+        and device."""
+        if dtype not in _ONEHOT_DTYPES or self.n * self.s > self._ONEHOT_LIMIT:
+            return None
+        dev = resolve_device(device)
+        cache = self.__dict__.setdefault("_hoist_cache", {})
+        hit = cache.get((dtype, dev))
+        if hit is None:
+            c = self._sign_scale()
+            hit = (("sign", c, self._sign_matrix_bf16(c, dev)) if c is not None
+                   else ("scaled", self._scaled_pairs(dev)))
+            cache[(dtype, dev)] = hit
+        return hit
+
+    def apply_with_operands(self, ops, A, dim: Dimension | str = Dimension.COLUMNWISE,
+                            *, device=None):
+        """:meth:`apply` with the hoisted one-hot operands, bitwise the
+        same: any input the apply would not send down the one-hot route
+        (sparse, 1-D, f16/f64, thin batches) takes :meth:`apply`."""
+        dim = Dimension.of(dim)
+        A = as_tensor(A, device)
+        if ops is None or A.layout != torch.strided or A.ndim != 2:
+            return self.apply(A, dim)
+        dtype = A.dtype if A.is_floating_point() else torch.float32
+        if dtype not in _ONEHOT_DTYPES:
+            return self.apply(A, dim)
+        axis = 0 if dim is Dimension.COLUMNWISE else 1
+        if A.shape[axis] != self.n:
+            raise ValueError(f"{dim.value} apply needs A with {self.n} on axis {axis}, "
+                             f"got {tuple(A.shape)}")
+        if A.shape[1 - axis] < 16:
+            return self.apply(A, dim)
+        if ops[0] == "sign":
+            _, c, Mi = ops
+            return (self._onehot_contract(A, Mi, dim, dtype) * c).to(dtype)
+        return self._scaled_contract(ops[1], A, dim, dtype)
+
     def _hash_matrix(self, dtype, device):
         """Dense (N, S) hashing matrix M with M[i, b[h,i]] += v[h,i]
         (one add per hash, as the reference's broadcast-compare sum)."""
@@ -306,17 +454,27 @@ class HashSketch(SketchTransform):
         """General-valued hash sketches (MMT/WZT): the value array is
         folded into A, so each hash's matrix is pure 0/1 (exact in bf16):
         ``SA = Σ_h P01_hᵀ·(v_h ⊙ A)`` columnwise."""
-        dev = A.device
-        b = self.buckets(device=dev).reshape(self.nnz, self.n).long()
-        v = self.values(torch.float32, device=dev).reshape(self.nnz, self.n)
-        rows = torch.arange(self.n, device=dev)
+        return self._scaled_contract(self._scaled_pairs(A.device), A, dim, dtype)
+
+    def _scaled_pairs(self, device):
+        """Per-hash (0/1 bucket matrix in bf16, value row) pairs."""
+        b = self.buckets(device=device).reshape(self.nnz, self.n).long()
+        v = self.values(torch.float32, device=device).reshape(self.nnz, self.n)
+        rows = torch.arange(self.n, device=device)
+        pairs = []
+        for h in range(self.nnz):
+            P01 = torch.zeros((self.n, self.s), dtype=torch.bfloat16, device=device)
+            P01[rows, b[h]] = 1.0
+            pairs.append((P01, v[h]))
+        return tuple(pairs)
+
+    def _scaled_contract(self, pairs, A, dim: Dimension, dtype):
+        """``Σ_h contract(v_h ⊙ A, P01_h)``: the one loop behind the
+        per-call and the hoisted scaled one-hot paths."""
         A32 = A.to(torch.float32)
         out = None
-        for h in range(self.nnz):
-            P01 = torch.zeros((self.n, self.s), dtype=torch.bfloat16, device=dev)
-            P01[rows, b[h]] = 1.0
-            scaled = A32 * (v[h][:, None] if dim is Dimension.COLUMNWISE
-                            else v[h][None, :])
+        for P01, vh in pairs:
+            scaled = A32 * (vh[:, None] if dim is Dimension.COLUMNWISE else vh[None, :])
             part = self._onehot_contract(scaled, P01, dim, dtype)
             out = part if out is None else out + part
         return out.to(dtype)
@@ -341,8 +499,7 @@ class SJLT(HashSketch):
     def __init__(self, n: int, s: int, context: SketchContext, nnz: int = 4):
         super().__init__(n, s, context, nnz=nnz)
 
-    def values(self, dtype=torch.float32, start: int = 0,
-               num: int | None = None, device=None):
+    def values(self, dtype=torch.float32, start=0, num: int | None = None, device=None):
         v = super().values(dtype, start, num, device=device)
         return v / torch.sqrt(torch.tensor(float(self.nnz), dtype=dtype,
                                            device=v.device))
@@ -381,12 +538,11 @@ class WZT(HashSketch):
         super().__init__(n, s, context)
         self._pm_base = context.reserve(n)
 
-    def values(self, dtype=torch.float32, start: int = 0,
-               num: int | None = None, device=None):
+    def values(self, dtype=torch.float32, start=0, num: int | None = None, device=None):
         start, num = self._window(start, num, self.n)
-        e = sample("exponential", self._seed, self._val_base + start, num,
+        e = sample("exponential", self._seed, self._val_base, num, offset=start,
                    dtype=dtype, device=device)
-        pm = sample("rademacher", self._seed, self._pm_base + start, num,
+        pm = sample("rademacher", self._seed, self._pm_base, num, offset=start,
                     dtype=dtype, device=device)
         return pm * (1.0 / e) ** torch.tensor(1.0 / self.p, dtype=dtype,
                                               device=e.device)

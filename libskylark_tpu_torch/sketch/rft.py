@@ -16,7 +16,9 @@ scales for Matérn.  Shifts and scales are memoized per dtype and device;
 package rounds its weakly typed Python floats.  XLA contracts the
 epilogue's ``WX·scales + shifts`` into an FMA; here they are two rounded
 operations, so Matérn features may differ from the JAX ones by one ulp
-of the cosine's argument.  The quasi-Monte-Carlo QRFTs wait for
+of the cosine's argument.  Streaming slices delegate the linear half
+W·A to the dense engine; :meth:`RFT.finalize_slices` applies the
+epilogue once to the merged sum.  The quasi-Monte-Carlo QRFTs wait for
 ``core/quasirand.py`` (ROADMAP Queue A).
 """
 
@@ -48,7 +50,9 @@ def _epilogue(WX: torch.Tensor, shifts: torch.Tensor, scales, outscale: float,
     if scales is not None:
         WX.mul_(scales)
     WX.add_(shifts).cos_()
-    return WX.mul_(_const(outscale, WX.dtype, WX.device))
+    # A host 0-d constant: no host-to-card copy, so a CUDA graph can
+    # capture the epilogue.
+    return WX.mul_(_const(outscale, WX.dtype))
 
 
 class _Underlying(DenseSketch):
@@ -100,6 +104,37 @@ class RFT(SketchTransform):
         return _epilogue(WX, self.shifts(WX.dtype, WX.device),
                          self.scales(WX.dtype, WX.device), self.outscale,
                          dim is Dimension.COLUMNWISE)
+
+    # -- streaming slices: the linear half W·A decomposes over row blocks
+    # like the dense engine's; the cos epilogue waits for the merged sum.
+
+    supports_slice_kernel = True
+
+    def _apply_slice_columnwise(self, A_block, start: int):
+        return self._underlying._apply_slice_columnwise(A_block, start)
+
+    def apply_slice_kernel(self, A_block, start):
+        return self._underlying.apply_slice_kernel(A_block, start)
+
+    def finalize_slices(self, acc, dim: Dimension | str = Dimension.COLUMNWISE):
+        """COLUMNWISE slice-sums hold the merged W·A: the epilogue runs
+        once here, on a copy (the caller's sum is left as it was).
+        ROWWISE blocks were finished by :meth:`apply`."""
+        self._underlying.finalize_slices(acc, dim)
+        if Dimension.of(dim) is Dimension.ROWWISE:
+            return acc
+        return self._epilogue(acc.clone(), Dimension.COLUMNWISE)
+
+    def hoistable_operands(self, dtype=torch.float32, device=None):
+        """The realized (S, N) W, delegated to the dense engine (one
+        gate, one memo)."""
+        return self._underlying.hoistable_operands(dtype, device)
+
+    def apply_with_operands(self, ops, A, dim: Dimension | str = Dimension.COLUMNWISE,
+                            *, device=None):
+        dim = Dimension.of(dim)
+        return self._epilogue(self._underlying.apply_with_operands(ops, A, dim, device=device),
+                              dim)
 
 
 @register_sketch

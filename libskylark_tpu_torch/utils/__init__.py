@@ -1,15 +1,22 @@
 """Utilities of the port."""
 
+from .checkpoint import CheckpointStore, load_solver_state, save_solver_state
 from .exceptions import (
+    CheckpointError,
+    ConvergenceError,
+    IOError_,
     InvalidParameters,
     NumericalHealthError,
     SkylarkError,
+    StaleEpochError,
     UnsupportedError,
     deferred,
 )
 from .sparse import coo_from_bcoo_arrays, is_sparse, linear_ops
 from .timer import PhaseTimer, aggregate_report, timer_report
 
-__all__ = ["SkylarkError", "InvalidParameters", "UnsupportedError",
-           "NumericalHealthError", "deferred", "coo_from_bcoo_arrays", "is_sparse",
+__all__ = ["SkylarkError", "InvalidParameters", "UnsupportedError", "IOError_",
+           "ConvergenceError", "CheckpointError", "StaleEpochError",
+           "NumericalHealthError", "deferred", "save_solver_state", "load_solver_state",
+           "CheckpointStore", "coo_from_bcoo_arrays", "is_sparse",
            "linear_ops", "PhaseTimer", "timer_report", "aggregate_report"]

@@ -3,8 +3,9 @@ stable error codes (``libskylark_tpu/utils/exceptions.py``)."""
 
 from __future__ import annotations
 
-__all__ = ["SkylarkError", "InvalidParameters", "UnsupportedError",
-           "NumericalHealthError", "deferred"]
+__all__ = ["SkylarkError", "InvalidParameters", "UnsupportedError", "IOError_",
+           "ConvergenceError", "CheckpointError", "NumericalHealthError",
+           "StaleEpochError", "deferred"]
 
 
 class SkylarkError(Exception):
@@ -19,6 +20,31 @@ class InvalidParameters(SkylarkError, ValueError):
 
 class UnsupportedError(SkylarkError, NotImplementedError):
     code = 104
+
+
+class IOError_(SkylarkError, IOError):
+    code = 105
+
+
+class ConvergenceError(SkylarkError):
+    """An iterative solve diverged (NaN/Inf iterates) or was halted by a
+    guard.  ``result`` carries the best iterate observed before the halt,
+    so callers can degrade gracefully instead of receiving garbage."""
+
+    code = 106
+
+    def __init__(self, msg, result=None, iteration=None):
+        super().__init__(msg)
+        self.result = result
+        self.iteration = iteration
+
+
+class CheckpointError(IOError_):
+    """A checkpoint failed integrity validation (bad CRC, wrong object
+    type, missing leaves, unreadable container).  Subclasses ``IOError_``
+    so IO error handling keeps working."""
+
+    code = 107
 
 
 class NumericalHealthError(SkylarkError):
@@ -36,6 +62,21 @@ class NumericalHealthError(SkylarkError):
         super().__init__(msg)
         self.stage = stage
         self.report = report
+
+
+class StaleEpochError(SkylarkError):
+    """A checkpoint slot (or a peer) carries another elastic epoch than
+    this process runs at: its state belongs to a superseded partition.
+    Deliberately not a ``CheckpointError``, so the store's corrupt-slot
+    fallback cannot swallow it and load an equally stale older slot.
+    ``expected``/``got`` carry the two epochs."""
+
+    code = 111
+
+    def __init__(self, msg, expected=None, got=None):
+        super().__init__(msg)
+        self.expected = expected
+        self.got = got
 
 
 def deferred(name: str, item: str):

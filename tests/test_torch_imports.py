@@ -32,7 +32,9 @@ def test_port_files_found():
             "model.py", "flagship.py", "matrices.py", "chunked.py", "precond.py",
             "krylov.py", "cond_est.py", "config.py", "sentinels.py", "certify.py",
             "ladder.py", "svd.py", "accelerated.py", "regression.py", "timer.py",
-            "prox.py", "sampling.py", "krr.py", "rlsc.py", "admm.py", "nonlinear.py"} <= names
+            "prox.py", "sampling.py", "krr.py", "rlsc.py", "admm.py", "nonlinear.py",
+            "checkpoint.py", "faults.py", "runner.py", "pipeline.py", "overlap.py",
+            "engine.py", "drivers.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

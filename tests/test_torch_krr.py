@@ -271,9 +271,9 @@ def test_port_trained_models_load_in_jax(rng, tmp_path):
 
 
 def test_deferred_parts_raise_naming_their_item(rng):
-    for name in ("streaming_kernel_ridge", "streaming_approximate_kernel_ridge"):
-        with pytest.raises(UnsupportedError, match="item 4"):
-            getattr(T.ml, name)()
+    # The streaming solvers are ported (tests/test_torch_streaming.py);
+    # checkpointed CG is what is left.
+    assert T.ml.streaming_kernel_ridge is tkrr.streaming_kernel_ridge
     X, Y = _data(rng, n=20)
     with pytest.raises(UnsupportedError, match="item 8"):
         tkrr.faster_kernel_ridge(_kernels()[1], torch.from_numpy(X), torch.from_numpy(Y), 0.1,

@@ -235,5 +235,6 @@ def test_synthetic_lowrank_blocks_match_jax(dtype, noise, decay):
 
 
 def test_streaming_svd_is_deferred():
-    with pytest.raises(NotImplementedError, match="item 4"):
-        T.linalg.streaming_approximate_svd(None, (4, 4), 1, T.SketchContext())
+    # Ported (tests/test_torch_streaming.py) but for its sharded panels.
+    with pytest.raises(NotImplementedError, match="item 9"):
+        T.linalg.streaming_approximate_svd(None, (4, 4), 1, T.SketchContext(), mesh=object())
