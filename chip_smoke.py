@@ -4,10 +4,13 @@
 
 Builds the port's CUDA kernels from ``libskylark_tpu_torch/csrc``, holds
 each kernel against its plain PyTorch version at the main paths'
-shapes, drives the main paths with every launch counter reset just
-before each and read just after it, times each kernel beside its bound,
-its plain version and a one-call PyTorch equivalent, and ends with one
-JSON line.  The paths:
+shapes (``rfut_rowwise`` at NB = 128, 256 also on both of its load
+paths, misaligned views, row independence and run-to-run, bitwise),
+drives the main paths with every launch counter reset just before each
+and read just after it, times each kernel beside its bound, its plain
+version and a one-call PyTorch equivalent (``rfut_rowwise`` also over
+NB = 128 ... 1024 at 2^25 elements), and ends with one JSON line.  The
+paths:
 
 - sketch-and-solve least squares at 2^20 x 512 with FJLT and CWT, at
   32768 x 1024 with FJLT, and the FJLT rowwise apply at 131072 x 4096;
@@ -86,6 +89,10 @@ L2_FLUSH_BYTES = 256 << 20     # read before a cold run: five times the H100's 5
 LS_REPEATS = 3                 # timed solves per LS configuration (median kept)
 HOT_DRAWS = 3                  # draws of scatter_rows' hot-bucket check
 SEED = 20261016
+# rfut_rowwise at NB = 128, 256 (the warp-per-row kernel): phase 2's row
+# counts, and the sweep of phase 4 at 2^25 f32 elements of x per width.
+RFUT_NARROW_M = (1, 31, 262_143)
+RFUT_SWEEP_NB, RFUT_SWEEP_ELEMS = (128, 256, 512, 1024), 1 << 25
 # Sparse hash sketch (the JAX package's bench.py bench_sparse_cwt shape).
 SP_ROWS, SP_COLS, SP_NNZ, SP_S = 1_000_000, 100_000, 10_000_000, 1024
 # Planted-partition graph at the scale of SNAP com-LiveJournal.
@@ -319,12 +326,15 @@ class Held:
     so that the first launch of each signature (kernel, input shapes and
     dtypes, the other arguments) is held against the plain version on
     the same inputs by ``compare(out, *args, **kwargs)``; signatures go
-    into ``held``.  The launch count (the wrapper adds to it by its
-    module name) stays the wrapper's own, and the plain runs launch no
+    into ``held``.  The launch counts (the wrapper adds to them by its
+    module name) stay the wrapper's own, and the plain runs launch no
     kernel."""
 
     def __init__(self, kernel, name, compare, held: set):
         self.kernel, self.name, self.compare, self.held = kernel, name, compare, held
+
+    def __getattr__(self, attr):  # the wrapper's other counters, e.g. launches_by_nb
+        return getattr(self.kernel, attr)
 
     @property
     def launches(self):
@@ -348,6 +358,80 @@ def hold(mod, name, compare, held: set):
     kernel = getattr(mod, name)
     setattr(mod, name, Held(kernel, name, compare, held))
     return kernel
+
+
+def rfut_narrow_check(kf, dev) -> None:
+    """Phase 2's check of ``rfut_rowwise`` at NB = 128 and 256 (the warp-
+    per-row kernel): f32 and bf16, m in ``RFUT_NARROW_M``, n = NB and
+    NB - 3, x contiguous at a 16-byte aligned address and x a view one
+    element past it (the bulk-copy and the guarded load paths, as
+    ``kf.bulk_copies`` decides).  Each case is held against the plain
+    version beside a control that misses (the plain version with d's
+    sign flipped at the column of x's largest entry); rows a:b bitwise
+    the kernel on rows a:b alone (a and b odd, so not multiples of the
+    rows per ring stage), an aligned copy of a misaligned x bitwise the
+    view (the two load paths), and two runs bitwise equal."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    cases = 0
+    for nb in (128, 256):
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+            for n in (nb, nb - 3):
+                buf = torch.randn(max(RFUT_NARROW_M) * n + 1, generator=g, device=dev).to(dtype)
+                d = torch.where(torch.randn(n, generator=g, device=dev) > 0, 1.0, -1.0).to(dtype)
+                rel, ctl = 0.0, math.inf
+                for m in RFUT_NARROW_M:
+                    for offset in (0, 1):
+                        x = buf[offset:offset + m * n].view(m, n)
+                        label = (f"rfut_rowwise NB = {nb} {dtype} x ({m}, {n}) "
+                                 f"{'aligned' if offset == 0 else 'one element off'}")
+                        bulk = offset == 0 and n * x.element_size() % 16 == 0
+                        check(kf.bulk_copies(x) == bulk, f"{label}: bulk_copies is not {bulk}")
+                        out = kf.rfut_rowwise(x, d, nb)
+                        _, r = max_err(out, kf.rfut_rowwise_plain(x, d, nb))
+                        d_ctl = d.clone()
+                        col = int(x.float().abs().amax(0).argmax())
+                        d_ctl[col] = -d_ctl[col]
+                        _, c = max_err(out, kf.rfut_rowwise_plain(x, d_ctl, nb))
+                        check(r <= tol and c > tol, f"{label}: rel {r}, control {c} (tol {tol})")
+                        check(torch.equal(out, kf.rfut_rowwise(x, d, nb)),
+                              f"{label}: two runs are not bitwise equal")
+                        if offset:
+                            check(torch.equal(out, kf.rfut_rowwise(x.clone(), d, nb)),
+                                  f"{label}: an aligned copy is not bitwise the view")
+                        if m > 1:
+                            a, b = 3, m - 2
+                            check(torch.equal(out[a:b], kf.rfut_rowwise(x[a:b].contiguous(), d, nb)),
+                                  f"{label}: rows {a}:{b} are not bitwise the kernel on them alone")
+                        rel, ctl, cases = max(rel, r), min(ctl, c), cases + 1
+                print(f"rfut_rowwise NB = {nb} {dtype} n = {n}, m in {RFUT_NARROW_M}, aligned and "
+                      f"one element off: worst rel {rel:.3g} (tol {tol:g}), weakest control "
+                      f"{ctl:.3g}; rows independent, load paths and runs bitwise")
+                del buf
+    print(f"rfut_rowwise NB = 128, 256: {cases} cases held")
+
+
+def rfut_sweep(kf, dev) -> dict:
+    """``rfut_rowwise`` on 2^25 f32 elements of x at each NB of
+    ``RFUT_SWEEP_NB``: held against its plain version (rel 1e-5), timed
+    against its bytes bound.  Returns per NB the max abs error, ms,
+    plain ms, bytes and operations."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    res = {}
+    for nb in RFUT_SWEEP_NB:
+        m = RFUT_SWEEP_ELEMS // nb
+        x = torch.randn(m, nb, generator=g, device=dev)
+        d = torch.where(torch.randn(nb, generator=g, device=dev) > 0, 1.0, -1.0)
+        err, r = max_err(kf.rfut_rowwise(x, d, nb), kf.rfut_rowwise_plain(x, d, nb))
+        check(r <= 1e-5, f"rfut_rowwise at NB = {nb} disagrees with its plain version: {r}")
+        ms = time_ms(lambda: kf.rfut_rowwise(x, d, nb))
+        nbytes, ops = 4 * (2 * m * nb + nb), m * (nb * math.log2(nb) + nb)
+        b_ms, _ = bound(nbytes, ops)
+        res[nb] = {"err": err, "ms": ms, "bytes": nbytes, "ops": ops,
+                   "plain_ms": time_ms(lambda: kf.rfut_rowwise_plain(x, d, nb), reps=3, warmup=1)}
+        print(f"rfut_rowwise sweep, x {m} x {nb} f32, NB = {nb}: {ms!r} ms, {b_ms / ms:.3f} of "
+              f"its bytes bound {b_ms:.4f} ms; rel {r:.3g} (tol 1e-5)")
+        del x
+    return res
 
 
 def host_median(fn, reps: int = ML_REPEATS) -> tuple[float, list[float]]:
@@ -1187,6 +1271,20 @@ def train_path(sky, dev, reset_counts, read_counts, smi) -> None:
     check({sig[0] for sig in held} == {name for _, name, _ in kernels},
           f"train: kernels held against their plain versions: {sorted(held)}")
     read_counts("train", t_path, ("rfut_rowwise", "gather_scaled_rows", "scatter_rows"))
+    # The Fastfood map's rowwise apply at BlockADMM's shape, as a fit's
+    # transform phase runs it (two rfut_rowwise launches per block of 128
+    # features): an observation, not a check, made after the path's
+    # launches are read.
+    ff = ml.GaussianKernel(ADMM_D, ADMM_SIGMA).create_rft(ADMM_S, "fast",
+                                                          sky.SketchContext(seed=41))
+    x = randn(ADMM_M, ADMM_D)
+    rfut0 = rfut.launches
+    ff_ms = time_ms(lambda: ff.apply(x, "rowwise"), reps=5)
+    print(f"Fastfood map rowwise apply {ADMM_M} x {ADMM_D} -> {ADMM_S} f32: {ff_ms!r} ms of device "
+          f"time (CUDA events, median of 5); rfut_rowwise launches per apply "
+          f"{(rfut.launches - rfut0) / 7:g} {card}")
+    del ff, x
+    torch.cuda.empty_cache()
 
 
 def stream_path(sky, dev, reset_counts, read_counts, smi, graph) -> dict:
@@ -1711,6 +1809,9 @@ def main() -> None:
             if dtype == torch.float32:
                 sweep = max(sweep, r, r2)
     print(f"rfut NB 2^7..2^15, n = NB - 3, f32 and bf16: f32 worst rel {sweep:.3g} (tol 1e-5)")
+    # The warp-per-row kernel at NB = 128, 256: both load paths, row
+    # independence and run-to-run bitwise.
+    rfut_narrow_check(kf, dev)
 
     T = randn(1 << 20, 512)
     gidx = torch.from_numpy(rng.integers(0, 1 << 20, 2048).astype(np.int32)).to(dev)
@@ -1949,10 +2050,12 @@ def main() -> None:
     }
     launches = dict.fromkeys(wrappers, 0)
     path_launches = {}
+    rfut_by_nb = {}  # path -> rfut_rowwise's launches by NB
 
     def reset_counts():
         for w in wrappers.values():
             w.launches = 0
+        wrappers["rfut_rowwise"].launches_by_nb = {}
 
     def read_counts(path, t0, expect):
         counts = {name: w.launches for name, w in wrappers.items()}
@@ -1962,6 +2065,9 @@ def main() -> None:
         for name, count in counts.items():
             launches[name] += count
         path_launches[path] = counts
+        rfut_by_nb[path] = dict(wrappers["rfut_rowwise"].launches_by_nb)
+        if rfut_by_nb[path]:
+            print(f"{path} path: rfut_rowwise launches by NB {rfut_by_nb[path]}")
         return counts
 
     reset_counts()
@@ -2165,6 +2271,10 @@ def main() -> None:
         print(f"time {name}{f' {shape}' if shape else ''}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {b_ms:.4f} ms ({by}), library {library_ms}")
 
+    def at_nb(nb):
+        """rfut_rowwise's launches at width ``nb``, by path."""
+        return {p: c[nb] for p, c in rfut_by_nb.items() if c.get(nb)}
+
     rm, rn = 131072, 4096
     d = torch.from_numpy(rng.choice([-1.0, 1.0], rn).astype(np.float32)).to(dev)
     wht_ops = rm * (rn * math.log2(rn) + rn)
@@ -2172,22 +2282,21 @@ def main() -> None:
         "libskylark_tpu/sketch/pallas_fut.py:192",
         time_ms(lambda: kf.rfut_rowwise(A, d, rn)),
         time_ms(lambda: kf.rfut_rowwise_plain(A, d, rn), reps=3, warmup=1),
-        4 * (rm * rn + rn + rm * rn), wht_ops, None)
-    # The NB = 128 instance at BlockADMM's Fastfood shape (two launches per
-    # block of 128 features on the train path), on draws of its own.
-    ga = torch.Generator(device=dev).manual_seed(SEED + 9)
-    xa = torch.randn(ADMM_M, ADMM_D, generator=ga, device=dev)
-    da = torch.where(torch.randn(ADMM_D, generator=ga, device=dev) > 0, 1.0, -1.0)
-    a_err, r = max_err(kf.rfut_rowwise(xa, da, ADMM_D), kf.rfut_rowwise_plain(xa, da, ADMM_D))
-    check(r <= 1e-5, f"rfut_rowwise at NB = {ADMM_D} disagrees with its plain version: {r}")
-    row("rfut_rowwise", "libskylark_tpu_torch/csrc/rfut.cu",
-        "libskylark_tpu/sketch/pallas_fut.py:192",
-        time_ms(lambda: kf.rfut_rowwise(xa, da, ADMM_D)),
-        time_ms(lambda: kf.rfut_rowwise_plain(xa, da, ADMM_D), reps=3, warmup=1),
-        4 * (2 * ADMM_M * ADMM_D + ADMM_D), ADMM_M * (ADMM_D * math.log2(ADMM_D) + ADMM_D),
-        None, path_count=path_launches["train"]["rfut_rowwise"], err=a_err,
-        shape=f"x {ADMM_M} x {ADMM_D} f32, NB = {ADMM_D} (Fastfood in BlockADMM)")
-    del xa, da
+        4 * (rm * rn + rn + rm * rn), wht_ops, None, split={"launches_at_nb": at_nb(rn)})
+    # The warp-per-row widths: NB = 128 at BlockADMM's Fastfood shape (two
+    # launches per block of 128 features on the train path) and NB = 256 on
+    # the same 2^25 elements, from the sweep over NB, on draws of their own.
+    # ``launches`` counts the launches at that width; where no path runs
+    # the width, the kernel's launches on all paths, as the NB = 4096 row.
+    sweep = rfut_sweep(kf, dev)
+    for nb in (128, 256):
+        w = sweep[nb]
+        row("rfut_rowwise", "libskylark_tpu_torch/csrc/rfut.cu",
+            "libskylark_tpu/sketch/pallas_fut.py:192", w["ms"], w["plain_ms"], w["bytes"],
+            w["ops"], None, path_count=sum(at_nb(nb).values()) or None, err=w["err"],
+            shape=f"x {RFUT_SWEEP_ELEMS // nb} x {nb} f32, NB = {nb}"
+                  + (" (Fastfood in BlockADMM)" if nb == ADMM_D else ""),
+            split={"launches_at_nb": at_nb(nb)})
     sidx = torch.from_numpy(rng.integers(0, rn, 1024).astype(np.int32)).to(dev)
     row("rfut_rowwise_sampled", "libskylark_tpu_torch/csrc/rfut.cu",
         "libskylark_tpu/sketch/pallas_fut.py:150",

@@ -7,6 +7,7 @@ from .base import (
     Dimension,
     SketchTransform,
     create_sketch,
+    deserialize_sketch,
     from_dict,
     from_json,
     register_sketch,
@@ -25,12 +26,20 @@ from .sampling import NURST, UST
 COLUMNWISE = Dimension.COLUMNWISE
 ROWWISE = Dimension.ROWWISE
 
+# ≙ python-skylark's SUPPORTED_SKETCH_TRANSFORMS, as the JAX package
+# defines it: one (type, "Matrix", "Matrix") entry per registered sketch.
+SUPPORTED_SKETCH_TRANSFORMS = [
+    (T, "Matrix", "Matrix") for T in sorted(sketch_registry())
+]
+
 __all__ = [
     "Dimension",
     "COLUMNWISE",
     "ROWWISE",
     "SketchTransform",
     "create_sketch",
+    "deserialize_sketch",
+    "SUPPORTED_SKETCH_TRANSFORMS",
     "from_dict",
     "from_json",
     "register_sketch",

@@ -33,6 +33,7 @@ __all__ = [
     "register_sketch",
     "sketch_registry",
     "create_sketch",
+    "deserialize_sketch",
     "from_dict",
     "from_json",
     "SERIAL_VERSION",
@@ -266,6 +267,13 @@ def from_dict(d: dict[str, Any]) -> SketchTransform:
 def from_json(s: str) -> SketchTransform:
     """Rebuild a sketch from the JSON either package writes."""
     return from_dict(json.loads(s))
+
+
+def deserialize_sketch(sketch_dict: dict[str, Any]) -> SketchTransform:
+    """≙ python-skylark ``deserialize_sketch``: rebuild a transform from
+    its dict (``to_dict()`` here, ``serialize()`` in the JAX package);
+    the same as :func:`from_dict`."""
+    return from_dict(sketch_dict)
 
 
 def create_sketch(

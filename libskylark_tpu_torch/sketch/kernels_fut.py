@@ -1,17 +1,22 @@
 """Fused RFUT kernels (port of ``libskylark_tpu/sketch/pallas_fut.py``).
 
 ``rfut_rowwise`` and ``rfut_rowwise_sampled`` are CUDA C++ kernels in
-``csrc/rfut.cu`` (one block per row, the padded row in shared memory,
-an in-place butterfly: one read of x, one write of the output).  Each
-wrapper launches its kernel for a CUDA tensor and counts the launch in
-its ``launches`` attribute; a CPU tensor takes the plain PyTorch
-version beside it, which the tests compare with the JAX kernel.
+``csrc/rfut.cu`` (one read of x, one write of the output).  From NB =
+512 up, and for the sampled variant at every NB, one block owns one row,
+the padded row in shared memory; ``rfut_rowwise`` at NB = 128 and 256
+runs a row in one warp's registers on a persistent grid, fed by a ring
+of bulk copies where :func:`bulk_copies` allows them and by guarded
+loads where it does not.  Each wrapper launches its kernel for a CUDA
+tensor and counts the launch in its ``launches`` attribute
+(``rfut_rowwise`` also in ``launches_by_nb``, by NB); a CPU
+tensor takes the plain PyTorch version beside it, which the tests
+compare with the JAX kernel.
 
 Gates.  NB is a power of 2 in [128, 2^15].  The JAX package's Pallas
 kernels start at 512 (the TPU's lane tiles); here one block holds one
-padded row of NB float32 (16 threads at NB = 128, 128 KiB at NB = 2^15,
-under the 227 KB a Hopper block may use), and any row count works (one
-block per row), so Fastfood at d = 128 (BlockADMM's width) takes the
+padded row of NB float32 (128 KiB at NB = 2^15, under the 227 KB a
+Hopper block may use) and a warp one row of 128 or 256, and any row
+count works, so Fastfood at d = 128 (BlockADMM's width) takes the
 kernels too.  The sampled variant
 keeps JAX's ``S ≥ 128, S % 128 == 0`` condition, so both kernels stay on
 a path; its sample indices are read from global memory (L2), so S adds
@@ -32,6 +37,7 @@ __all__ = [
     "MAX_NB",
     "supported",
     "supported_sampled",
+    "bulk_copies",
     "rfut_rowwise",
     "rfut_rowwise_plain",
     "rfut_rowwise_sampled",
@@ -44,7 +50,7 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _P, _I = _launch.P, _launch.I
 _SIGNATURES = {
-    **{f"skylark_rfut_rowwise_{s}": [_P, _P, _P, _I, _I, _I, _P]
+    **{f"skylark_rfut_rowwise_{s}": [_P, _P, _P, _I, _I, _I, _I, _P]
        for s in _SUFFIX.values()},
     **{f"skylark_rfut_rowwise_sampled_{s}": [_P, _P, _P, _P, _I, _I, _I, _I, _P]
        for s in _SUFFIX.values()},
@@ -63,6 +69,15 @@ def supported(m: int, n: int, nb: int) -> bool:
 
 def supported_sampled(m: int, n: int, nb: int, s: int) -> bool:
     return s >= 128 and s % 128 == 0 and supported(m, n, nb)
+
+
+def bulk_copies(x: torch.Tensor) -> bool:
+    """Whether ``rfut_rowwise`` at NB = 128, 256 may feed itself with
+    bulk copies of whole tiles of rows: x's address is 16-byte aligned
+    and a row of x is a whole number of 16-byte units.  Otherwise the
+    same kernel reads x with guarded per-element loads.  Wider NB
+    ignores it."""
+    return x.data_ptr() % 16 == 0 and x.shape[1] * x.element_size() % 16 == 0
 
 
 def _transform_plain(x: torch.Tensor, d: torch.Tensor, nb: int) -> torch.Tensor:
@@ -107,12 +122,15 @@ def rfut_rowwise(x: torch.Tensor, d: torch.Tensor, nb: int) -> torch.Tensor:
     out = torch.empty((m, nb), dtype=x.dtype, device=x.device)
     lib = _launch.library("rfut", _SIGNATURES)
     fn = getattr(lib, f"skylark_rfut_rowwise_{_SUFFIX[x.dtype]}")
-    _launch.run(fn, x.device, x.data_ptr(), d.data_ptr(), out.data_ptr(), m, n, nb)
+    _launch.run(fn, x.device, x.data_ptr(), d.data_ptr(), out.data_ptr(), m, n, nb,
+                int(bulk_copies(x)))
     rfut_rowwise.launches += 1
+    rfut_rowwise.launches_by_nb[nb] = rfut_rowwise.launches_by_nb.get(nb, 0) + 1
     return out
 
 
 rfut_rowwise.launches = 0
+rfut_rowwise.launches_by_nb = {}
 
 
 def rfut_rowwise_sampled(x: torch.Tensor, d: torch.Tensor, nb: int,

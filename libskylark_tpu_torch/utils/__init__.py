@@ -2,11 +2,13 @@
 
 from .checkpoint import CheckpointStore, load_solver_state, save_solver_state
 from .exceptions import (
+    AllocationError,
     CheckpointError,
     ConvergenceError,
     IOError_,
     InvalidParameters,
     NumericalHealthError,
+    SketchError,
     SkylarkError,
     StaleEpochError,
     UnsupportedError,
@@ -15,7 +17,8 @@ from .exceptions import (
 from .sparse import coo_from_bcoo_arrays, is_sparse, linear_ops
 from .timer import PhaseTimer, aggregate_report, timer_report
 
-__all__ = ["SkylarkError", "InvalidParameters", "UnsupportedError", "IOError_",
+__all__ = ["SkylarkError", "AllocationError", "InvalidParameters", "SketchError",
+           "UnsupportedError", "IOError_",
            "ConvergenceError", "CheckpointError", "StaleEpochError",
            "NumericalHealthError", "deferred", "save_solver_state", "load_solver_state",
            "CheckpointStore", "coo_from_bcoo_arrays", "is_sparse",

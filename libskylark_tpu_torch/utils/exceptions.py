@@ -3,9 +3,9 @@ stable error codes (``libskylark_tpu/utils/exceptions.py``)."""
 
 from __future__ import annotations
 
-__all__ = ["SkylarkError", "InvalidParameters", "UnsupportedError", "IOError_",
-           "ConvergenceError", "CheckpointError", "NumericalHealthError",
-           "StaleEpochError", "deferred"]
+__all__ = ["SkylarkError", "AllocationError", "InvalidParameters", "SketchError",
+           "UnsupportedError", "IOError_", "ConvergenceError", "CheckpointError",
+           "NumericalHealthError", "StaleEpochError", "deferred"]
 
 
 class SkylarkError(Exception):
@@ -14,8 +14,16 @@ class SkylarkError(Exception):
     code = 100
 
 
+class AllocationError(SkylarkError):
+    code = 101
+
+
 class InvalidParameters(SkylarkError, ValueError):
     code = 102
+
+
+class SketchError(SkylarkError):
+    code = 103
 
 
 class UnsupportedError(SkylarkError, NotImplementedError):

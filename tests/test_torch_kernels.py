@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from libskylark_tpu.sketch import fut as jax_fut
 from libskylark_tpu.sketch import pallas_fut, pallas_window
 from libskylark_tpu_torch import _build, _device
 from libskylark_tpu_torch.sketch import kernels_fut, kernels_window
@@ -72,6 +73,48 @@ def test_rfut_rowwise_sampled_plain_matches_pallas(rng, n, s):
     # The JAX package's acceptance of the fused kernel (fjlt.py probe).
     base = kernels_fut.rfut_rowwise(xt, dt, nb)[:, idx] * np.sqrt(nb / s)
     assert _rel(out, base) <= 1e-5
+
+
+@pytest.mark.parametrize("nb", [128, 256])
+@pytest.mark.parametrize("pad", [0, 3])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_rfut_rowwise_plain_narrow_matches_jax_wht(rng, nb, pad, dtype):
+    """NB = 128, 256 (the warp-per-row kernel's widths): the JAX Pallas
+    kernel gates NB < 512 out, so its XLA ``wht`` of pad(x ⊙ d) is the
+    reference, the product taken in x's dtype.  f32: 1e-5 relative;
+    bf16: the plain version rounds the f32 transform once, so each
+    element lies within one bf16 rounding (2^-8 relative) of the f32
+    reference, plus the f32 transforms' 1e-5."""
+    m, n = 9, nb - pad
+    x = rng.standard_normal((m, n)).astype(np.float32)
+    d = _signs(rng, n)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "f32" else (jnp.bfloat16, torch.bfloat16)
+    xd = (jnp.asarray(x, jdt) * jnp.asarray(d, jdt)).astype(jnp.float32)
+    ref = np.asarray(jax_fut.wht(jnp.pad(xd, ((0, 0), (0, nb - n))), axis=1), np.float64)
+    out = kernels_fut.rfut_rowwise(torch.from_numpy(x).to(tdt), torch.from_numpy(d).to(tdt), nb)
+    assert out.shape == (m, nb) and out.dtype == tdt
+    out = out.double().numpy()
+    if dtype == "f32":
+        assert _rel(out, ref) <= 1e-5
+    else:
+        assert np.all(np.abs(out - ref) <= 2.0 ** -8 * np.abs(ref) + 1e-5 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("dtype,n,offset,bulk", [
+    (torch.float32, 128, 0, True),      # aligned, 512-byte rows
+    (torch.float32, 128, 1, False),     # a view one element past an aligned address
+    (torch.float32, 125, 0, False),     # 500-byte rows: not whole 16-byte units
+    (torch.float32, 252, 0, True),      # n < NB, rows of 1008 bytes
+    (torch.bfloat16, 256, 0, True),
+    (torch.bfloat16, 256, 1, False),
+    (torch.bfloat16, 252, 0, False),    # 504-byte rows
+    (torch.bfloat16, 120, 0, True),     # 240-byte rows
+])
+def test_rfut_bulk_copy_decision(dtype, n, offset, bulk):
+    buf = torch.zeros(4 * n + 8, dtype=dtype)
+    assert buf.data_ptr() % 16 == 0
+    x = buf[offset:offset + 4 * n].view(4, n)
+    assert kernels_fut.bulk_copies(x) is bulk
 
 
 def test_rfut_gates():
@@ -152,6 +195,7 @@ def test_gather_scaled_rows_plain_bitwise_pallas(rng, nrows, s, m, dtype):
 
 def test_cpu_tensors_take_plain_versions_without_counting(rng):
     before = (kernels_fut.rfut_rowwise.launches,
+              dict(kernels_fut.rfut_rowwise.launches_by_nb),
               kernels_fut.rfut_rowwise_sampled.launches,
               kernels_window.scatter_rows.launches,
               kernels_window.gather_scaled_rows.launches)
@@ -163,6 +207,7 @@ def test_cpu_tensors_take_plain_versions_without_counting(rng):
     kernels_window.scatter_rows(x.T.contiguous(), idx[:512 // 4].repeat(4), torch.ones(512), 3)
     kernels_window.gather_scaled_rows(x, idx[:4], 2.0)
     after = (kernels_fut.rfut_rowwise.launches,
+             kernels_fut.rfut_rowwise.launches_by_nb,
              kernels_fut.rfut_rowwise_sampled.launches,
              kernels_window.scatter_rows.launches,
              kernels_window.gather_scaled_rows.launches)
