@@ -59,7 +59,15 @@ paths:
   with its check at n = 2^20; the streaming randomized SVD of a rank-100
   2^21 x 1024 matrix in bf16 panels; the graph of the third path
   streamed in edge blocks of 2^22.  Each bitwise pin (fused, overlap,
-  resume, streamed graph) and each bound beside a control that misses.
+  resume, streamed graph) and each bound beside a control that misses;
+- the remaining sketches and the graph analytics (``sketches_path``):
+  FJLT with the DCT on the 2^20 x 512 LS problem (``gather_scaled_rows``
+  its epilogue, no WHT kernel) held against scipy's DCT, QJLT least
+  squares on the same A with its Omega held against exact digits, the
+  kernel machine on the "quasi" (QMC) feature maps at 131072 x 4096 ->
+  2048, approximate ASE of the third path's graph held by its
+  eigen-residuals, and local clustering around a planted cluster in a
+  graph of 10^6 vertices and 10^7 edges.
 
 It exits non-zero, printing no result, without a CUDA device or without
 the package beside it.  It imports nothing of JAX.
@@ -185,6 +193,35 @@ SSVD_M, SSVD_N, SSVD_R, SSVD_BR, SSVD_NOISE, SSVD_TOL = 1 << 21, 1024, 100, 262_
 SSVD_CTL_R = 50                    # the control: a rank-50 matrix's sigma
 # (f) the streamed graph: phase 3c's planted graph in edge blocks of 2^22.
 GRAPH_BATCH = 1 << 22
+# The remaining sketches and the graph analytics (phase 3h).  (a) FJLT with
+# the DCT on the LS phase's problem (SK_M x SK_N f32 to SK_S rows): sketch
+# columns held against scipy's DCT in f64, and the DCT at N = NB = 2^15,
+# where the WHT takes the fused kernels.
+SK_M, SK_N, SK_S = 1 << 20, 512, 2048
+DCT_CHECK_COLS, DCT_TOL, DCT_KERNEL_N = 8, 1e-5, 1 << 15
+# (b) QJLT: Omega entries held against exact digits, and panels of a
+# 2^16-column QJLT against its whole realization.
+QJLT_CHECK_ENTRIES, QJLT_PANEL_N = 4096, 1 << 16
+# (c) kernel approximation of the QMC maps on KA_ROWS rows: (map, S,
+# bound) at the JAX tests' bounds (tests/test_feature_maps.py:285-310, 456;
+# the Laplacian at phase 3d's LaplacianRFT bound).
+QMC_KA = (("GaussianQRFT", 4096, 0.05), ("LaplacianQRFT", 8192, 0.08),
+          ("ExpSemigroupQRLT", 4096, 0.1))
+# (d) ASE of phase 3c's graph.  Without power iterations its randomized
+# eigenvectors are noise: the 15 planted eigenvalues near 15 sit above a
+# bulk edge of 2 sqrt(17.35) ~ 8.3, a ratio of 1.8; a CPU rehearsal at
+# 250,000 vertices of the same degree read max ||A v - lam v|| / |lam| of
+# 61 at q = 0, 0.24 at q = 4 and 0.012 at q = 6.
+ASE_ITERS, ASE_RES_BOUND = 8, 0.05
+# Local clustering (the JAX locality test, tests/test_graph.py:127-160,
+# scaled up): a planted cluster of LC_NC vertices with LC_IN internal and
+# LC_OUT external edges per vertex, in a background of LC_EDGES random
+# edges on the other vertices, searched from one seed at the test's
+# epsilon, recursively (one diffusion from one seed stops at a prefix 2-20 %
+# above the planted conductance on such draws: the sweep keeps a few
+# background vertices; the recursion restarts from the found set).
+LC_N, LC_EDGES, LC_NC, LC_IN, LC_OUT, LC_EPS, LC_COND_TOL = (
+    1_000_000, 10_000_000, 1000, 30, 2, 1e-4, 0.1)
 
 
 def fail(msg: str) -> None:
@@ -1745,6 +1782,407 @@ def stream_path(sky, dev, reset_counts, read_counts, smi, graph) -> dict:
     return {"X": X, "S": chunk_sketches["CWT"], "err": chunk_err}
 
 
+def sketches_path(sky, dev, reset_counts, read_counts, smi, graph) -> None:
+    """Phase 3h: the remaining sketches and the graph analytics at full
+    width: (a) FJLT with the DCT on the LS phase's A and its solve, (b)
+    QJLT least squares on the same A, (c) the kernel machine on QMC
+    features at the predict phase's shape, (d) approximate ASE of phase
+    3c's graph and local clustering around a planted cluster.  The one
+    kernel on the path, ``gather_scaled_rows`` (the DCT FJLT's columnwise
+    epilogue), is held bitwise against its plain version at each of its
+    signatures, and ``rfut_rowwise*`` must not launch: the DCT takes no
+    WHT kernel.  Every launch of (a)-(d) counts for the ``sketches``
+    path; the WHT control that shows the kernels can launch runs after
+    the count is read."""
+    from fractions import Fraction
+
+    import scipy.fft
+    import scipy.special
+
+    from libskylark_tpu_torch.graph.graph import SimpleGraph
+    from libskylark_tpu_torch.sketch import kernels_fut as kf
+    from libskylark_tpu_torch.sketch import kernels_window as kw
+    from libskylark_tpu_torch.sketch.rft import _epilogue
+
+    ml, lin = sky.ml, sky.linalg
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    rng = np.random.default_rng(SEED + 11)
+    card = f"[{smi}]"
+    f32, f64 = torch.float32, torch.float64
+    held = set()
+
+    def gather_held(out, T, idx, scale):
+        ok = torch.equal(out, kw.gather_scaled_rows_plain(T, idx, scale))
+        ctl = kw.gather_scaled_rows_plain(T, (idx + 1) % T.shape[0], scale)
+        c = float((ctl - out).abs().max())
+        print(f"sketches gather_scaled_rows T {tuple(T.shape)} {T.dtype}, S = {idx.numel()}: "
+              f"bitwise its plain version {ok}; control (each row one index over) max abs diff "
+              f"{c:.3g}")
+        check(ok and c > 0, f"sketches gather_scaled_rows {tuple(T.shape)}: bitwise {ok}")
+
+    gather = hold(kw, "gather_scaled_rows", gather_held, held)
+    reset_counts()
+    t_path = time.perf_counter()
+
+    def ctx(i=0):
+        return sky.SketchContext(seed=SEED + i)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    def timed(label, fn, reps=3):
+        secs, runs = host_median(fn, reps)
+        print(f"sketches {label}: median {secs!r} s of {[round(x, 4) for x in runs]} {card}")
+        return fn()
+
+    def rel(a, b):
+        a, b = a.double(), b.double()
+        return float((a - b).abs().max() / b.abs().max())
+
+    # (a) FJLT(2^20, 2048, fut="dct") on the LS phase's shape, and its solve.
+    m, n, s = SK_M, SK_N, SK_S
+    A = randn(m, n)
+    b = A @ randn(n) + randn(m)
+    x_ls = torch.linalg.lstsq(A, b[:, None]).solution[:, 0]
+    res_ls = float(torch.linalg.vector_norm(A @ x_ls - b))
+    del x_ls
+
+    def ratio(x):
+        return float(torch.linalg.vector_norm(A @ x - b)) / res_ls
+
+    S = sky.sketch.FJLT(m, s, ctx(), fut="dct")
+    SA, Sb = timed(f"(a) FJLT(fut='dct') apply to A ({m}, {n}) and b, S = {s}",
+                   lambda: (S.apply(A), S.apply(b[:, None])))
+    x = timed("(a) the 2048 x 512 solve", lambda: lin.exact_least_squares(SA, Sb)[:, 0])
+    Sc = sky.sketch.FJLT(m, n, ctx(1), fut="dct")  # control: a square sketch
+    r, r_ctl = ratio(x), ratio(lin.exact_least_squares(Sc.apply(A), Sc.apply(b[:, None]))[:, 0])
+    print(f"sketches (a) DCT sketch-and-solve: residual / gels residual {r:.4f} (bound "
+          f"{LS_RATIO_BOUND}); control (S = n = {n}) {r_ctl:.4f}")
+    check(r <= LS_RATIO_BOUND and r_ctl > LS_RATIO_BOUND, f"(a) residual ratio {r}, control {r_ctl}")
+    # DCT_CHECK_COLS columns against scipy's DCT-II in f64 on the host, with
+    # the sketch's diagonal and samples; the WHT sketch of the same seed has
+    # the same diagonal and samples and must miss.
+    cols = np.sort(rng.choice(n, DCT_CHECK_COLS, replace=False))
+    A_cols = A[:, cols].double().cpu()
+    D = S._rfut.diagonal(f64, device="cpu")
+    idx = S.sample_indices("cpu").long()
+    want = scipy.fft.dct((D[:, None] * A_cols).numpy(), type=2, norm="ortho", axis=0)
+    want = torch.from_numpy(want)[idx] * math.sqrt(m / s)
+    err = rel(SA[:, cols].cpu(), want)
+    Sw = sky.sketch.FJLT(m, s, ctx(), fut="wht")
+    check(torch.equal(Sw._rfut.diagonal(f64, device="cpu"), D)
+          and torch.equal(Sw.sample_indices("cpu").long(), idx), "(a) the WHT control draws "
+          "another diagonal or other samples")
+    err_ctl = rel(Sw.apply(A_cols), want)  # CPU: the plain WHT route
+    print(f"sketches (a) {DCT_CHECK_COLS} sketch columns vs scipy.fft.dct(type=2, norm='ortho') "
+          f"in f64 rel {err:.3g} (tol {DCT_TOL}); control (the same columns of the WHT FJLT) "
+          f"{err_ctl:.3g}")
+    check(err <= DCT_TOL and err_ctl > DCT_TOL, f"(a) DCT columns rel {err}, control {err_ctl}")
+    # At NB = 2^15 the WHT FJLT takes the fused kernels; the DCT FJLT must not.
+    A15 = A[:DCT_KERNEL_N].clone()
+    S15 = sky.sketch.FJLT(DCT_KERNEL_N, s, ctx(2), fut="dct")
+    before = (kf.rfut_rowwise.launches, kf.rfut_rowwise_sampled.launches)
+    SA15 = S15.apply(A15)
+    after = (kf.rfut_rowwise.launches, kf.rfut_rowwise_sampled.launches)
+    r15 = rel(SA15[:, :64].cpu(), S15.apply(A15[:, :64].cpu()))
+    print(f"sketches (a) FJLT(fut='dct') at N = NB = {DCT_KERNEL_N}: rfut launches "
+          f"{after[0] - before[0]} + {after[1] - before[1]}; 64 columns vs the CPU route rel "
+          f"{r15:.3g} (tol {DCT_TOL})")
+    check(after == before and r15 <= DCT_TOL, f"(a) DCT at NB = 2^15: rfut launches "
+          f"{after}, {before}; rel {r15}")
+    del SA, Sb, Sc, A_cols, want, SA15
+    torch.cuda.empty_cache()
+
+    # (b) QJLT least squares on the same A.
+    qp = lin.LeastSquaresParams(sketch_type="QJLT", sketch_size=s)
+    xq = timed(f"(b) approximate_least_squares QJLT s = {s}",
+               lambda: lin.approximate_least_squares(A, b, ctx(), qp))
+    Qc = sky.sketch.QJLT(m, n, ctx())  # control: a square sketch
+    r, r_ctl = ratio(xq), ratio(lin.exact_least_squares(Qc.apply(A), Qc.apply(b[:, None]))[:, 0])
+    print(f"sketches (b) QJLT sketch-and-solve: residual / gels residual {r:.4f} (bound "
+          f"{LS_RATIO_BOUND}); control (s = n = {n}) {r_ctl:.4f}")
+    check(r <= LS_RATIO_BOUND and r_ctl > LS_RATIO_BOUND, f"(b) residual ratio {r}, control {r_ctl}")
+    Q = sky.sketch.QJLT(m, s, ctx())
+    primes = sky.core.primes(m)
+
+    def exact_entry(row, col):
+        """Omega[row, col] from Python integer digits: the radical inverse
+        as an exact fraction rounded once, scipy's ndtri in f64, the scale
+        in f64, one cast to f32."""
+        p, res = int(primes[col]), (Q.skip + row) * Q.leap + 1
+        u, w = Fraction(0), Fraction(1)
+        while res:
+            w /= p
+            u += w * (res % p)
+            res //= p
+        return np.float32(scipy.special.ndtri(float(u)) * Q.scale)
+
+    rows = rng.choice(s - 1, QJLT_CHECK_ENTRIES // 1024, replace=False)
+    worst, worst_ctl = 0.0, math.inf
+    for row in rows:
+        cs = rng.choice(m, 1024, replace=False)
+        line = Q.realize(f32, offset=(int(row), 0), shape=(2, m), device=dev)[:, cs].cpu().numpy()
+        ref = np.array([exact_entry(int(row), int(c)) for c in cs])
+        ulp = np.spacing(np.abs(ref))
+        worst = max(worst, float((np.abs(line[0] - ref) / ulp).max()))
+        worst_ctl = min(worst_ctl, float((np.abs(line[1] - ref) / ulp).max()))  # the next row
+    print(f"sketches (b) {QJLT_CHECK_ENTRIES} Omega entries vs exact digits + scipy ndtri in f64, "
+          f"cast once: worst {worst:.3g} ulp of f32 (bound 2); control (the next row's entries) "
+          f"{worst_ctl:.3g} ulp")
+    check(worst <= 2 and worst_ctl > 2, f"(b) Omega entries {worst} ulp, control {worst_ctl}")
+    Q16 = sky.sketch.QJLT(QJLT_PANEL_N, s, ctx())
+    whole = Q16.realize(f32, device=dev)
+    pw = QJLT_PANEL_N // 8
+    panels = torch.cat([Q16.realize(f32, offset=(0, c0), shape=(s, pw), device=dev)
+                        for c0 in range(0, QJLT_PANEL_N, pw)], 1)
+    other = sky.sketch.QJLT(QJLT_PANEL_N, s, ctx(), skip=Q16.skip + 1).realize(f32, device=dev)
+    same, ctl_same = torch.equal(panels, whole), torch.equal(other, whole)
+    print(f"sketches (b) QJLT({QJLT_PANEL_N}, {s}) realized in 8 panels bitwise the whole {same}; "
+          f"control (skip + 1) bitwise {ctl_same}")
+    check(same and not ctl_same, f"(b) QJLT panels bitwise {same}, control {ctl_same}")
+    del whole, panels, other
+    # Where the QJLT apply's time goes: realizing Omega's panels, and the
+    # panel GEMMs (the apply's own panel width).
+    pc = sky.sketch.dense.MAX_REALIZE_ELEMENTS // s
+    spans = [(c0, min(pc, m - c0)) for c0 in range(0, m, pc)]
+    t_real = time_ms(lambda: [Q.realize(f32, offset=(0, c0), shape=(s, w), device=dev)
+                              for c0, w in spans], reps=2, warmup=1)
+    W0 = Q.realize(f32, offset=(0, 0), shape=(s, pc), device=dev)
+    t_gemm = time_ms(lambda: [W0[:, :w] @ A[c0:c0 + w] for c0, w in spans], reps=3, warmup=1)
+    gemm_bound = 2.0 * m * n * s / F32_OPS_PER_S * 1e3
+    print(f"sketches (b) QJLT apply to A: realizing Omega ({s} x {m}, {len(spans)} panels) "
+          f"{t_real!r} ms, the panel GEMMs {t_gemm!r} ms (flop bound {gemm_bound!r} ms at 67 "
+          f"TFLOP/s f32) {card}")
+    del W0, b, x, xq
+    torch.cuda.empty_cache()
+
+    # (c) The kernel machine on QMC features, phase 3d's and 3f's shapes.
+    d = ML_DIM
+    X = randn(ML_ROWS, d)
+    X_abs = X.abs()
+    rows_cpu, abs_cpu = X[:ML_CHECK_ROWS].cpu(), X_abs[:ML_CHECK_ROWS].cpu()
+    kernels = {"GaussianQRFT": (ml.GaussianKernel(d, ML_SIGMA), ml.GaussianKernel(d, 2 * ML_SIGMA)),
+               "LaplacianQRFT": (ml.LaplacianKernel(d, ML_LAPLACE_SIGMA),
+                                 ml.LaplacianKernel(d, 2 * ML_LAPLACE_SIGMA)),
+               "ExpSemigroupQRLT": (ml.ExpSemigroupKernel(d, ML_BETA),
+                                    ml.ExpSemigroupKernel(d, 2 * ML_BETA))}
+    for name, (kernel, _) in kernels.items():
+        Xm, Xc = (X_abs, abs_cpu) if name == "ExpSemigroupQRLT" else (X, rows_cpu)
+        Sq = kernel.create_rft(ML_S, "quasi", ctx(3))
+        check(Sq.sketch_type == name, f"(c) the quasi tag gave {Sq.sketch_type}, not {name}")
+        W = randn(ML_S, ML_CLASSES) * 0.01
+        model = ml.FeatureMapModel([Sq], W, classes=list(range(ML_CLASSES)), device=dev)
+        O = timed(f"(c) predict {name} ({ML_ROWS}, {d}) -> {ML_S} features, 10 classes",
+                  lambda: model.predict(Xm))
+        check(tuple(O.shape) == (ML_ROWS, ML_CLASSES) and bool(torch.isfinite(O).all()),
+              f"(c) predict {name}: output not finite")
+        cpu_model = ml.FeatureMapModel.from_dict(model.to_dict(), W.cpu(), device="cpu")
+        if name == "LaplacianQRFT":
+            # Cauchy W: W within 8 ulp of the CPU route's, W.X per row, then
+            # the CPU epilogue of the card's W.X (as phase 3d holds the RFT).
+            Wc, sh = Sq.realize(f32, device=dev)
+            Wr, sh_r = cpu_model.maps[0].realize(f32, device="cpu")
+            ulps = float(((Wc.cpu() - Wr).abs() / torch.from_numpy(
+                np.spacing(np.abs(Wr.numpy())))).max())
+            WX = (Xm[:ML_CHECK_ROWS] @ Wc.T).cpu()
+            WX_ref = Xc @ Wr.T
+            r_wx = float(((WX - WX_ref).abs().amax(1) / WX_ref.abs().amax(1)).max())
+            check(ulps <= 8 and torch.equal(sh.cpu(), sh_r) and r_wx <= 1e-5,
+                  f"(c) {name}: W {ulps} ulp, W.X rows rel {r_wx}")
+            ref = _epilogue(WX, sh_r, None, Sq.outscale, False) @ W.cpu()
+            what = f"W within {ulps:g} ulp, W.X rows rel {r_wx:.3g}; outputs vs CPU epilogue"
+        else:
+            ref = cpu_model.predict(Xc)
+            what = "outputs vs the CPU route"
+        r = rel(O[:ML_CHECK_ROWS].cpu(), ref)
+        print(f"sketches (c) {name}: rows 0-{ML_CHECK_ROWS - 1}: {what} rel {r:.3g} (tol 1e-5)")
+        check(r <= 1e-5, f"(c) predict {name}: rel {r} vs the CPU route")
+        del model, O, cpu_model, ref
+    # Kernel approximation on KA_ROWS rows, at the JAX tests' bounds; the
+    # control is the same map of twice the bandwidth.
+    for name, sa, bound_ in QMC_KA:
+        kernel, wide = kernels[name]
+        Xk = (X_abs if name == "ExpSemigroupQRLT" else X)[:KA_ROWS]
+        K = kernel.gram(Xk.double())
+        errs_ = []
+        for k_ in (kernel, wide):
+            Z = k_.create_rft(sa, "quasi", ctx(4)).apply(Xk, "rowwise").double()
+            errs_.append(float((Z @ Z.T - K).abs().mean()))
+        print(f"sketches (c) kernel approximation {name} S = {sa} on ({KA_ROWS}, {d}): mean "
+              f"|ZZ^T - K| {errs_[0]:.4g} (bound {bound_}); control (twice the bandwidth) "
+              f"{errs_[1]:.4g}")
+        check(errs_[0] <= bound_ < errs_[1], f"(c) kernel approximation {name}: {errs_}")
+        del K, Z
+
+    # Approximate KRR on the Gaussian kernel's "quasi" features.
+    class QuasiGaussian(ml.GaussianKernel):
+        """The Gaussian kernel whose feature map is its "quasi" map."""
+
+        def create_rft(self, s_, tag, context):
+            return super().create_rft(s_, "quasi", context)
+
+    y = (X @ randn(d, ML_CLASSES)).argmax(1).cpu().numpy()
+    T32 = ml.dummy_coding(y, device=dev)[0]
+    kq = QuasiGaussian(d, ML_SIGMA)
+    mq = timed(f"(c) approximate_kernel_ridge on GaussianQRFT features s = {ML_S}, lam = {KRR_LAM}",
+               lambda: ml.approximate_kernel_ridge(kq, X, T32, KRR_LAM, ML_S, ctx(5)))
+    check(type(mq.maps[0]).__name__ == "GaussianQRFT", "(c) KRR did not train on GaussianQRFT")
+    Z = mq.maps[0].apply(X, "rowwise").double()
+
+    def solve64(lam):
+        G = Z.T @ Z
+        G.diagonal().add_(lam)
+        return torch.cholesky_solve(Z.T @ T32.double(), torch.linalg.cholesky(G))
+
+    W64 = solve64(KRR_LAM)
+    err, ctl = rel(mq.W, W64), rel(solve64(2 * KRR_LAM), W64)
+    print(f"sketches (c) KRR on quasi features: ||W - W_f64|| / ||W_f64|| {err:.3g} (bound "
+          f"{TRAIN_W_TOL}); control (the f64 solve at 2 lam) {ctl:.3g}")
+    check(err <= TRAIN_W_TOL < ctl, f"(c) KRR W rel {err}, control {ctl}")
+    del X, X_abs, Z, T32, mq, W64
+    torch.cuda.empty_cache()
+
+    # (d) Approximate ASE of phase 3c's graph, and local clustering.
+    lo, hi = graph[0], graph[1]
+    n_v = LJ_VERTICES
+
+    def csr_graph(nv, a, c):
+        """A SimpleGraph of nv vertices and the deduplicated undirected
+        edges (a, c), its CSR built by one sort (the constructor's Python
+        edge list would take minutes at this size)."""
+        key = np.concatenate([a * nv + c, c * nv + a])
+        key.sort()
+        G = object.__new__(SimpleGraph)
+        G.n, G.vertices, G.index = nv, range(nv), None
+        G.indices = key % nv
+        G.indptr = np.concatenate([[0], np.cumsum(np.bincount(key // nv, minlength=nv))])
+        # What the constructor guarantees: rows sorted and deduplicated
+        # (strictly increasing keys), no self-loops, each vertex's degree
+        # the same counted as a row and as a column.
+        rows = key // nv
+        check(bool((np.diff(key) > 0).all()) and bool((rows != G.indices).all())
+              and np.array_equal(np.diff(G.indptr), np.bincount(G.indices, minlength=nv)),
+              "(d) csr_graph: rows unsorted, duplicated, self-looped or asymmetric")
+        return G
+
+    t0 = time.perf_counter()
+    G = csr_graph(n_v, lo, hi)
+    t_csr = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Xe, lam = sky.graph.approximate_ase(
+        G, ASE_K, ctx(), sky.graph.ASEParams(sparse=True, num_iterations=ASE_ITERS), device=dev)
+    torch.cuda.synchronize()
+    t_ase = time.perf_counter() - t0
+    check(tuple(Xe.shape) == (n_v, ASE_K) and bool(torch.isfinite(Xe).all()),
+          "(d) ASE embedding not finite of shape (n, k)")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    A_g = G.adjacency_coo(device=dev, dtype=f32)
+    torch.cuda.synchronize()
+    t_coo = time.perf_counter() - t0
+    V = Xe / lam.abs().sqrt()[None, :]
+    t_spmm = time_ms(lambda: torch.sparse.mm(A_g, torch.cat([V, V], 1)), reps=5)
+
+    def residuals(B):
+        R = torch.sparse.mm(A_g, B) - B * lam[None, :]
+        return R.norm(dim=0) / lam.abs()
+
+    res = residuals(V)
+    Qr, _ = torch.linalg.qr(torch.randn(n_v, ASE_K, generator=g, device=dev))
+    res_ctl = residuals(Qr)
+    print(f"sketches (d) approximate_ase k = {ASE_K}, sparse, q = {ASE_ITERS}, on {n_v} vertices, "
+          f"{lo.size} edges: {t_ase!r} s of host clock (CSR by one sort {t_csr:.2f} s) {card}; "
+          f"lam {float(lam.abs().max()):.4f} .. {float(lam.abs().min()):.4f}; max ||A v - lam "
+          f"v|| / |lam| {float(res.max()):.3g} (bound {ASE_RES_BOUND}); control (a random "
+          f"orthonormal basis, the same lam) min {float(res_ctl.min()):.3g}; of its seconds, "
+          f"building the COO on the card {t_coo:.3f} s, one COO product by {2 * ASE_K} "
+          f"columns {t_spmm!r} ms of device time")
+    check(float(res.max()) <= ASE_RES_BOUND < float(res_ctl.min()),
+          f"(d) ASE residuals {res.tolist()}, control {res_ctl.tolist()}")
+    del G, A_g, Xe, V, Qr
+    torch.cuda.empty_cache()
+    # A planted cluster [0, LC_NC) (LC_IN internal and LC_OUT external
+    # edges per vertex) in a background on the other vertices, from a
+    # generator of its own.
+    t0 = time.perf_counter()
+    rng_c = np.random.default_rng(SEED + 12)
+    bu, bv = rng_c.integers(LC_NC, LC_N, LC_EDGES), rng_c.integers(LC_NC, LC_N, LC_EDGES)
+    cu = np.repeat(np.arange(LC_NC), LC_IN // 2)
+    ou = np.repeat(np.arange(LC_NC), LC_OUT)
+    u = np.concatenate([bu, cu, ou])
+    v = np.concatenate([bv, rng_c.integers(0, LC_NC, cu.size),
+                        rng_c.integers(LC_NC, LC_N, ou.size)])
+    a, c = np.minimum(u, v), np.maximum(u, v)
+    code = (a * LC_N + c)[a != c]
+    code.sort()  # dedupe by a sort and a neighbour compare, as phase 3c does
+    code = code[np.concatenate(([True], code[1:] != code[:-1]))]
+    Gl = csr_graph(LC_N, code // LC_N, code % LC_N)
+    del bu, bv, u, v, a, c, code
+    t_made = time.perf_counter() - t0
+    deg = Gl.degrees
+
+    def conductance(vs):
+        inside = np.zeros(LC_N, bool)
+        inside[vs] = True
+        vol = int(deg[vs].sum())
+        nbrs = np.concatenate([Gl.indices[Gl.indptr[w]:Gl.indptr[w + 1]] for w in vs])
+        return int((~inside[nbrs]).sum()) / min(vol, Gl.volume - vol), vol
+
+    planted, vol = conductance(np.arange(LC_NC))
+    t0 = time.perf_counter()
+    cluster, cond = sky.graph.find_local_cluster(Gl, [0], epsilon=LC_EPS, recursive=True)
+    t_lc = time.perf_counter() - t0
+    # An observation beside the check: one diffusion from the seed, not
+    # recursive, at the same epsilon.
+    _, cond_one = sky.graph.find_local_cluster(Gl, [0], epsilon=LC_EPS)
+    overlap = len(cluster & set(range(LC_NC))) / len(cluster | set(range(LC_NC)))
+    perm = rng.permutation(LC_N)
+    random_set = perm[:int(np.searchsorted(np.cumsum(deg[perm]), vol)) + 1]
+    ctl, _ = conductance(random_set)
+    print(f"sketches (d) find_local_cluster from vertex 0, epsilon {LC_EPS}, recursive: "
+          f"{len(cluster)} "
+          f"vertices, conductance {cond:.4f} against the planted {LC_NC} vertices' {planted:.4f} "
+          f"(within {LC_COND_TOL:.0%}), Jaccard overlap {overlap:.4f}; {t_lc!r} s of host clock "
+          f"on {LC_N} vertices, {Gl.volume // 2} edges (made in {t_made:.1f} s); control (a "
+          f"random set of the same volume, {random_set.size} vertices) {ctl:.4f}; not recursive "
+          f"(observed, not checked): conductance {cond_one:.4f}, "
+          f"{abs(cond_one - planted) / planted:.1%} from the planted")
+    check(abs(cond - planted) <= LC_COND_TOL * planted < abs(ctl - planted),
+          f"(d) local cluster conductance {cond}, planted {planted}, control {ctl}")
+    del Gl, deg, perm, random_set
+
+    setattr(kw, "gather_scaled_rows", gather)
+    counts = read_counts("sketches", t_path, ("gather_scaled_rows",))
+    check(counts["rfut_rowwise"] == counts["rfut_rowwise_sampled"] == 0,
+          f"sketches: the WHT kernels launched {counts}")
+    check({name for name, count in counts.items() if count} <= {sig[0] for sig in held},
+          f"sketches: kernels launched {counts}, held {held}")
+    # The control of the zero rfut counts: the WHT FJLT at NB = 2^15 launches them.
+    before = kf.rfut_rowwise_sampled.launches
+    sky.sketch.FJLT(DCT_KERNEL_N, s, ctx(2)).apply(A15)
+    wht_launches = kf.rfut_rowwise_sampled.launches - before
+    print(f"sketches: control, FJLT(fut='wht') at NB = {DCT_KERNEL_N}: rfut_rowwise_sampled "
+          f"launches {wht_launches}")
+    check(wht_launches > 0, "sketches: the WHT control launched no rfut kernel")
+    del A15
+    # Where the DCT apply's time goes (CUDA events, median of 5), after the
+    # count: the whole columnwise apply of A, the diagonal multiply, the DCT
+    # and its FFT alone.
+    D_card = S._rfut.diagonal(f32, dev)
+    t_apply = time_ms(lambda: S.apply(A), reps=5)
+    t_diag = time_ms(lambda: A * D_card[:, None], reps=5)
+    XD = A * D_card[:, None]
+    t_dct = time_ms(lambda: sky.sketch.dct(XD), reps=5)
+    t_fft = time_ms(lambda: torch.fft.fft(XD, dim=0), reps=5)
+    print(f"sketches (a) FJLT(fut='dct') apply to A ({m}, {n}) f32: {t_apply!r} ms of device "
+          f"time = diagonal {t_diag!r} ms + DCT {t_dct!r} ms (its FFT alone {t_fft!r} ms) + the "
+          f"gather; bytes bound of one read and one write of A {8 * m * n / MEM_BYTES_PER_S * 1e3!r}"
+          f" ms {card}")
+    del A, XD, D_card
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
@@ -2252,6 +2690,9 @@ def main() -> None:
 
     # -- 3g. out-of-core streaming, at full width -------------------------
     chunk = stream_path(sky, dev, reset_counts, read_counts, smi, graph)
+
+    # -- 3h. the remaining sketches and the graph analytics ----------------
+    sketches_path(sky, dev, reset_counts, read_counts, smi, graph)
     del graph
 
     # -- 4. times at main-path shapes ------------------------------------

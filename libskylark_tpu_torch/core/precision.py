@@ -12,7 +12,21 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["bf16_split3", "f32_accumulable"]
+__all__ = ["bf16_split3", "f32_accumulable", "fp8_dtype", "fp8_available"]
+
+
+def fp8_dtype():
+    """The fp8 sketch-apply element type, e4m3 (4 exponent, 3 mantissa
+    bits: the accuracy-side fp8, against e5m2's range-side), or None on
+    a torch build without it.  No caller uses it yet: the fp8 rung of
+    the precision ladder belongs to the policy layer."""
+    return getattr(torch, "float8_e4m3fn", None)
+
+
+def fp8_available() -> bool:
+    """True when this torch build can represent e4m3 at all (whether the
+    device multiplies it profitably is the policy layer's call)."""
+    return fp8_dtype() is not None
 
 
 def f32_accumulable(dtype, *, demote_f64: bool = False) -> bool:

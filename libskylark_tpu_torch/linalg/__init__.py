@@ -1,6 +1,7 @@
 """Randomized NLA of the port (port of ``libskylark_tpu/linalg``):
 exact, sketch-and-solve, Blendenpik and LSRN least squares, the
-randomized SVD and condition estimation, in core and streamed."""
+randomized SVD and condition estimation, in core and streamed, and the
+Chebyshev collocation utilities (``spectral``)."""
 
 from ..solvers.accelerated import (
     FasterLeastSquaresParams,
@@ -14,6 +15,7 @@ from .least_squares import (
     exact_least_squares,
     streaming_least_squares,
 )
+from .spectral import chebyshev_diff_matrix, chebyshev_points
 from .svd import (
     SVDParams,
     approximate_svd,
@@ -44,4 +46,6 @@ __all__ = [
     "cond_est",
     "CondEstParams",
     "CondEstResult",
+    "chebyshev_points",
+    "chebyshev_diff_matrix",
 ]

@@ -2,8 +2,9 @@
 
 ``Kernel.gram(X, Y)`` computes the kernel matrix and
 ``create_rft(s, tag, context)`` builds the matching random feature map
-(tags "regular", "fast", "sparse" where the kernel has them; "quasi"
-waits for ``core/quasirand.py``, ROADMAP Queue A).  Examples are rows:
+(tags "regular", "fast", "sparse" and "quasi" where the kernel has
+them; "quasi" gives the quasi-Monte-Carlo maps of ``sketch/rft.py`` and
+``sketch/rlt.py``).  Examples are rows:
 X is (n, d), and ``gram(X, Y)[i, j] = k(X[i], Y[j])``.
 
 Squared distances use the ‖x‖² + ‖y‖² − 2·X·Yᵀ expansion, clamped at
@@ -32,14 +33,16 @@ from ..sketch import (
     FJLT,
     JLT,
     PPT,
+    ExpSemigroupQRLT,
     ExpSemigroupRLT,
     FastGaussianRFT,
     FastMaternRFT,
+    GaussianQRFT,
     GaussianRFT,
+    LaplacianQRFT,
     LaplacianRFT,
     MaternRFT,
 )
-from ..utils.exceptions import UnsupportedError
 
 __all__ = [
     "Kernel",
@@ -113,13 +116,6 @@ def _semigroup_dist(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
         X, Y)
 
 
-def _quasi_unported(kernel: str):
-    return UnsupportedError(
-        f"the {kernel} kernel's 'quasi' feature transform needs the "
-        "quasi-Monte-Carlo sequences of core/quasirand.py, which the port does "
-        "not have yet (ROADMAP Queue A item 6)")
-
-
 class Kernel(abc.ABC):
     """A positive-definite kernel on R^n."""
 
@@ -190,7 +186,7 @@ class GaussianKernel(Kernel):
         if tag == "fast":
             return FastGaussianRFT(self.n, s, context, sigma=self.sigma)
         if tag == "quasi":
-            raise _quasi_unported("gaussian")
+            return GaussianQRFT(self.n, s, context, sigma=self.sigma)
         raise ValueError(f"gaussian kernel has no {tag!r} feature transform")
 
     def _param_dict(self):
@@ -239,7 +235,7 @@ class LaplacianKernel(Kernel):
         if tag == "regular":
             return LaplacianRFT(self.n, s, context, sigma=self.sigma)
         if tag == "quasi":
-            raise _quasi_unported("laplacian")
+            return LaplacianQRFT(self.n, s, context, sigma=self.sigma)
         raise ValueError(f"laplacian kernel has no {tag!r} feature transform")
 
     def _param_dict(self):
@@ -263,7 +259,7 @@ class ExpSemigroupKernel(Kernel):
         if tag == "regular":
             return ExpSemigroupRLT(self.n, s, context, beta=self.beta)
         if tag == "quasi":
-            raise _quasi_unported("expsemigroup")
+            return ExpSemigroupQRLT(self.n, s, context, beta=self.beta)
         raise ValueError(f"expsemigroup kernel has no {tag!r} feature transform")
 
     def _param_dict(self):

@@ -16,11 +16,12 @@ from .base import (
 from .dense import CT, JLT, DenseSketch
 from .fjlt import FJLT
 from .frft import FastGaussianRFT, FastMaternRFT, FastRFT
-from .fut import RFUT, next_pow2, wht
+from .fut import RFUT, dct, next_pow2, wht
 from .hash import CWT, MMT, SJLT, WZT, HashSketch
 from .ppt import PPT
-from .rft import RFT, GaussianRFT, LaplacianRFT, MaternRFT
-from .rlt import ExpSemigroupRLT
+from .quasi import QJLT
+from .rft import RFT, GaussianQRFT, GaussianRFT, LaplacianQRFT, LaplacianRFT, MaternRFT
+from .rlt import ExpSemigroupQRLT, ExpSemigroupRLT
 from .sampling import NURST, UST
 
 COLUMNWISE = Dimension.COLUMNWISE
@@ -46,6 +47,7 @@ __all__ = [
     "sketch_registry",
     "DenseSketch",
     "JLT",
+    "QJLT",
     "CT",
     "FJLT",
     "RFUT",
@@ -60,12 +62,16 @@ __all__ = [
     "GaussianRFT",
     "LaplacianRFT",
     "MaternRFT",
+    "GaussianQRFT",
+    "LaplacianQRFT",
     "FastRFT",
     "FastGaussianRFT",
     "FastMaternRFT",
     "ExpSemigroupRLT",
+    "ExpSemigroupQRLT",
     "PPT",
     "wht",
+    "dct",
     "next_pow2",
     "kernels_fut",
     "kernels_scatter",

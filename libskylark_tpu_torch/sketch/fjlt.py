@@ -1,16 +1,20 @@
 """Fast Johnson-Lindenstrauss transform (port of
-``libskylark_tpu/sketch/fjlt.py``): D (Rademacher diagonal) → WHT →
-uniform sample of S coordinates with rescale √(NB/S).  Counter layout
-as the reference's: N for the RFUT diagonal, then S sample indices.
+``libskylark_tpu/sketch/fjlt.py``): D (Rademacher diagonal) → fast
+unitary transform (WHT, or the DCT with ``fut="dct"``) → uniform sample
+of S coordinates with rescale √(NB/S).  Counter layout as the
+reference's: N for the RFUT diagonal, then S sample indices.
 
 Routing for dense f32/bf16 input, the same on the card (kernels) and
 on the CPU (their plain versions):
 
-- NB ≤ 2^15: the fused kernels, columnwise by transposing in and out.
-  The sampled kernel when its gate holds (S ≥ 128, S % 128 == 0), else
-  ``rfut_rowwise`` plus a lane gather of the S samples.
-- NB > 2^15: the Kronecker ``wht`` (plain torch), then the
-  ``gather_scaled_rows`` kernel for a columnwise 2-D apply.
+- WHT, NB ≤ 2^15: the fused kernels, columnwise by transposing in and
+  out.  The sampled kernel when its gate holds (S ≥ 128, S % 128 ==
+  0), else ``rfut_rowwise`` plus a lane gather of the S samples.
+- WHT at NB > 2^15, and the DCT at any N (NB = N): the transform in
+  plain torch (the Kronecker ``wht``, or ``dct`` over ``torch.fft``),
+  then the ``gather_scaled_rows`` kernel for a columnwise 2-D apply.
+  The fused kernels compute a WHT, so the DCT never takes them, as in
+  the JAX package.
 
 The JAX package's subsampled-Hadamard GEMM route and its ``_GEMM_FPB``
 gate were priced for TPU MXU rates; they are not ported (ROADMAP Queue
@@ -59,7 +63,7 @@ class FJLT(SketchTransform):
         dim = Dimension.of(dim)
         A = as_tensor(A, device)
         rowwise = dim is Dimension.ROWWISE
-        if A.ndim == 2 and A.dtype in _KERNEL_DTYPES:
+        if self._fut_name == "wht" and A.ndim == 2 and A.dtype in _KERNEL_DTYPES:
             sk_axis, batch_axis = (1, 0) if rowwise else (0, 1)
             if A.shape[sk_axis] == self.n and kernels_fut.supported(
                 A.shape[batch_axis], self.n, self._nb

@@ -1,12 +1,16 @@
-"""Walsh-Hadamard transform and the RFUT sketch (port of
-``libskylark_tpu/sketch/fut.py``; the DCT backend waits for a later
-slice).
+"""Fast unitary transforms, Walsh-Hadamard and DCT, and the RFUT sketch
+(port of ``libskylark_tpu/sketch/fut.py``).
 
 ``wht`` is the JAX package's XLA path, not a Pallas kernel: the
 Kronecker factorization ``H_{2^k} = H_a ⊗ H_b ⊗ ...`` with dense ±1
 factors of size ≤ 256 turns the transform into a few full-f32 matmuls
 (TF32 is off, ``_device.py``).  It serves NB > 2^15, where the fused
 kernel's padded row no longer fits one block's shared memory.
+
+``dct`` is the orthonormal DCT-II, which the JAX package computes with
+XLA's FFT outside any Pallas kernel.  torch has no DCT, so it is one
+length-N complex FFT of the even/odd reordering (Makhoul, IEEE TASSP
+28(1), 1980), a twiddle and the ortho scale, for any N along any axis.
 """
 
 from __future__ import annotations
@@ -19,10 +23,9 @@ import torch
 from .._device import as_tensor
 from ..core.context import SketchContext
 from ..core.random import sample
-from ..utils.exceptions import UnsupportedError
 from .base import Dimension, SketchTransform
 
-__all__ = ["wht", "next_pow2", "RFUT"]
+__all__ = ["wht", "dct", "next_pow2", "RFUT"]
 
 _MAX_FACTOR_LOG2 = 8  # dense Hadamard factors up to 256x256
 
@@ -78,22 +81,55 @@ def wht(x: torch.Tensor, axis: int = 0) -> torch.Tensor:
     return x * torch.tensor(1.0 / np.sqrt(n), dtype=x.dtype, device=x.device)
 
 
+def dct(x: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """Orthonormal DCT-II along ``axis`` (``scipy.fft.dct(type=2,
+    norm="ortho")``): y_k = s_k·Re(V_k·e^{-iπk/(2N)}) with V the FFT of
+    v = (x_0, x_2, x_4, ..., x_5, x_3, x_1).  f64 stays f64; every other
+    input (bf16, f16, integers: torch's FFT takes no bf16) is computed and
+    returned in f32, the dtype the JAX package returns for it."""
+    axis = axis % x.ndim
+    if x.dtype != torch.float64:
+        x = x.to(torch.float32)
+    n = x.shape[axis]
+    # The even entries in order, then the odd ones reversed.
+    order = torch.cat([torch.arange(0, n, 2, device=x.device),
+                       torch.arange(1, n, 2, device=x.device).flip(0)])
+    V = torch.fft.fft(x.index_select(axis, order), dim=axis)
+    # f64 twiddle e^{-iπk/(2N)} times the ortho scale (√(1/N) at k = 0,
+    # √(2/N) after), cast once.
+    theta = torch.arange(n, dtype=torch.float64, device=x.device) * np.pi / (2.0 * n)
+    scale = torch.full((n,), np.sqrt(2.0 / n), dtype=torch.float64, device=x.device)
+    scale[0] = np.sqrt(1.0 / n)
+    shape = [1] * x.ndim
+    shape[axis] = n
+    c = (torch.cos(theta) * scale).to(x.dtype).reshape(shape)
+    s = (torch.sin(theta) * scale).to(x.dtype).reshape(shape)
+    return V.real * c + V.imag * s
+
+
+_FUTS = {"wht": wht, "dct": dct}
+
+
+def get_fut(name: str):
+    """The transform of a FUT name ("wht" or "dct")."""
+    if name not in _FUTS:
+        raise ValueError(f"unknown FUT {name!r}; known: {sorted(_FUTS)}")
+    return _FUTS[name]
+
+
 class RFUT(SketchTransform):
     """Randomized fast unitary transform X → F·(D ⊙ X), D a Rademacher
-    diagonal; non-power-of-2 N is zero-padded to NB = next_pow2(N).
-    A building block of FJLT, not in the string-typed registry."""
+    diagonal.  The WHT zero-pads non-power-of-2 N to NB = next_pow2(N);
+    the DCT keeps S = N.  A building block of FJLT, not in the
+    string-typed registry."""
 
     sketch_type = "RFUT"
     diag_dist = "rademacher"
 
     def __init__(self, n: int, context: SketchContext, fut: str = "wht"):
-        if fut != "wht":
-            raise UnsupportedError(
-                f"FUT {fut!r} is not ported yet; only 'wht' is "
-                "(ROADMAP Queue A, remaining sketches: the DCT)"
-            )
+        self._fut = get_fut(fut)
         self._fut_name = fut
-        self._nb = next_pow2(n)
+        self._nb = next_pow2(n) if fut == "wht" else n
         super().__init__(n, self._nb, context)
         self._seed = context.seed
         self._d_base = context.reserve(n)
@@ -124,7 +160,7 @@ class RFUT(SketchTransform):
             pad_shape = list(X.shape)
             pad_shape[axis] = self._nb - self.n
             X = torch.cat([X, X.new_zeros(pad_shape)], dim=axis)
-        out = wht(X, axis=axis)
+        out = self._fut(X, axis=axis)
         if squeeze:
             out = out[:, 0] if dim is Dimension.COLUMNWISE else out[0]
         return out

@@ -9,6 +9,7 @@ elementwise epilogue (:func:`_epilogue`) that every apply calls.
 - LaplacianRFT(sigma):  W ~ Cauchy, inscale 1/σ, outscale √(2/S)
 - MaternRFT(nu, l):     W ~ N with the per-row multivariate-t correction
   ``sqrt(2ν/χ²_{2ν})``, inscale 1/l
+- GaussianQRFT / LaplacianQRFT(sigma, skip): quasi-Monte-Carlo rows
 
 Counter budget as the reference's: N·S for W, then S shifts, then S
 scales for Matérn.  Shifts and scales are memoized per dtype and device;
@@ -18,8 +19,15 @@ epilogue's ``WX·scales + shifts`` into an FMA; here they are two rounded
 operations, so Matérn features may differ from the JAX ones by one ulp
 of the cosine's argument.  Streaming slices delegate the linear half
 W·A to the dense engine; :meth:`RFT.finalize_slices` applies the
-epilogue once to the merged sum.  The quasi-Monte-Carlo QRFTs wait for
-``core/quasirand.py`` (ROADMAP Queue A).
+epilogue once to the merged sum.
+
+The QRFTs (Yang et al, ICML'14) take W and the shifts from a leaped
+Halton sequence of dimension N + 1 (``core.quasirand``): W[j, c] =
+invCDF(u(skip + j, c))·inscale, shift_j = 2π·u(skip + j, N).  They
+consume no counters.  As in the JAX package, U is cast to the input's
+dtype before the inverse CDF, so an f32 apply evaluates ndtri and tan in
+f32; torch's f32 ndtri and tan are not XLA's and differ from them in the
+last ulps, which the Cauchy tail magnifies.
 """
 
 from __future__ import annotations
@@ -28,13 +36,15 @@ import math
 
 import torch
 
-from .._device import resolve_device
+from .._device import as_tensor, resolve_device
 from ..core.context import SketchContext
+from ..core.quasirand import LeapedHaltonSequence
 from ..core.random import _const, chi2_lanes, sample
 from .base import Dimension, SketchTransform, register_sketch
 from .dense import DenseSketch
 
-__all__ = ["RFT", "GaussianRFT", "LaplacianRFT", "MaternRFT"]
+__all__ = ["RFT", "GaussianRFT", "LaplacianRFT", "MaternRFT", "QRFT", "GaussianQRFT",
+           "LaplacianQRFT"]
 
 _TWO_PI = 2.0 * math.pi
 
@@ -213,3 +223,83 @@ class MaternRFT(RFT):
     @classmethod
     def _from_param_dict(cls, d, context):
         return cls(d["N"], d["S"], context, nu=d["nu"], l=d["l"])
+
+
+def _inverse_cdf(dist: str, u: torch.Tensor) -> torch.Tensor:
+    """The inverse CDF of ``dist`` ("normal" or "cauchy") at ``u``, in
+    ``u``'s dtype."""
+    if dist == "normal":
+        return torch.special.ndtri(u)
+    if dist == "cauchy":
+        return torch.tan(_const(math.pi, u.dtype, u.device) * (u - _const(0.5, u.dtype, u.device)))
+    raise ValueError(f"no inverse CDF for {dist}")
+
+
+class QRFT(SketchTransform):
+    """Quasi-Monte-Carlo random features: ``Z = outscale · cos(W·X +
+    shifts)`` with W and the shifts from the Halton sequence (≙
+    ``QRFT_data_t``; sequence dimension N + 1)."""
+
+    w_dist = "normal"
+
+    def __init__(self, n: int, s: int, context: SketchContext, inscale: float,
+                 outscale: float, skip: int = 0):
+        super().__init__(n, s, context)
+        self.inscale = float(inscale)
+        self.outscale = float(outscale)
+        self.skip = int(skip)
+        self._sequence = LeapedHaltonSequence(n + 1)
+
+    def realize(self, dtype=torch.float32, device=None):
+        """(W, shifts): W is (S, N), both in ``dtype``."""
+        U = self._sequence.window(self.skip, self.s, dtype=dtype, device=device)  # (S, N+1)
+        W = _inverse_cdf(self.w_dist, U[:, :self.n]) * _const(self.inscale, dtype, U.device)
+        return W, _const(_TWO_PI, dtype, U.device) * U[:, self.n]
+
+    def apply(self, A, dim: Dimension | str = Dimension.COLUMNWISE, *, device=None):
+        dim = Dimension.of(dim)
+        A = as_tensor(A, device)
+        if not A.is_floating_point():
+            A = A.to(torch.float32)
+        columnwise = dim is Dimension.COLUMNWISE
+        if (A.shape[0] if columnwise else A.shape[-1]) != self.n:
+            raise ValueError(f"{dim.value} apply needs {self.n} on the sketched axis, "
+                             f"got {tuple(A.shape)}")
+        W, shifts = self.realize(A.dtype, A.device)
+        WX = torch.matmul(W, A) if columnwise else torch.matmul(A, W.T)
+        return _epilogue(WX, shifts, None, self.outscale, columnwise)
+
+    def _param_dict(self):
+        return {"skip": self.skip}
+
+
+class _SigmaQRFT(QRFT):
+    """A QRFT of bandwidth sigma: inscale 1/σ, outscale √(2/S)."""
+
+    def __init__(self, n: int, s: int, context: SketchContext, sigma: float = 1.0,
+                 skip: int = 0):
+        self.sigma = float(sigma)
+        super().__init__(n, s, context, 1.0 / sigma, math.sqrt(2.0 / s), skip)
+
+    def _param_dict(self):
+        return {"sigma": self.sigma, "skip": self.skip}
+
+    @classmethod
+    def _from_param_dict(cls, d, context):
+        return cls(d["N"], d["S"], context, sigma=d["sigma"], skip=d.get("skip", 0))
+
+
+@register_sketch
+class GaussianQRFT(_SigmaQRFT):
+    """QMC features of the Gaussian kernel: normal inverse CDF."""
+
+    sketch_type = "GaussianQRFT"
+    w_dist = "normal"
+
+
+@register_sketch
+class LaplacianQRFT(_SigmaQRFT):
+    """QMC features of the Laplacian kernel: Cauchy inverse CDF."""
+
+    sketch_type = "LaplacianQRFT"
+    w_dist = "cauchy"

@@ -34,7 +34,8 @@ def test_port_files_found():
             "ladder.py", "svd.py", "accelerated.py", "regression.py", "timer.py",
             "prox.py", "sampling.py", "krr.py", "rlsc.py", "admm.py", "nonlinear.py",
             "checkpoint.py", "faults.py", "runner.py", "pipeline.py", "overlap.py",
-            "engine.py", "drivers.py"} <= names
+            "engine.py", "drivers.py", "quasirand.py", "quasi.py", "spectral.py", "deps.py",
+            "community.py", "ase.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

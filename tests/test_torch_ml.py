@@ -19,7 +19,6 @@ import libskylark_tpu as J
 import libskylark_tpu_torch as T
 from libskylark_tpu.ml import kernels as jkernels
 from libskylark_tpu_torch.ml import kernels as tkernels
-from libskylark_tpu_torch.utils.exceptions import UnsupportedError
 
 RTOL = {np.float32: 1e-5, np.float64: 1e-10}
 DTYPES = [np.float32, np.float64]
@@ -98,13 +97,21 @@ def test_create_rft_same_sketch(name, params, tag):
     assert St.to_dict() == Sj.to_dict()
 
 
-@pytest.mark.parametrize("name,params", [
-    ("gaussian", {"sigma": 1.0}), ("laplacian", {"sigma": 1.0}),
-    ("expsemigroup", {"beta": 1.0}),
+@pytest.mark.parametrize("name,params,stype", [
+    ("gaussian", {"sigma": 1.0}, "GaussianQRFT"), ("laplacian", {"sigma": 1.0}, "LaplacianQRFT"),
+    ("expsemigroup", {"beta": 1.0}, "ExpSemigroupQRLT"),
 ])
-def test_quasi_tag_unsupported(name, params):
-    with pytest.raises(UnsupportedError, match="Queue A item 6"):
-        tkernels.kernel_by_name(name, 8, **params).create_rft(16, "quasi", T.SketchContext(seed=1))
+def test_quasi_tag_matches_jax(rng, name, params, stype):
+    """The "quasi" tag builds the JAX package's QMC map: same type, same
+    JSON, features within 1e-10 in f64 (absolute: the Laplacian's Cauchy
+    rows make cosine arguments of ~10^3, where an f64 ulp is ~1e-13)."""
+    Sj = jkernels.kernel_by_name(name, 8, **params).create_rft(16, "quasi", J.SketchContext(seed=1))
+    St = tkernels.kernel_by_name(name, 8, **params).create_rft(16, "quasi", T.SketchContext(seed=1))
+    assert St.sketch_type == Sj.sketch_type == stype
+    assert St.to_dict() == Sj.to_dict()
+    X = np.abs(rng.standard_normal((5, 8)))
+    out = St.apply(torch.from_numpy(X), "rowwise").numpy()
+    assert np.abs(out - np.asarray(Sj.apply(jnp.asarray(X), "rowwise"))).max() <= 1e-10
 
 
 @pytest.mark.parametrize("name,params,tag", [

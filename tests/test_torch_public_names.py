@@ -8,7 +8,12 @@ A dict serialized by the JAX package goes through the port's
 the same JSON, the same output bitwise, hash buckets bitwise the JAX
 package's, and values within the JAX package's 1e-5 relative of its own
 apply (sums in another order; ``SKYLARK_NO_SRHT_GEMM=1`` puts the JAX
-FJLT on the port's route, as ``test_torch_sketch.py`` does).
+FJLT on the port's route, as ``test_torch_sketch.py`` does).  The
+quasi-Monte-Carlo maps and the DCT FJLT are among the cases; the cosine
+features of GaussianQRFT evaluate ndtri in f32, whose torch and XLA
+versions differ in the last ulps, so it is held at 1e-4 (as
+``test_torch_quasi.py`` holds it).  Every sketch type the JAX package
+registers is registered in the port.
 """
 
 import jax.numpy as jnp
@@ -21,8 +26,6 @@ import libskylark_tpu.utils.exceptions as JE
 import libskylark_tpu_torch as T
 
 TOL = 1e-5
-# Registered in the JAX package, not ported yet (ROADMAP Queue A item 6).
-UNPORTED = {"QJLT", "GaussianQRFT", "LaplacianQRFT", "ExpSemigroupQRLT"}
 
 
 def _rel(out, ref):
@@ -38,6 +41,9 @@ def _rel(out, ref):
     ("MMT", {}, (300, 3), "columnwise"),
     ("FJLT", {}, (300, 4), "columnwise"),
     ("JLT", {}, (6, 300), "rowwise"),
+    ("QJLT", {}, (300, 4), "columnwise"),
+    ("GaussianQRFT", {"sigma": 3.0}, (5, 300), "rowwise"),
+    ("FJLT", {"fut": "dct"}, (300, 4), "columnwise"),
 ])
 def test_deserialize_sketch_applies_as_from_dict(rng, monkeypatch, stype, params, shape, dim):
     monkeypatch.setenv("SKYLARK_NO_SRHT_GEMM", "1")
@@ -49,7 +55,7 @@ def test_deserialize_sketch_applies_as_from_dict(rng, monkeypatch, stype, params
     A = rng.standard_normal(shape).astype(np.float32)
     out = St.apply(torch.from_numpy(A), dim)
     assert torch.equal(out, Sf.apply(torch.from_numpy(A), dim))
-    assert _rel(out, Sj.apply(jnp.asarray(A), dim)) <= TOL
+    assert _rel(out, Sj.apply(jnp.asarray(A), dim)) <= (1e-4 if stype == "GaussianQRFT" else TOL)
     if stype in ("CWT", "SJLT", "MMT"):
         np.testing.assert_array_equal(St.buckets(device="cpu").numpy(),
                                       np.asarray(Sj.buckets()))
@@ -58,8 +64,8 @@ def test_deserialize_sketch_applies_as_from_dict(rng, monkeypatch, stype, params
 def test_supported_sketch_transforms_is_the_jax_list_less_the_unported():
     ported = T.sketch.SUPPORTED_SKETCH_TRANSFORMS
     reference = J.sketch.SUPPORTED_SKETCH_TRANSFORMS
-    assert ported == [t for t in reference if t[0] not in UNPORTED]
-    assert {t[0] for t in reference} - {t[0] for t in ported} == UNPORTED
+    assert ported == reference  # nothing is left unported
+    assert set(T.sketch.sketch_registry()) == set(J.sketch.sketch_registry())
     assert all(t == (t[0], "Matrix", "Matrix") for t in ported)
     assert "SUPPORTED_SKETCH_TRANSFORMS" in T.sketch.__all__
     assert "deserialize_sketch" in T.sketch.__all__

@@ -189,8 +189,8 @@ def test_unported_inputs_raise():
     St = T.sketch.CWT(50, 8, T.SketchContext(seed=1))
     with pytest.raises(UnsupportedError):
         St.apply(torch.eye(50).to_sparse_csr())
-    with pytest.raises(NotImplementedError):
-        T.sketch.FJLT(50, 8, T.SketchContext(), fut="dct")
+    with pytest.raises(ValueError, match="unknown FUT"):
+        T.sketch.FJLT(50, 8, T.SketchContext(), fut="fft")
     with pytest.raises(ValueError):
         St.apply(torch.zeros(49, 3))
     with pytest.raises(ValueError):
