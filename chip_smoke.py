@@ -67,7 +67,15 @@ paths:
   kernel machine on the "quasi" (QMC) feature maps at 131072 x 4096 ->
   2048, approximate ASE of the third path's graph held by its
   eigen-residuals, and local clustering around a planted cluster in a
-  graph of 10^6 vertices and 10^7 edges.
+  graph of 10^6 vertices and 10^7 edges;
+- mixed-precision refinement (``refine_path``): ``refine_least_squares``
+  on bench.py's refine problem (f64 32768 x 768) against the f64 QR
+  solve, the refine route with FJLT and CWT on the 2^20 x 512 LS problem
+  (its sketch of a bf16 copy of A: the bf16 gather and row scatter)
+  beside the sketch and exact routes, the bf16 sampled kernel at 32768 x
+  512, the guard's faults on the sketch and refine routes, and
+  checkpointed faster KRR killed and resumed, bitwise.  Each refined x is
+  held against an f64 solve at 1e-9 beside a control that misses.
 
 It exits non-zero, printing no result, without a CUDA device or without
 the package beside it.  It imports nothing of JAX.
@@ -222,6 +230,18 @@ ASE_ITERS, ASE_RES_BOUND = 8, 0.05
 # background vertices; the recursion restarts from the found set).
 LC_N, LC_EDGES, LC_NC, LC_IN, LC_OUT, LC_EPS, LC_COND_TOL = (
     1_000_000, 10_000_000, 1000, 30, 2, 1e-4, 0.1)
+# Mixed-precision refinement (phase 3i).  (a) bench.py:1521-1530's refine
+# problem at its chip size: f64 A RF_A_M x RF_A_N, b = A x + 1e-3 g, against
+# the f64 QR solve (residual ratio within 1 + RF_RATIO_TOL, x within
+# RF_X_TOL); (b) the LS phase's problem (NLA_M x NLA_N f32, b = A x + 0.1 g)
+# on the refine route with FJLT and CWT (x within RF_X_TOL of an f64 solve
+# of the same f32 A) beside the sketch and exact routes; (c) f32 A RF_C_M x
+# RF_C_N, where the bf16 sketch takes the sampled kernel at NB = 2^15; (d)
+# the guard's faults at (b)'s shape; (e) checkpointed faster KRR at phase
+# 3f's shape, preempted after chunk 1 and resumed.
+RF_A_M, RF_A_N, RF_A_NOISE = 32_768, 768, 1e-3
+RF_C_M, RF_C_N = 32_768, 512
+RF_X_TOL, RF_RATIO_TOL = 1e-9, 1e-10
 
 
 def fail(msg: str) -> None:
@@ -2183,6 +2203,354 @@ def sketches_path(sky, dev, reset_counts, read_counts, smi, graph) -> None:
     torch.cuda.empty_cache()
 
 
+def refine_path(sky, dev, reset_counts, read_counts, smi) -> set:
+    """Phase 3i: mixed-precision refinement and the routes around it at
+    full width, items (a)-(e) as the constants above say, each with the
+    launch counters reset before it and read after it (paths ``refine
+    (a)`` ... ``refine (e)``).  While the phase runs, the first launch
+    of each kernel signature is held against its plain version on the
+    same inputs beside a control that misses; the phase fails unless the
+    bf16 sampled kernel, the f32 one at S = 3072, the bf16 gather and the
+    bf16 row scatter were among them.  Returns the signatures held.
+    Times are medians of 3 host-clock runs ending in a synchronize,
+    after one warm-up."""
+    import shutil
+
+    from libskylark_tpu_torch.sketch import kernels_fut as kf
+    from libskylark_tpu_torch.sketch import kernels_window as kw
+    from libskylark_tpu_torch.solvers import refine as rf
+
+    lin, ml = sky.linalg, sky.ml
+    f32, f64, bf16 = torch.float32, torch.float64, torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(SEED + 17)
+    card = f"[{smi}]"
+    held = set()
+
+    def sampled_held(out, x, d, nb, idx):
+        tol = 1e-5 if x.dtype == f32 else 1e-2
+        _, r = max_err(out, kf.rfut_rowwise_sampled_plain(x, d, nb, idx))
+        _, c = max_err(out, kf.rfut_rowwise_sampled_plain(x, d, nb, (idx + 1) % nb))
+        print(f"refine (held) rfut_rowwise_sampled x {tuple(x.shape)} {x.dtype}, NB = {nb}, S = "
+              f"{idx.numel()}: vs its plain version rel {r:.3g} (tol {tol:g}); control (each "
+              f"sample one lane over) {c:.3g}")
+        check(r <= tol and c > tol, f"refine rfut_rowwise_sampled {tuple(x.shape)} {x.dtype}: "
+              f"{r}, control {c}")
+
+    def gather_held(out, T, idx, scale):
+        ok = torch.equal(out, kw.gather_scaled_rows_plain(T, idx, scale))
+        ctl = kw.gather_scaled_rows_plain(T, (idx + 1) % T.shape[0], scale)
+        c = float((ctl.float() - out.float()).abs().max())
+        print(f"refine (held) gather_scaled_rows T {tuple(T.shape)} {T.dtype}, S = {idx.numel()}: "
+              f"bitwise its plain version {ok}; control (each row one index over) max abs diff "
+              f"{c:.3g}")
+        check(ok and c > 0, f"refine gather_scaled_rows {tuple(T.shape)} {T.dtype}: bitwise {ok}")
+
+    def scatter_held(out, A, b, v, segs, **kwargs):
+        check(not kwargs, f"refine scatter_rows called with {sorted(kwargs)}")
+        b, v = (b[None], v[None]) if b.ndim == 1 else (b, v)
+        exact, err_bound, (row, piece) = scatter_error_bound(A, b, v, segs, kw._L)
+        r = bound_ratio(out, exact, err_bound)
+        c = bound_ratio(out[row].double() - piece, exact[row], err_bound[row])
+        print(f"refine (held) scatter_rows A {tuple(A.shape)} {A.dtype} -> {segs}, nnz = "
+              f"{b.shape[0]}: max |out - exact| / rounding bound {r:.3g} (must be <= 1); control "
+              f"(bucket {row}'s first piece left out) {c:.3g}")
+        check(r <= 1.0 and c > 1.0, f"refine scatter_rows {tuple(A.shape)} {A.dtype}: {r}, "
+              f"control {c}")
+        del exact, err_bound
+
+    kernels = [(kf, "rfut_rowwise_sampled", hold(kf, "rfut_rowwise_sampled", sampled_held, held)),
+               (kw, "gather_scaled_rows", hold(kw, "gather_scaled_rows", gather_held, held)),
+               (kw, "scatter_rows", hold(kw, "scatter_rows", scatter_held, held))]
+
+    def randn(*shape, dtype=f32):
+        return torch.randn(*shape, generator=g, device=dev, dtype=dtype)
+
+    def ctx(i=0):
+        return sky.SketchContext(seed=SEED + i)
+
+    def timed(label, fn):
+        """(median seconds of 3 runs, the last run's result), after a
+        warm-up that also holds the first launch of each signature."""
+        out, runs = fn(), []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+        secs = statistics.median(runs)
+        print(f"refine {label}: median {secs!r} s of {[round(x, 4) for x in runs]} {card}")
+        return secs, out
+
+    def rel(x, ref):
+        return float(torch.linalg.vector_norm(x.double() - ref) / torch.linalg.vector_norm(ref))
+
+    def item(label, expect, body):
+        reset_counts()
+        t0 = time.perf_counter()
+        out = body()
+        torch.cuda.synchronize()
+        counts = read_counts(f"refine ({label})", t0, expect)
+        unheld = {k for k, c in counts.items() if c} - {name for _, name, _ in kernels}
+        check(not unheld, f"refine ({label}) launched kernels it does not hold: {unheld}")
+        return out
+
+    def f64_qr(A, b):
+        """x of the f64 QR solve of (A, b), and A's singular values (R's)."""
+        Q, R = torch.linalg.qr(A.double())
+        x = torch.linalg.solve_triangular(R, (Q.T @ b.double())[:, None], upper=True)[:, 0]
+        return x, torch.linalg.svdvals(R)
+
+    def sweep_split(label, A, b):
+        """Where a refine sweep's time goes: device kernels (profiler)
+        against the host clock per sweep of the loop on the refine route's
+        own factor, and the bytes bound of a sweep's two passes over the
+        f64 A.  Runs after its item's launches are read."""
+        m, n = A.shape
+        A_w, qr_dtype, _ = rf._working_cast(A, A.dtype)
+        SA = sky.sketch.FJLT(m, 4 * n, ctx()).apply(A_w).to(qr_dtype)
+        R = torch.linalg.qr(SA, mode="r")[1]
+        A64, B64 = A.double(), b.double()[:, None]
+        kw_loop = dict(sigma_max=float(torch.linalg.svdvals(R)[0]),
+                       rtol=float(torch.finfo(f64).eps) ** 0.75, max_iters=100,
+                       stagnation_factor=0.9)
+        loop_s, _ = host_median(lambda: rf._refine_loop(A64, B64, R, **kw_loop), 3)
+        sweeps = rf._refine_loop(A64, B64, R, **kw_loop)[1]["iters"]
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            rf._refine_loop(A64, B64, R, **kw_loop)
+            torch.cuda.synchronize()
+        dev_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        sweep_bound = 2 * 8 * m * n / MEM_BYTES_PER_S * 1e3
+        print(f"refine {label} sweep loop ({sweeps} sweeps): host {loop_s * 1e3 / sweeps!r} ms per "
+              f"sweep (median of 3 loops), device kernels {dev_ms / sweeps!r} ms per sweep "
+              f"(profiler), device idle {1 - dev_ms / (loop_s * 1e3):.3f}; bytes bound of a "
+              f"sweep's two passes over the f64 A {sweep_bound!r} ms {card}")
+
+    # (a) bench.py's refine shape: f64 A, rung f32 (the f32 sampled kernel).
+    def item_a():
+        m, n = RF_A_M, RF_A_N
+        A = randn(m, n, dtype=f64)
+        b = A @ randn(n, dtype=f64) + RF_A_NOISE * randn(m, dtype=f64)
+        t_r, (x, info) = timed(f"(a) refine_least_squares f64 {m} x {n}",
+                               lambda: sky.solvers.refine_least_squares(A, b, ctx()))
+        t_q, x_qr = timed(f"(a) exact_least_squares(alg='qr') f64 {m} x {n}",
+                          lambda: lin.exact_least_squares(A, b, "qr"))
+        res = float(torch.linalg.vector_norm(A @ x - b))
+        res_qr = float(torch.linalg.vector_norm(A @ x_qr - b))
+        x_sk = lin.approximate_least_squares(A, b, ctx())  # control: sketch-and-solve
+        ratio, ratio_ctl = res / res_qr, float(torch.linalg.vector_norm(A @ x_sk - b)) / res_qr
+        err, err_ctl = rel(x, x_qr), rel(x_sk, x_qr)
+        rinfo = info["refine"]
+        print(f"refine (a) rung {rinfo['rung']}, {rinfo['iters']} sweeps, halt {rinfo['halt']}, "
+              f"certificate cond {info['recovery']['attempts'][0]['cond']:.4g}; "
+              f"{t_r!r} s against the f64 QR's {t_q!r} s; residual / QR residual {ratio!r} "
+              f"(bound 1 + {RF_RATIO_TOL:g}), ||x - x_qr|| / ||x_qr|| {err:.3g} (bound "
+              f"{RF_X_TOL:g}); control (sketch-and-solve) {ratio_ctl:.6g}, {err_ctl:.3g}")
+        check(rinfo["rung"] == "f32" and rinfo["halt"] == "converged",
+              f"(a) refine rung {rinfo['rung']}, halt {rinfo['halt']}")
+        check(ratio <= 1 + RF_RATIO_TOL and ratio_ctl > 1 + RF_RATIO_TOL,
+              f"(a) residual ratio {ratio}, control {ratio_ctl}")
+        check(err <= RF_X_TOL and err_ctl > RF_X_TOL, f"(a) x error {err}, control {err_ctl}")
+        # Guarded attempt 0 uses the caller's context, unguarded a copy of
+        # it: the two are bitwise the same.  And the detector raises 115
+        # unguarded when the sweeps run out.
+        os.environ["SKYLARK_GUARD"] = "0"
+        try:
+            x_u, _ = sky.solvers.refine_least_squares(A, b, ctx())
+            try:
+                sky.solvers.refine_least_squares(A, b, ctx(), sky.solvers.RefineParams(max_iters=2))
+                code = None
+            except sky.utils.RefinementError as e:
+                code = e.code
+        finally:
+            del os.environ["SKYLARK_GUARD"]
+        print(f"refine (a) SKYLARK_GUARD=0: bitwise the guarded x {torch.equal(x_u, x)}; "
+              f"control RefineParams(max_iters=2) raises code {code}")
+        check(torch.equal(x_u, x) and code == 115, f"(a) unguarded: {torch.equal(x_u, x)}, {code}")
+        return A, b
+
+    sweep_split("(a)", *item("a", ("rfut_rowwise_sampled",), item_a))
+    torch.cuda.empty_cache()
+
+    # (b) The LS phase's problem at full width, f32: rung bf16+f32.
+    m, n = NLA_M, NLA_N
+    A = randn(m, n)
+    b = A @ randn(n) + NLA_NOISE * randn(m)
+    x64, sv = f64_qr(A, b)
+    cond = float(sv[0] / sv[-1])
+    res64 = float(torch.linalg.vector_norm(A.double() @ x64 - b.double()))
+
+    def ratio(x):
+        return float(torch.linalg.vector_norm(A.double() @ x.double() - b.double())) / res64
+
+    def item_b():
+        runs = {}
+        for label, kw_ in (("refine FJLT", dict(route="refine")),
+                           ("refine CWT", dict(route="refine", sketch_type="CWT")),
+                           ("sketch FJLT", dict(route="sketch")),
+                           ("exact", dict(route="exact"))):
+            params = lin.LeastSquaresParams(sketch_type=kw_.pop("sketch_type", None))
+            runs[label] = timed(f"(b) approximate_least_squares {label} f32 {m} x {n}",
+                                lambda: lin.approximate_least_squares(
+                                    A, b, ctx(), params, return_info=True, **kw_))
+        x_sk = runs["sketch FJLT"][1][0]
+        err_sk = rel(x_sk, x64)
+        for label in ("refine FJLT", "refine CWT"):
+            secs, (x, info) = runs[label]
+            ri = info["refine"]
+            err = rel(x, x64)
+            print(f"refine (b) {label}: rung {ri['rung']}, {ri['iters']} sweeps, halt "
+                  f"{ri['halt']}, certificate cond {info['recovery']['attempts'][0]['cond']:.4g} "
+                  f"(cond(A) {cond:.4g}); ||x - x_f64|| / ||x_f64|| {err:.3g} (bound "
+                  f"{RF_X_TOL:g}; control, the sketch route's x: {err_sk:.3g}); policy "
+                  f"{info['policy']}")
+            check(ri["rung"] == "bf16+f32" and ri["halt"] == "converged",
+                  f"(b) {label}: rung {ri['rung']}, halt {ri['halt']}")
+            check(err <= RF_X_TOL and err_sk > RF_X_TOL, f"(b) {label}: {err}, control {err_sk}")
+        Sc = sky.sketch.FJLT(m, n, ctx(1))  # control: a square sketch
+        r_sk = ratio(x_sk)
+        r_ctl = ratio(lin.exact_least_squares(Sc.apply(A), Sc.apply(b[:, None]))[:, 0])
+        print(f"refine (b) sketch route: residual / f64 residual {r_sk:.4f} (bound "
+              f"{LS_RATIO_BOUND}); control (S = n = {n}) {r_ctl:.4f}")
+        check(r_sk <= LS_RATIO_BOUND and r_ctl > LS_RATIO_BOUND, f"(b) sketch ratio {r_sk}, "
+              f"control {r_ctl}")
+        # The exact route is the f32 SVD solve the JAX package computes: a
+        # backward-stable solve errs by about n·eps·(cond + cond^2 ||r|| /
+        # (||A|| ||x||)) (first-order perturbation of least squares).
+        x_ex = runs["exact"][1][0]
+        err_ex = rel(x_ex, x64)
+        ex_bound = n * float(torch.finfo(f32).eps) * (
+            cond + cond ** 2 * res64 / (float(sv[0]) * float(torch.linalg.vector_norm(x64))))
+        print(f"refine (b) exact route (f32 SVD): ||x - x_f64|| / ||x_f64|| {err_ex:.3g} (bound "
+              f"n eps32 (cond + cond^2 ||r|| / (||A|| ||x||)) = {ex_bound:.3g}); control (the "
+              f"sketch route's x) {err_sk:.3g}")
+        check(err_ex <= ex_bound and err_sk > ex_bound, f"(b) exact: {err_ex}, control {err_sk}")
+        return runs
+
+    runs_b = item("b", ("gather_scaled_rows", "scatter_rows"), item_b)
+    sweep_split("(b)", A, b)
+    torch.cuda.empty_cache()
+
+    # (c) f32 A RF_C_M x RF_C_N: the bf16 sketch through the sampled kernel.
+    def item_c():
+        A = randn(RF_C_M, RF_C_N)
+        b = A @ randn(RF_C_N) + NLA_NOISE * randn(RF_C_M)
+        xq = f64_qr(A, b)[0]
+        secs, (x, info) = timed(f"(c) refine_least_squares f32 {RF_C_M} x {RF_C_N}",
+                                lambda: sky.solvers.refine_least_squares(A, b, ctx()))
+        x_sk = lin.approximate_least_squares(A, b, ctx())
+        err, err_ctl = rel(x, xq), rel(x_sk, xq)
+        ri = info["refine"]
+        print(f"refine (c) rung {ri['rung']}, {ri['iters']} sweeps, sketch size "
+              f"{ri['sketch_size']}; ||x - x_f64|| / ||x_f64|| {err:.3g} (bound {RF_X_TOL:g}); "
+              f"control (sketch-and-solve) {err_ctl:.3g}")
+        check(ri["rung"] == "bf16+f32" and ri["halt"] == "converged",
+              f"(c) rung {ri['rung']}, halt {ri['halt']}")
+        check(err <= RF_X_TOL and err_ctl > RF_X_TOL, f"(c) x error {err}, control {err_ctl}")
+
+    item("c", ("rfut_rowwise_sampled",), item_c)
+
+    # (d) The guard's faults at (b)'s shape, on the sketch and refine routes.
+    def item_d():
+        for route in ("sketch", "refine"):
+            for fault in ("nan_at", "bad_sketch_at"):
+                x, info = lin.approximate_least_squares(
+                    A, b, ctx(), route=route, return_info=True,
+                    fault_plan=sky.resilient.FaultPlan(**{fault: 0}))
+                verdicts = [(a["action"], a.get("verdict")) for a in info["recovery"]["attempts"]]
+                if route == "refine":
+                    val, bnd, ok = rel(x, x64), RF_X_TOL, rel(x, x64) <= RF_X_TOL
+                else:
+                    val, bnd, ok = ratio(x), LS_RATIO_BOUND, ratio(x) <= LS_RATIO_BOUND
+                print(f"refine (d) route {route}, FaultPlan({fault}=0): verdicts {verdicts}; "
+                      f"{'x error' if route == 'refine' else 'residual ratio'} {val:.4g} (bound "
+                      f"{bnd:g})")
+                check(verdicts[0] == ("initial", "RESKETCH") and verdicts[-1][1] == "OK"
+                      and info["recovery"]["recovered"] and ok,
+                      f"(d) {route} {fault}: {verdicts}, {val}")
+
+    item("d", ("gather_scaled_rows",), item_d)
+    del A, b, x64, sv, runs_b
+    torch.cuda.empty_cache()
+
+    # (e) Checkpointed faster KRR at phase 3f's shape: a run preempted after
+    # chunk 1 and resumed is bitwise the uninterrupted checkpointed run.
+    def item_e():
+        X = randn(EXACT_N, ML_DIM)
+        Y = -torch.ones(EXACT_N, ML_CLASSES, device=dev)
+        Y[torch.arange(EXACT_N, device=dev), X[:, :ML_CLASSES].argmax(1)] = 1.0
+        kern = ml.GaussianKernel(ML_DIM, ML_SIGMA)
+        root = HERE / "build" / "refine_checkpoints"
+        shutil.rmtree(root, ignore_errors=True)
+
+        def fit(directory=None, resume=False):
+            p = ml.KrrParams(tolerance=FASTER_TOL, resume=resume,
+                             checkpoint_dir=str(root / directory) if directory else None)
+            return ml.faster_kernel_ridge(kern, X, Y, EXACT_LAM, ML_S, ctx(), p)
+
+        t_plain, plain = timed(f"(e) faster_kernel_ridge n = {EXACT_N}, s = {ML_S}, unchecked",
+                               fit)
+        t_ck, whole = timed(f"(e) faster_kernel_ridge n = {EXACT_N}, s = {ML_S}, checkpointed "
+                            f"every {ml.KrrParams().checkpoint_every} iterations",
+                            lambda: fit("whole"))
+        runner = sky.resilient.ResilientRunner
+
+        class Preempted(runner):
+            def __init__(self, solver, params=None, **kw_):
+                super().__init__(solver, params, fault_plan=sky.resilient.FaultPlan(
+                    preempt_after_chunk=1))
+
+        sky.resilient.ResilientRunner = Preempted
+        try:
+            t0 = time.perf_counter()
+            fit("killed")
+            killed = None
+        except sky.resilient.SimulatedPreemption as e:
+            killed = time.perf_counter() - t0, str(e)
+        finally:
+            sky.resilient.ResilientRunner = runner
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resumed = fit("killed", resume=True)
+        torch.cuda.synchronize()
+        t_res = time.perf_counter() - t0
+        its = int(whole.info["iterations"])
+        same, same_plain = torch.equal(resumed.A, whole.A), torch.equal(whole.A, plain.A)
+        print(f"refine (e) checkpointed faster KRR: {its} CG iterations; killed after chunk 1 "
+              f"({killed}), resumed in {t_res!r} s: bitwise the uninterrupted checkpointed run "
+              f"{same}; the checkpointed run bitwise the unchecked one {same_plain}; "
+              f"{t_ck!r} s checkpointed against {t_plain!r} s unchecked {card}")
+        check(killed is not None and its > 2 * ml.KrrParams().checkpoint_every,
+              f"(e) preemption {killed}, {its} iterations")
+        check(same and same_plain, f"(e) resumed bitwise {same}, unchecked bitwise {same_plain}")
+        shutil.rmtree(root, ignore_errors=True)
+
+    item("e", (), item_e)
+    torch.cuda.empty_cache()
+    for mod, name, kernel in kernels:
+        setattr(mod, name, kernel)
+    # (kernel, dtype, shape of the operand, sample or bucket count): the
+    # sampled kernel's x is the transposed A, NB = 2^15 wide.
+    want = {("rfut_rowwise_sampled", bf16, (RF_C_N, RF_C_M), 4 * RF_C_N),
+            ("rfut_rowwise_sampled", f32, (RF_A_N, RF_A_M), 4 * RF_A_N),
+            ("gather_scaled_rows", bf16, (NLA_M, NLA_N), 4 * NLA_N),
+            ("scatter_rows", bf16, (NLA_M, NLA_N), 4 * NLA_N)}
+    got = set()
+    for sig in held:
+        name, (shape, dtype) = sig[0], sig[1]
+        count = {"rfut_rowwise_sampled": lambda: sig[4][0][0],
+                 "gather_scaled_rows": lambda: sig[2][0][0],
+                 "scatter_rows": lambda: sig[4]}.get(name, lambda: None)()
+        got.add((name, dtype, shape, count))
+    check(want <= got, f"refine: new signatures not held: {sorted(map(str, want - got))}")
+    print(f"refine: {len(held)} kernel signatures held against their plain versions, the new "
+          f"ones among them: {sorted(map(str, want))}")
+    return held
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
@@ -2695,16 +3063,26 @@ def main() -> None:
     sketches_path(sky, dev, reset_counts, read_counts, smi, graph)
     del graph
 
+    # -- 3i. mixed-precision refinement and the routes around it ----------
+    refine_held = refine_path(sky, dev, reset_counts, read_counts, smi)
+
     # -- 4. times at main-path shapes ------------------------------------
     kernels = []
 
     def row(name, source, replaces, ms, plain_ms, bytes_moved, ops, library_ms,
             path_count=None, err=None, shape=None, split=None):
         b_ms, by = bound(bytes_moved, ops)
+        by_path = {p: c[name] for p, c in path_launches.items() if c[name]}
+        # Phase 3i's items, and their sum under "refine", on every row.
+        by_path["refine"] = sum(c[name] for p, c in path_launches.items()
+                                if p.startswith("refine ("))
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name] if path_count is None else path_count,
-            "launches_by_path": {p: c[name] for p, c in path_launches.items() if c[name]},
+            "launches_by_path": by_path,
+            # The signatures phase 3i held against the plain version.
+            "refine_held": sorted(str(sig[1:]).replace("torch.", "")
+                                  for sig in refine_held if sig[0] == name),
             "max_abs_err": errs[name] if err is None else err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
             "library_ms": library_ms, **({"shape": shape} if shape else {}), **(split or {}),

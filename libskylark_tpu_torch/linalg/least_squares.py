@@ -1,5 +1,5 @@
 """Least squares: exact l2 solvers, sketch-and-solve, and the
-Blendenpik and LSRN routes (port of
+refine, Blendenpik, LSRN and exact routes (port of
 ``libskylark_tpu/linalg/least_squares.py``).
 
 ``approximate_least_squares`` sketches A and B columnwise once (FJLT by
@@ -8,16 +8,17 @@ problem exactly.  Guarded (``SKYLARK_GUARD``, on by default) each sketch
 is certified (``guard.certify_sketch``) and a bad draw climbs the
 recovery ladder (fresh-seed resketch → grown sketch → the exact ``svd``
 solve); attempt 0 uses the caller's context, so a healthy run is bitwise
-the unguarded one.  ``route="blendenpik"`` and ``"lsrn"`` hand the
-problem to ``solvers.accelerated``.
+the unguarded one.  ``route="refine"`` hands the problem to
+``solvers.refine`` (mixed-precision refinement), ``"blendenpik"`` and
+``"lsrn"`` to ``solvers.accelerated``, and ``"exact"`` solves by the SVD.
 
-This slice has no policy store or plan cache (ROADMAP Queue A item 3),
-so a call returns what the JAX package returns under
-``SKYLARK_POLICY=0``: with an empty store that is also its default.
-``info`` has no ``"policy"`` entry, and the ``"refine"`` and ``"exact"``
-routes and ``fault_plan=`` raise ``UnsupportedError``.
-``streaming_least_squares`` is the out-of-core face: the same
-sketch-and-solve over ``(A_block, b_block)`` batches
+Every call consults the routing decision (``policy.consult``) and
+returns it as ``info["policy"]``.  The port has no profile store yet,
+so the decision is the JAX package's default one, with the caller's
+pinned route and sketch fields (ROADMAP Queue A item 3b brings the
+store, and with it the bf16- and fp8-first sketch branches that only a
+profile can choose).  ``streaming_least_squares`` is the out-of-core
+face: the same sketch-and-solve over ``(A_block, b_block)`` batches
 (``streaming.sketch_least_squares``), JLT by default (FJLT has no
 columnwise slice rule), CWT for sparse streams.
 """
@@ -28,12 +29,13 @@ from dataclasses import dataclass, replace
 
 import torch
 
-from .. import guard
+from .. import guard, policy
 from .._device import as_tensor
 from ..core.context import SketchContext
 from ..core.params import Params
 from ..sketch.base import Dimension, create_sketch
 from ..utils.exceptions import NumericalHealthError, UnsupportedError
+from ..utils.sparse import is_sparse
 
 __all__ = [
     "LeastSquaresParams",
@@ -41,15 +43,6 @@ __all__ = [
     "approximate_least_squares",
     "streaming_least_squares",
 ]
-
-_ITEM3 = "ROADMAP Queue A item 3: policy, plans and refine around approximate_least_squares"
-# Routes of the JAX package that wait for a later slice, with the ROADMAP
-# item that ports them.
-_DEFERRED_ROUTES = {
-    "refine": f"{_ITEM3} (mixed-precision refine)",
-    "exact": f"{_ITEM3} (policy-chosen exact route)",
-}
-
 
 @dataclass
 class LeastSquaresParams(Params):
@@ -115,79 +108,108 @@ def approximate_least_squares(
     return_info: bool = False,
     device=None,
 ):
-    """Least squares by sketching: ``route`` None or ``"sketch"``
-    (sketch-and-solve with one sketch S of size s × m, then ``min ||SA X
-    - SB||`` exactly), ``"blendenpik"`` or ``"lsrn"`` (sketch to
-    precondition LSQR, :mod:`~libskylark_tpu_torch.solvers.accelerated`).
+    """Least squares by sketching.  ``route`` is one of
+    ``policy.LS_ROUTES``: None or ``"sketch"`` (sketch-and-solve with one
+    sketch S of size s × m, then ``min ||SA X - SB||`` exactly),
+    ``"refine"`` (:func:`~libskylark_tpu_torch.solvers.refine_least_squares`
+    with the decision's sketch type and size), ``"blendenpik"`` or
+    ``"lsrn"`` (sketch to precondition LSQR,
+    :mod:`~libskylark_tpu_torch.solvers.accelerated`), ``"exact"`` (the
+    ``svd`` solve of A itself, a sparse COO A densified).
 
-    With ``return_info=True`` returns ``(x, info)``; ``info["recovery"]``
-    is the guard's :class:`~libskylark_tpu_torch.guard.RecoveryReport`
-    dict (``guarded=False`` under ``SKYLARK_GUARD=0``), and the
-    Blendenpik and LSRN routes add their solver's keys.  The JAX
-    package's ``"refine"`` and ``"exact"`` routes and ``fault_plan``
-    raise :class:`UnsupportedError` (a ``NotImplementedError``) naming
-    the ROADMAP item that ports them."""
-    if route not in (None, "sketch", "blendenpik", "lsrn"):
-        if route in _DEFERRED_ROUTES:
-            raise UnsupportedError(
-                f"least-squares route {route!r} is not ported yet "
-                f"({_DEFERRED_ROUTES[route]})"
-            )
-        raise ValueError(f"unknown least-squares route {route!r}")
-    if fault_plan is not None:
-        raise UnsupportedError(f"fault_plan= is not ported yet ({_ITEM3})")
+    ``fault_plan`` (a :class:`~libskylark_tpu_torch.resilient.FaultPlan`)
+    corrupts the sketched ``S·A`` of ladder attempt i on the sketch and
+    refine routes (``nan_at``/``bad_sketch_at``).  With
+    ``return_info=True`` returns ``(x, info)``: ``info["recovery"]`` is
+    the guard's :class:`~libskylark_tpu_torch.guard.RecoveryReport` dict
+    (``guarded=False`` under ``SKYLARK_GUARD=0``), ``info["policy"]`` the
+    routing decision, and the refine, Blendenpik and LSRN routes add
+    their solver's keys.  Sparse A is taken by the exact route only; the
+    others raise :class:`UnsupportedError`, as the JAX package fails on
+    them (ROADMAP Queue C)."""
+    if route is not None and route not in policy.LS_ROUTES:
+        raise ValueError(f"unknown least-squares route {route!r}; one of {policy.LS_ROUTES}")
     params = params or LeastSquaresParams()
     A = as_tensor(A, device)
     B = as_tensor(B, A.device if device is None else device)
     squeeze = B.ndim == 1
     if squeeze:
         B = B[:, None]
-    if route in ("blendenpik", "lsrn"):
+    m, n = A.shape
+    sparse = is_sparse(A)
+    decision = policy.consult(
+        "ls", m=m, n=n, targets=B.shape[1], dtype=A.dtype, sparse=sparse, device=A.device,
+        route=route, sketch_type=params.sketch_type, sketch_size=params.sketch_size)
+
+    def finish(X, info):
+        info["policy"] = decision.to_dict()
+        out = X[:, 0] if squeeze else X
+        return (out, info) if return_info else out
+
+    if decision.route == "exact":
+        X = exact_least_squares(A.to_dense() if sparse else A, B, alg="svd")
+        if guard.enabled():
+            report = guard.RecoveryReport(stage="sketch_and_solve_ls")
+            guard.check_finite(X, "exact_ls", report=report)
+        else:
+            report = guard.RecoveryReport.disabled("sketch_and_solve_ls")
+        return finish(X, {"recovery": report.to_dict()})
+    if decision.route == "refine":
+        from ..solvers.refine import RefineParams, refine_least_squares
+
+        X, rinfo = refine_least_squares(
+            A, B, context, RefineParams(sketch_type=decision.sketch_type,
+                                        sketch_size=decision.sketch_size),
+            fault_plan=fault_plan)
+        return finish(X, dict(rinfo))
+    if decision.route in ("blendenpik", "lsrn"):
         from ..solvers.accelerated import (
             FasterLeastSquaresParams,
             faster_least_squares,
             lsrn_least_squares,
         )
 
-        solver = faster_least_squares if route == "blendenpik" else lsrn_least_squares
-        X, info = solver(A, B, context, FasterLeastSquaresParams(sketch_type=params.sketch_type))
-        out = X[:, 0] if squeeze else X
-        return (out, info) if return_info else out
-    if A.layout != torch.strided:
+        solver = faster_least_squares if decision.route == "blendenpik" else lsrn_least_squares
+        X, rinfo = solver(A, B, context, FasterLeastSquaresParams(sketch_type=params.sketch_type))
+        return finish(X, dict(rinfo))
+    if sparse:
         raise UnsupportedError(
             "sparse least-squares inputs are not supported: the JAX "
             "package's approximate_least_squares cannot solve a BCOO system "
             "either (its hash sketch returns a sparse SA that "
             "exact_least_squares does not take; ROADMAP Queue C)"
         )
-    m, n = A.shape
-    s = int(params.sketch_size if params.sketch_size is not None else min(4 * n, m))
-    stype = params.sketch_type or "FJLT"
+    s, stype = decision.sketch_size, decision.sketch_type
 
     if not guard.enabled():
         S = create_sketch(stype, m, s, context)
-        X = exact_least_squares(S.apply(A, Dimension.COLUMNWISE),
-                                S.apply(B, Dimension.COLUMNWISE), alg=alg)
-        report = guard.RecoveryReport.disabled("sketch_and_solve_ls")
-    else:
-        def attempt(ctx, s_i, i):
-            S = create_sketch(stype, m, s_i, ctx)
-            SA = S.apply(A, Dimension.COLUMNWISE)
-            SB = S.apply(B, Dimension.COLUMNWISE)
-            cert = guard.certify_sketch(SA, stage="sketch_and_solve_ls")
-            if not cert.ok:
-                return None, cert
-            X = exact_least_squares(SA, SB, alg=alg)
-            if not guard.tree_all_finite(X):
-                return None, replace(cert, verdict=guard.RESKETCH,
-                                     detail="non-finite small-problem solution")
-            return X, cert
+        SA = S.apply(A, Dimension.COLUMNWISE)
+        SB = S.apply(B, Dimension.COLUMNWISE)
+        if fault_plan is not None:
+            SA = fault_plan.corrupt_sketch(0, SA)
+        X = exact_least_squares(SA, SB, alg=alg)
+        return finish(X, {"recovery": guard.RecoveryReport.disabled(
+            "sketch_and_solve_ls").to_dict()})
 
-        X, report = guard.run_ladder(
-            "sketch_and_solve_ls", context, s, m, attempt,
-            lambda: exact_least_squares(A, B, alg="svd"))
-    out = X[:, 0] if squeeze else X
-    return (out, {"recovery": report.to_dict()}) if return_info else out
+    def attempt(ctx, s_i, i):
+        S = create_sketch(stype, m, s_i, ctx)
+        SA = S.apply(A, Dimension.COLUMNWISE)
+        SB = S.apply(B, Dimension.COLUMNWISE)
+        if fault_plan is not None:
+            SA = fault_plan.corrupt_sketch(i, SA)
+        cert = guard.certify_sketch(SA, stage="sketch_and_solve_ls")
+        if not cert.ok:
+            return None, cert
+        X = exact_least_squares(SA, SB, alg=alg)
+        if not guard.tree_all_finite(X):
+            return None, replace(cert, verdict=guard.RESKETCH,
+                                 detail="non-finite small-problem solution")
+        return X, cert
+
+    X, report = guard.run_ladder(
+        "sketch_and_solve_ls", context, s, m, attempt,
+        lambda: exact_least_squares(A, B, alg="svd"))
+    return finish(X, {"recovery": report.to_dict()})
 
 
 def streaming_least_squares(source, nrows: int, ncols: int, context: SketchContext,
@@ -204,16 +226,20 @@ def streaming_least_squares(source, nrows: int, ncols: int, context: SketchConte
     :class:`~libskylark_tpu_torch.streaming.StreamParams` (prefetch,
     placer, checkpoint/resume); ``fault_plan`` injects the guard's
     faults by batch index.  Returns ``(x, info)`` with ``info`` keys
-    ``rows``, ``batches``, ``seconds`` and ``recovery``; ``info["policy"]``
-    waits for the policy layer (ROADMAP Queue A item 3).  ``partition=``
+    ``rows``, ``batches``, ``seconds``, ``recovery`` and ``policy`` (the
+    routing decision, kind ``"ls_stream"``).  ``partition=``
     raises ``UnsupportedError`` (ROADMAP Queue A item 9)."""
     from .. import streaming
+    from ..streaming.drivers import _no_partition
+    from ..streaming.engine import StreamParams, stream_device
 
+    _no_partition(partition)  # before the stream's device is resolved
     params = params or LeastSquaresParams()
-    stype = params.sketch_type or ("CWT" if sparse else "JLT")
-    s = int(params.sketch_size if params.sketch_size is not None
-            else min(4 * ncols, nrows))
-    S = create_sketch(stype, nrows, s, context)
+    decision = policy.consult(
+        "ls_stream", m=nrows, n=ncols, targets=targets, dtype="float32", sparse=sparse,
+        device=stream_device(stream_params or StreamParams()), sketch_type=params.sketch_type,
+        sketch_size=params.sketch_size)
+    S = create_sketch(decision.sketch_type, nrows, decision.sketch_size, context)
     return streaming.sketch_least_squares(
         source, S, ncols=ncols, targets=targets, alg=alg, params=stream_params,
-        fault_plan=fault_plan, partition=partition)
+        fault_plan=fault_plan, partition=partition, policy_decision=decision.to_dict())

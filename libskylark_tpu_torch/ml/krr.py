@@ -27,11 +27,12 @@ features keep their dtype in the returned model, and their factor is
 computed in f32.  A Cholesky factor that fails comes back NaN, as
 ``jax.scipy.linalg.cho_factor``'s does, without a host read.
 
-The JAX package's ``policy.consult`` (bf16-first routing) waits for the
-port's policy layer (ROADMAP Queue A item 3): the port returns what the
-JAX package returns under ``SKYLARK_POLICY=0`` and writes no
-``info["policy"]``.  Not ported yet, each raising ``UnsupportedError``:
-``KrrParams.checkpoint_dir`` (checkpointed CG, item 8).
+``approximate_kernel_ridge`` writes the routing decision (kind
+``"krr"``) into ``model.info["policy"]``.  It is the JAX package's
+default decision: the bf16-first Gram that a matured profile may
+choose waits for the profile store (ROADMAP Queue A item 3b).
+``KrrParams.checkpoint_dir`` runs faster KRR's CG on the resilient
+runner, checkpointed every ``checkpoint_every`` iterations.
 
 Out of core: ``streaming_approximate_kernel_ridge`` accumulates the
 feature normal equations over ``(X_block, y_block)`` batches
@@ -48,7 +49,7 @@ from dataclasses import dataclass
 
 import torch
 
-from .. import guard
+from .. import guard, policy
 from .._device import as_tensor
 from ..core.context import SketchContext
 from ..core.params import Params
@@ -56,7 +57,7 @@ from ..core.random import _const
 from ..sketch.base import Dimension, create_sketch
 from ..solvers.krylov import KrylovParams, cg
 from ..resilient import chunked
-from ..utils.exceptions import UnsupportedError
+from ..utils.sparse import is_sparse
 from .kernels import Kernel, _dense
 from .model import FeatureMapModel, KernelModel
 
@@ -71,9 +72,6 @@ __all__ = [
     "streaming_approximate_kernel_ridge",
 ]
 
-_ITEM8 = "ROADMAP Queue A item 8: robustness (resilient runner, checkpoints)"
-
-
 @dataclass
 class KrrParams(Params):
     """≙ ``krr_params_t`` (krr.hpp:8-46)."""
@@ -86,7 +84,7 @@ class KrrParams(Params):
     res_print: int = 10
     iter_lim: int = 1000
     max_split: int = 0              # feature chunk size (large-scale)
-    # Checkpointed CG (the JAX package's ResilientRunner): not ported yet.
+    # Faster KRR's CG on the resilient runner (checkpoint and resume).
     checkpoint_dir: str | None = None
     checkpoint_every: int = 25
     resume: bool = False
@@ -165,7 +163,8 @@ def approximate_kernel_ridge(
     non-finite Cholesky factor (a singular or indefinite-by-rounding
     regularized Gram) falls back to the eigh pseudoinverse solve, the
     coefficients pass a finiteness sentinel, and
-    ``model.info["recovery"]`` records the attempts.
+    ``model.info["recovery"]`` records the attempts and
+    ``model.info["policy"]`` the routing decision.
     """
     params = params or KrrParams()
     X = as_tensor(X, device)
@@ -174,6 +173,8 @@ def approximate_kernel_ridge(
     Z = S.apply(X, Dimension.ROWWISE)  # (n, s)
     if params.sketched_rr:
         return _solve_sketched_ridge(S, Z, Y2, lam, s, context, params)
+    decision = policy.consult("krr", m=X.shape[0], n=int(s), targets=Y2.shape[1],
+                              dtype=Z.dtype, sparse=is_sparse(X), device=Z.device)
     guarded = guard.enabled()
     report = (guard.RecoveryReport(stage="approximate_krr") if guarded
               else guard.RecoveryReport.disabled("approximate_krr"))
@@ -193,7 +194,7 @@ def approximate_kernel_ridge(
     if guarded:
         guard.check_finite(W, "approximate_krr", report=report)
     model = FeatureMapModel([S], W)
-    model.info = {"recovery": report.to_dict()}
+    model.info = {"recovery": report.to_dict(), "policy": decision.to_dict()}
     return model
 
 
@@ -261,10 +262,15 @@ def faster_kernel_ridge(
 ):
     """CG on (K + λI)·A = Y preconditioned by the random-feature
     covariance (≙ ``FasterKernelRidge``, krr.hpp:452-543).  ``model.info``
-    is CG's ``{"iterations", "flag", "resid"}``."""
+    is CG's ``{"iterations", "flag", "resid"}``.
+
+    With ``params.checkpoint_dir`` the CG runs on the resilient runner
+    (``cg_chunked``, a checkpoint every ``checkpoint_every`` iterations,
+    ``resume`` to restart from the newest one).  The Gram and the
+    preconditioner are rebuilt from ``(X, context)`` on resume, so only
+    the CG state is checkpointed; chunked CG steps are the one-shot
+    steps, so the result is bitwise the unchecked solve's."""
     params = params or KrrParams()
-    if params.checkpoint_dir:
-        raise UnsupportedError(f"KrrParams.checkpoint_dir is not ported yet ({_ITEM8})")
     X = _dense(X, device)
     Y2 = _as2d(as_tensor(Y, X.device))
     K = kernel.gram(X)
@@ -272,7 +278,18 @@ def faster_kernel_ridge(
     P = _FeatureMapPrecond(kernel, lam, X, s, context, params)
     kp = KrylovParams(tolerance=params.tolerance, iter_lim=params.iter_lim)
     dt = torch.promote_types(K.dtype, Y2.dtype)
-    A, info = cg(K.to(dt), Y2.to(dt), precond=P, params=kp)
+    if params.checkpoint_dir:
+        from ..resilient import ResilientParams, ResilientRunner
+        from ..solvers.krylov import cg_chunked
+
+        A, info = ResilientRunner(
+            cg_chunked(K.to(dt), Y2.to(dt), precond=P, params=kp),
+            ResilientParams(am_i_printing=params.am_i_printing, log_level=params.log_level,
+                            prefix=params.prefix, checkpoint_dir=params.checkpoint_dir,
+                            checkpoint_every=params.checkpoint_every, resume=params.resume),
+        ).run()
+    else:
+        A, info = cg(K.to(dt), Y2.to(dt), precond=P, params=kp)
     model = KernelModel(kernel, X, A)
     model.info = info
     return model

@@ -4,6 +4,7 @@
   (≙ ``algorithms/Krylov/``);
 - ``precond``: identity, matrix and triangular-inverse preconditioners;
 - ``accelerated``: Blendenpik / LSRN sketch-to-precondition least squares;
+- ``refine``: sketch-preconditioned mixed-precision iterative refinement;
 - ``cond_est``: condition-number estimation with certificates
   (≙ ``nla/CondEst.hpp``);
 - ``regression``: the regression-problem dispatch;
@@ -11,8 +12,7 @@
   loss.hpp``, ``regularizers.hpp``).
 
 Not ported yet, each raising ``UnsupportedError`` naming its ROADMAP
-item: ``refine_least_squares`` (item 3), ``asy_fcg`` and
-``randomized_block_gauss_seidel`` (item 10).
+item: ``asy_fcg`` and ``randomized_block_gauss_seidel`` (item 10).
 """
 
 from ..utils.exceptions import deferred
@@ -31,11 +31,9 @@ from .krylov import (
 )
 from .precond import IdPrecond, MatPrecond, TriInversePrecond
 from .prox import LOSSES, REGULARIZERS, get_loss, get_regularizer
+from .refine import RefineParams, refine_least_squares
 from .regression import RegressionProblem, solve_regression
 
-refine_least_squares = deferred(
-    "refine_least_squares",
-    "ROADMAP Queue A item 3: policy, plans and refine around approximate_least_squares")
 asy_fcg = deferred("asy_fcg", "ROADMAP Queue A item 10: solvers/asynch.py")
 randomized_block_gauss_seidel = deferred(
     "randomized_block_gauss_seidel", "ROADMAP Queue A item 10: solvers/gauss_seidel.py")
@@ -61,6 +59,7 @@ __all__ = [
     "CondEstResult",
     "RegressionProblem",
     "solve_regression",
+    "RefineParams",
     "refine_least_squares",
     "asy_fcg",
     "randomized_block_gauss_seidel",

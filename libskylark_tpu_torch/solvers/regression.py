@@ -2,13 +2,12 @@
 ``libskylark_tpu/solvers/regression.py``, ≙ ``algorithms/regression/``):
 
 - penalty "l2": ``exact`` (QR/SNE/NE/SVD), ``sketched``
-  (sketch-and-solve), ``accelerated`` (Blendenpik), ``lsrn``, and
-  ``auto`` (the JAX package's policy-routed sketch route; with no policy
-  store, which this slice does not port, it is ``sketched``);
+  (sketch-and-solve), ``refine`` (mixed-precision refinement, with its
+  info), ``accelerated`` (Blendenpik), ``lsrn``, and ``auto`` (the
+  route left to the policy decision; with no profile store, which waits
+  for ROADMAP Queue A item 3b, it is ``sketched``);
 - penalty "l1": a Cauchy (MMT) sketch, then IRLS on the small problem;
 - ``ridge`` regularization by the augmented system ``[A; √λ I]``.
-
-``solver="refine"`` waits for ROADMAP Queue A item 3.
 """
 
 from __future__ import annotations
@@ -21,14 +20,12 @@ import torch
 from .._device import as_tensor
 from ..core.context import SketchContext
 from ..linalg.least_squares import (
-    _ITEM3,
     LeastSquaresParams,
     approximate_least_squares,
     exact_least_squares,
 )
 from ..sketch.base import Dimension
 from ..sketch.hash import MMT
-from ..utils.exceptions import UnsupportedError
 from .accelerated import faster_least_squares, lsrn_least_squares
 
 __all__ = ["RegressionProblem", "solve_regression"]
@@ -79,8 +76,9 @@ def solve_regression(problem: RegressionProblem, B, solver: str = "exact",
                      params: Any = None, *, device=None):
     """Dispatch ≙ the ``regression_solver_t`` specializations.
 
-    ``solver`` ∈ {"exact", "sketched", "accelerated", "lsrn", "auto"};
-    returns X, or ``(X, info)`` for the iterative solvers.
+    ``solver`` ∈ {"exact", "sketched", "refine", "accelerated", "lsrn",
+    "auto"}; returns X, or ``(X, info)`` for the iterative solvers,
+    refine included.
     """
     A = as_tensor(problem.A, device)
     B = as_tensor(B, A.device if device is None else device)
@@ -100,11 +98,12 @@ def solve_regression(problem: RegressionProblem, B, solver: str = "exact",
         raise ValueError(f"unknown solver {solver!r}")
     if context is None:
         raise ValueError(f"{solver} solver needs a SketchContext")
-    if solver == "refine":
-        raise UnsupportedError(f"solver 'refine' is not ported yet ({_ITEM3})")
-    if solver in ("auto", "sketched"):
+    if solver in ("auto", "sketched", "refine"):
+        # "sketched" and "refine" pin their route; "auto" leaves it to the
+        # policy decision.
+        route = {"auto": None, "sketched": "sketch"}.get(solver, solver)
         return approximate_least_squares(A, B, context, params or LeastSquaresParams(),
-                                         alg=alg, route="sketch")
+                                         alg=alg, route=route, return_info=solver == "refine")
     if solver == "accelerated":
         return faster_least_squares(A, B, context, params)
     return lsrn_least_squares(A, B, context, params)

@@ -8,6 +8,7 @@ from .exceptions import (
     IOError_,
     InvalidParameters,
     NumericalHealthError,
+    RefinementError,
     SketchError,
     SkylarkError,
     StaleEpochError,
@@ -20,6 +21,6 @@ from .timer import PhaseTimer, aggregate_report, timer_report
 __all__ = ["SkylarkError", "AllocationError", "InvalidParameters", "SketchError",
            "UnsupportedError", "IOError_",
            "ConvergenceError", "CheckpointError", "StaleEpochError",
-           "NumericalHealthError", "deferred", "save_solver_state", "load_solver_state",
+           "NumericalHealthError", "RefinementError", "deferred", "save_solver_state", "load_solver_state",
            "CheckpointStore", "coo_from_bcoo_arrays", "is_sparse",
            "linear_ops", "PhaseTimer", "timer_report", "aggregate_report"]

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 __all__ = ["SkylarkError", "AllocationError", "InvalidParameters", "SketchError",
            "UnsupportedError", "IOError_", "ConvergenceError", "CheckpointError",
-           "NumericalHealthError", "StaleEpochError", "deferred"]
+           "NumericalHealthError", "StaleEpochError", "RefinementError", "deferred"]
 
 
 class SkylarkError(Exception):
@@ -85,6 +85,24 @@ class StaleEpochError(SkylarkError):
         super().__init__(msg)
         self.expected = expected
         self.got = got
+
+
+class RefinementError(SkylarkError):
+    """Mixed-precision iterative refinement stagnated or diverged: the
+    f64 residual gate was not reached before the stagnation/divergence
+    detector fired.  Under the guard ladder this is a RESKETCH verdict
+    (the ladder falls to a fresh sketch, a grown one, and the exact
+    dense solve), so it reaches a caller only under ``SKYLARK_GUARD=0``.
+    ``iters`` is the sweep budget, ``residual`` the certificate's cond
+    estimate, and ``stage`` the pipeline stage (``"refine_ls"``)."""
+
+    code = 115
+
+    def __init__(self, msg, iters=None, residual=None, stage=None):
+        super().__init__(msg)
+        self.iters = iters
+        self.residual = residual
+        self.stage = stage
 
 
 def deferred(name: str, item: str):

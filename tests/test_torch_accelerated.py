@@ -190,10 +190,9 @@ def test_ls_accelerated_routes_match_jax(rng, route, k):
         return_info=True)
     xj, ij = J.linalg.approximate_least_squares(
         jnp.asarray(A), jnp.asarray(B), J.SketchContext(seed=4), route=route, return_info=True)
-    ij = dict(ij)
-    del ij["policy"]  # the policy decision waits for ROADMAP Queue A item 3
     _assert_solution((xt, it), (xj, ij))
     assert set(it) == set(ij)
+    assert it["policy"] == ij["policy"]
 
 
 @pytest.mark.parametrize("stype,alg,k", [
@@ -251,11 +250,16 @@ def test_ls_guarded_is_bitwise_unguarded(rng, monkeypatch, stype):
 
 
 def test_ls_deferred_options_raise():
-    A = torch.zeros(8, 2)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        T.linalg.approximate_least_squares(A, torch.zeros(8), T.SketchContext(),
-                                           fault_plan=object())
-    D = A.to_sparse()
+    # fault_plan= is ported (tests/test_torch_refine.py holds its verdicts
+    # against the JAX package): a plan with no fault leaves the solve
+    # bitwise as it is.  Sparse Blendenpik and LSRN still raise.
+    A = torch.from_numpy(np.random.default_rng(2).standard_normal((64, 2)))
+    b = A @ torch.ones(2, dtype=A.dtype)
+    x, info = T.linalg.approximate_least_squares(A, b, T.SketchContext(), return_info=True,
+                                                 fault_plan=T.resilient.FaultPlan())
+    assert torch.equal(x, T.linalg.approximate_least_squares(A, b, T.SketchContext()))
+    assert info["recovery"]["attempts"][0]["verdict"] == "OK"
+    D = torch.zeros(8, 2).to_sparse()
     for route in ("blendenpik", "lsrn"):
         with pytest.raises(UnsupportedError, match="ROADMAP Queue C"):
             T.linalg.approximate_least_squares(D, torch.zeros(8), T.SketchContext(),
@@ -312,8 +316,9 @@ def test_solve_regression_errors():
         treg.solve_regression(treg.RegressionProblem(P.A, penalty="l1"), b)
     with pytest.raises(ValueError, match="unknown solver"):
         treg.solve_regression(P, b, "bogus", T.SketchContext())
-    with pytest.raises(NotImplementedError, match="item 3"):
-        treg.solve_regression(P, b, "refine", T.SketchContext())
+    for solver in ("refine", "accelerated"):
+        with pytest.raises(ValueError, match="SketchContext"):
+            treg.solve_regression(P, b, solver)
     assert P.shape == (6, 2)
     for name in ("solve_regression", "RegressionProblem", "faster_least_squares",
                  "lsrn_least_squares", "FasterLeastSquaresParams"):

@@ -35,7 +35,8 @@ def test_port_files_found():
             "prox.py", "sampling.py", "krr.py", "rlsc.py", "admm.py", "nonlinear.py",
             "checkpoint.py", "faults.py", "runner.py", "pipeline.py", "overlap.py",
             "engine.py", "drivers.py", "quasirand.py", "quasi.py", "spectral.py", "deps.py",
-            "community.py", "ase.py"} <= names
+            "community.py", "ase.py", "refine.py", "decide.py", "profile.py",
+            "record.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

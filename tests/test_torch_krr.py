@@ -22,7 +22,6 @@ import libskylark_tpu as J
 import libskylark_tpu_torch as T
 from libskylark_tpu.ml import krr as jkrr
 from libskylark_tpu_torch.ml import krr as tkrr
-from libskylark_tpu_torch.utils.exceptions import UnsupportedError
 
 DIRECT = 1e-10
 CG_TOL = 1e-6
@@ -81,7 +80,7 @@ def test_approximate_kernel_ridge_matches_jax(rng, use_fast, targets):
     assert _rel(tm.W, jm.W) <= DIRECT
     assert tm.info["recovery"] == jm.info["recovery"]
     assert tm.maps[0].to_dict() == jm.maps[0].to_dict()
-    assert "policy" not in tm.info
+    assert tm.info["policy"] == jm.info["policy"]
 
 
 @pytest.mark.parametrize("fast_sketch", [False, True])
@@ -270,15 +269,68 @@ def test_port_trained_models_load_in_jax(rng, tmp_path):
         assert _rel(tm.predict(torch.from_numpy(Xt)), jm.predict(jnp.asarray(Xt))) <= DIRECT
 
 
-def test_deferred_parts_raise_naming_their_item(rng):
-    # The streaming solvers are ported (tests/test_torch_streaming.py);
-    # checkpointed CG is what is left.
+def _same_info(a, b):
+    """CG's info dicts bitwise equal (values are tensors or numbers)."""
+    return a.keys() == b.keys() and all(
+        torch.equal(torch.as_tensor(a[k]), torch.as_tensor(b[k])) for k in a)
+
+
+def test_deferred_parts_raise_naming_their_item(rng, tmp_path):
+    # Nothing of ml/krr.py is deferred any more: the streaming solvers are
+    # ported (tests/test_torch_streaming.py) and so is checkpointed CG,
+    # whose run writes rotated checkpoints and is bitwise the unchecked one
+    # (chunked CG steps are the one-shot steps).
     assert T.ml.streaming_kernel_ridge is tkrr.streaming_kernel_ridge
-    X, Y = _data(rng, n=20)
-    with pytest.raises(UnsupportedError, match="item 8"):
-        tkrr.faster_kernel_ridge(_kernels()[1], torch.from_numpy(X), torch.from_numpy(Y), 0.1,
-                                 8, T.SketchContext(seed=1),
-                                 tkrr.KrrParams(checkpoint_dir="ckpt"))
+    X, Y = _data(rng, n=40)
+    args = (_kernels()[1], torch.from_numpy(X), torch.from_numpy(Y), 0.1, 8)
+    plain = tkrr.faster_kernel_ridge(*args, T.SketchContext(seed=1))
+    ck = tkrr.faster_kernel_ridge(*args, T.SketchContext(seed=1), tkrr.KrrParams(
+        checkpoint_dir=str(tmp_path / "ckpt"), checkpoint_every=3))
+    assert torch.equal(ck.A, plain.A)
+    assert _same_info(ck.info, plain.info)
+    assert sorted(p.name for p in (tmp_path / "ckpt").iterdir())
+
+
+def test_checkpointed_faster_kernel_ridge_resumes_bitwise(rng, tmp_path, monkeypatch):
+    """A checkpointed faster-KRR solve preempted after chunk 1 and resumed
+    is bitwise the uninterrupted checkpointed solve (and both the unchecked
+    one); the result is held against the JAX package's checkpointed run
+    at the CG tolerance, with the same iteration count."""
+    X, Y = _data(rng, targets=2)
+    jk, tk = _kernels(sigma=3.0)
+    p = dict(tolerance=1e-8, iter_lim=200, checkpoint_every=4)
+
+    def port(directory, **kw):
+        return tkrr.faster_kernel_ridge(
+            tk, torch.from_numpy(X), torch.from_numpy(Y), 0.3, 128, T.SketchContext(seed=5),
+            tkrr.KrrParams(checkpoint_dir=str(tmp_path / directory), **p, **kw))
+
+    whole = port("whole")
+    plain = tkrr.faster_kernel_ridge(
+        tk, torch.from_numpy(X), torch.from_numpy(Y), 0.3, 128, T.SketchContext(seed=5),
+        tkrr.KrrParams(tolerance=1e-8, iter_lim=200))
+    assert torch.equal(whole.A, plain.A)
+    assert int(whole.info["iterations"]) > 2 * p["checkpoint_every"]  # chunk 1 is not the last
+
+    runner = T.resilient.ResilientRunner
+
+    class Preempted(runner):
+        def __init__(self, solver, params=None, **kw):
+            super().__init__(solver, params, fault_plan=T.resilient.FaultPlan(
+                preempt_after_chunk=1))
+
+    monkeypatch.setattr(T.resilient, "ResilientRunner", Preempted)
+    with pytest.raises(T.resilient.SimulatedPreemption):
+        port("killed")
+    monkeypatch.setattr(T.resilient, "ResilientRunner", runner)
+    resumed = port("killed", resume=True)
+    assert torch.equal(resumed.A, whole.A)
+    assert _same_info(resumed.info, whole.info)
+    jm = jkrr.faster_kernel_ridge(
+        jk, jnp.asarray(X), jnp.asarray(Y), 0.3, 128, J.SketchContext(seed=5),
+        jkrr.KrrParams(checkpoint_dir=str(tmp_path / "jax"), **p))
+    assert _rel(whole.A, jm.A) <= CG_TOL
+    assert int(whole.info["iterations"]) == int(jm.info["iterations"])
 
 
 def test_exports_match_jax():

@@ -301,9 +301,12 @@ def test_exports():
                  "MatPrecond", "TriInversePrecond"):
         assert hasattr(T.solvers, name)
     assert T.resilient.ChunkedSolver is tk.ChunkedSolver
-    for name in ("asy_fcg", "randomized_block_gauss_seidel", "refine_least_squares"):
+    for name in ("asy_fcg", "randomized_block_gauss_seidel"):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
             getattr(T.solvers, name)()
+    # Refinement is ported (tests/test_torch_refine.py).
+    assert T.solvers.refine_least_squares.__module__.endswith("solvers.refine")
+    assert "RefineParams" in T.solvers.__all__
     # The prox library is ported (tests/test_torch_prox.py).
     assert T.solvers.get_loss("hinge").name == "hinge"
     assert T.solvers.get_regularizer("l1").name == "l1"

@@ -104,15 +104,22 @@ def test_approximate_least_squares_is_near_optimal(rng):
 
 @pytest.mark.parametrize("route", ["refine", "blendenpik", "lsrn", "exact"])
 def test_deferred_routes_raise(route):
-    # Blendenpik and LSRN are ported (tests/test_torch_accelerated.py);
-    # what still raises there is a sparse A, which the JAX package cannot
-    # solve on those routes either (ROADMAP Queue C).
-    A = torch.zeros(8, 2)
-    if route in ("blendenpik", "lsrn"):
-        A = A.to_sparse()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.linalg.approximate_least_squares(A, torch.zeros(8), T.SketchContext(),
-                                           route=route)
+    # Every route is ported (tests/test_torch_accelerated.py,
+    # tests/test_torch_refine.py).  A sparse A still raises on refine,
+    # Blendenpik and LSRN, which the JAX package cannot solve either
+    # (ROADMAP Queue C); the exact route densifies it and solves.
+    A = torch.zeros(8, 2, dtype=torch.float64)
+    A[0, 0], A[3, 1], A[5, 0] = 2.0, -1.0, 0.5
+    b = torch.arange(8, dtype=torch.float64)
+    if route == "exact":
+        x = T.linalg.approximate_least_squares(A.to_sparse(), b, T.SketchContext(),
+                                               route=route)
+        want = T.linalg.exact_least_squares(A, b, alg="svd")
+        assert torch.allclose(x, want, rtol=1e-12, atol=0)
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue C"):
+            T.linalg.approximate_least_squares(A.to_sparse(), b, T.SketchContext(),
+                                               route=route)
     with pytest.raises(ValueError):
         T.linalg.approximate_least_squares(A, torch.zeros(8), T.SketchContext(),
                                            route="bogus")

@@ -74,7 +74,7 @@ def test_supported_sketch_transforms_is_the_jax_list_less_the_unported():
 @pytest.mark.parametrize("name", [
     "SkylarkError", "AllocationError", "InvalidParameters", "SketchError",
     "UnsupportedError", "IOError_", "ConvergenceError", "CheckpointError",
-    "NumericalHealthError", "StaleEpochError",
+    "NumericalHealthError", "StaleEpochError", "RefinementError",
 ])
 def test_error_codes_match_jax(name):
     ported, reference = getattr(T.utils, name), getattr(JE, name)

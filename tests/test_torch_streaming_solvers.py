@@ -41,8 +41,8 @@ def test_streaming_least_squares_matches_jax(rng, f64_default):
         blocks_of(torch.from_numpy(A), torch.from_numpy(b)), n, d, T.SketchContext(seed=11),
         tp, stream_params=cpu())
     assert _rel(xt, xj) <= 1e-10
-    assert {"rows", "batches", "seconds", "recovery"} == set(it)
-    assert set(it) <= set(ij)  # the JAX package adds its policy decision
+    assert {"rows", "batches", "seconds", "recovery", "policy"} == set(it) == set(ij)
+    assert it["policy"] == ij["policy"]
     # The default sketch is JLT at 4·d for a dense stream, as in the JAX package.
     S = T.sketch.JLT(n, 4 * d, T.SketchContext(seed=11))
     x_def, _ = T.linalg.streaming_least_squares(
