@@ -94,7 +94,15 @@ paths:
   arrays, and drawn inside the graph) bitwise eager and pass to pass; a
   ragged stream that captures once per rung of the bucket ladder; the
   warm start from a fresh profile store; one capture of every
-  registered transform and rowwise bucketed batches, bitwise eager.
+  registered transform and rowwise bucketed batches, bitwise eager;
+- the command-line drivers (``cli_path``), run in process through
+  ``main(argv)`` on files written from the seed at the widths of
+  YearPredictionMSD (linear: Blendenpik with ``--cond-est``, sketch-and-
+  solve, ``--stream``; svd), mnist (krr and ml on Fastfood features, the
+  saved model's streamed predict) and SNAP com-Youtube (graph_se streamed
+  and in core, community), each against an f64 reference beside a
+  control that misses, the reads through the port's native parser, the
+  host seconds split into read, copy to the card and solve.
 
 It exits non-zero, printing no result, without a CUDA device or without
 the package beside it.  It imports nothing of JAX.
@@ -105,6 +113,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -295,6 +304,28 @@ PK_RAGGED = (9000, 65_536, 23_000, 41_000, 12_000, 30_000, 50_000, 17_000)
 PK_N, PK_SK, PK_COLS = 300, 40, (5, 20)
 PK_ROWWISE_K = (5, 20, 33, 48, 9000)   # rowwise batches, bucketed against the eager ragged apply
 PK_PARAMS = {"NURST": {"probs": np.linspace(1.0, 2.0, PK_N)}, "SJLT": {"nnz": 2}}
+# The command-line drivers (phase 3l), run in process through main(argv)
+# on files written from the seed into CLI_DIR (build/cli_data/, ignored by
+# git), once per seed and shape.  The widths are those of public data sets
+# the reference's drivers are run on, and no row is cut: YearPredictionMSD's
+# training split (LIBSVM collection, 463,715 x 90, dense; its first
+# CLI_LS_TOP columns scaled up, b = A x + g) for linear and svd; mnist's
+# training and test splits (LIBSVM collection, 60,000 and 10,000 x 784, 10
+# classes, written dense) for krr and ml; SNAP com-Youtube's 1,134,890
+# vertices and 2,987,624 edges for graph_se and community (CLI_BLOCKS
+# planted communities of CLI_BLOCK_V vertices, CLI_BLOCK_IN internal and
+# CLI_BLOCK_OUT external edges per member, in a background on the rest:
+# phase 3h's planted cluster, whose conductance the local clustering finds
+# at LC_EPS; at 2000 vertices and 40 edges it stops after 17 vertices).
+# Accuracy: test accuracy >= CLI_ACC_BOUND (PERF.md 2's training bound).
+CLI_DIR = HERE / "build" / "cli_data"
+CLI_LS_M, CLI_LS_N, CLI_LS_TOP, CLI_LS_BATCH = 463_715, 90, 10, 65_536
+CLI_MN_M, CLI_MN_T, CLI_MN_D, CLI_MN_K, CLI_MN_NOISE = 60_000, 10_000, 784, 10, 0.5
+CLI_MN_S, CLI_MN_SIGMA, CLI_MN_LAM = 4096, 20.0, 0.01
+CLI_ML_ITERS, CLI_ML_LAM = 20, 0.01
+CLI_YT_V, CLI_YT_E = 1_134_890, 2_987_624
+CLI_BLOCKS, CLI_BLOCK_V, CLI_BLOCK_IN, CLI_BLOCK_OUT = 8, 1000, 30, 2
+CLI_ASE_K, CLI_ACC_BOUND = 8, 0.9
 
 
 def fail(msg: str) -> None:
@@ -3588,6 +3619,568 @@ def plans_path(sky, dev, reset_counts, read_counts, smi) -> set:
     return held
 
 
+# -- phase 3l: the command-line drivers on files read from disk --------------
+
+_POW10 = 10 ** np.arange(19, dtype=np.int64)
+
+
+def decimal_fields(q: np.ndarray, int_digits: int, frac_digits: int, signed: bool) -> np.ndarray:
+    """uint8 (..., width): each ``q / 10**frac_digits`` written at a fixed
+    width, ``[+-]I..I.F..F`` with leading zeros (which both the native
+    parser's strtod and Python's float read), made with array arithmetic,
+    no per-value formatting."""
+    nd = int_digits + frac_digits
+    a = np.abs(q)
+    check(bool((a < _POW10[nd]).all()), f"decimal_fields: a value needs more than {nd} digits")
+    digits = (a[..., None] // _POW10[nd - 1::-1][:nd]) % 10  # most significant first
+    width = int(signed) + nd + (1 if frac_digits else 0)
+    out = np.empty(q.shape + (width,), np.uint8)
+    o = 0
+    if signed:
+        out[..., 0] = np.where(q < 0, ord("-"), ord("+"))
+        o = 1
+    out[..., o:o + int_digits] = digits[..., :int_digits] + ord("0")
+    if frac_digits:
+        out[..., o + int_digits] = ord(".")
+        out[..., o + int_digits + 1:] = digits[..., int_digits:] + ord("0")
+    return out
+
+
+def write_dense_libsvm(f, y_fields: np.ndarray, x_fields, rows: int, block: int = 4096) -> None:
+    """Write a dense LIBSVM file: row i is ``y_fields[i]`` then `` j:``
+    and ``x_fields(lo, hi)[i - lo, j - 1]`` for every column j, in blocks
+    of ``block`` rows, each block one array concatenation."""
+    prefixes = None
+    for lo in range(0, rows, block):
+        hi = min(lo + block, rows)
+        xf = x_fields(lo, hi)
+        n, d, _ = xf.shape
+        if prefixes is None:
+            prefixes = [np.frombuffer(f" {j + 1}:".encode(), np.uint8) for j in range(d)]
+        parts = [y_fields[lo:hi]]
+        for j in range(d):
+            parts += [np.broadcast_to(prefixes[j], (n, prefixes[j].size)), xf[:, j]]
+        parts.append(np.full((n, 1), ord("\n"), np.uint8))
+        f.write(np.concatenate(parts, axis=1).tobytes())
+
+
+def int_lines(cols: list) -> bytes:
+    """The rows of non-negative int64 columns as decimal text, space
+    separated and newline ended, made with array arithmetic."""
+    lens = [np.searchsorted(_POW10[1:], c, side="right") + 1 for c in cols]
+    width = sum(lens) + len(cols)
+    ends = np.cumsum(width)
+    pos = ends - width
+    buf = np.empty(int(ends[-1]), np.uint8)
+    for i, (c, n) in enumerate(zip(cols, lens)):
+        for p in range(int(n.max())):
+            m = n > p
+            buf[pos[m] + n[m] - 1 - p] = ord("0") + (c[m] // _POW10[p]) % 10
+        pos = pos + n
+        buf[pos] = ord(" ") if i < len(cols) - 1 else ord("\n")
+        pos = pos + 1
+    return buf.tobytes()
+
+
+def cli_file(name: str, make) -> Path:
+    """``CLI_DIR/name``, written by ``make(f)`` unless it exists (through a
+    temporary name and ``os.replace``, so a cut run leaves no half file)."""
+    path = CLI_DIR / name
+    if not path.exists():
+        CLI_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        t0 = time.perf_counter()
+        with open(tmp, "wb") as f:
+            make(f)
+        os.replace(tmp, path)
+        print(f"cli: wrote {path.name}, {path.stat().st_size / 1e6:.1f} MB, in "
+              f"{time.perf_counter() - t0:.1f} s")
+    return path
+
+
+def cli_ls_data(seed: int):
+    """YearPredictionMSD's shape (CLI_LS_M x CLI_LS_N, dense): A with its
+    first CLI_LS_TOP columns scaled up (a spectrum the rank-k SVD can
+    separate), b = A x + g, both at 6 decimals: the integer arrays
+    ``(A_q, b_q)`` of the values times 10^6, and the file."""
+    rng = np.random.default_rng(seed)
+    scale = np.ones(CLI_LS_N)
+    scale[:CLI_LS_TOP] = 8.0 * (1.0 - 0.05 * np.arange(CLI_LS_TOP))
+    A_q = np.rint(rng.standard_normal((CLI_LS_M, CLI_LS_N)) * scale * 1e6).astype(np.int64)
+    b_q = np.rint((A_q @ rng.standard_normal(CLI_LS_N)) + 1e6 * rng.standard_normal(CLI_LS_M))
+    b_q = b_q.astype(np.int64)
+    path = cli_file(f"year-{seed}-{CLI_LS_M}x{CLI_LS_N}.svm", lambda f: write_dense_libsvm(
+        f, decimal_fields(b_q, 3, 6, True),
+        lambda lo, hi: decimal_fields(A_q[lo:hi], 3, 6, True), CLI_LS_M))
+    return A_q, b_q, path
+
+
+def cli_mnist_data(seed: int):
+    """mnist's shape: CLI_MN_K classes planted as class templates in
+    [0.1, 0.9]^CLI_MN_D plus noise, clipped to [0, 1), values at 6
+    decimals, labels 0-9; train CLI_MN_M and test CLI_MN_T rows, written
+    dense.  Returns ``((X_q, y), path)`` for each split."""
+    rng = np.random.default_rng(seed + 1)
+    templates = rng.uniform(0.1, 0.9, (CLI_MN_K, CLI_MN_D))
+    splits = []
+    for name, m in (("train", CLI_MN_M), ("test", CLI_MN_T)):
+        y = rng.integers(0, CLI_MN_K, m)
+        X = templates[y] + CLI_MN_NOISE * rng.standard_normal((m, CLI_MN_D))
+        X_q = np.rint(np.clip(X, 0.0, 0.999999) * 1e6).astype(np.int64)
+        path = cli_file(f"mnist-{seed}-{name}-{m}x{CLI_MN_D}.svm", lambda f: write_dense_libsvm(
+            f, decimal_fields(y, 1, 0, False),
+            lambda lo, hi: decimal_fields(X_q[lo:hi], 1, 6, False), m))
+        splits.append(((X_q, y), path))
+    return splits
+
+
+def cli_graph_data(seed: int):
+    """An arc list at SNAP com-Youtube's scale (CLI_YT_V vertices,
+    CLI_YT_E edges): CLI_BLOCKS planted communities of CLI_BLOCK_V
+    vertices (ids below CLI_BLOCKS * CLI_BLOCK_V; CLI_BLOCK_IN internal
+    and CLI_BLOCK_OUT external edges per member), and a background on the
+    other vertices (a path through all of them, so every vertex is named,
+    and random pairs), deduplicated, shuffled, each edge in a random
+    direction.  Vertex names are the ids in decimal.  Returns ``(u, v,
+    path)``."""
+    rng = np.random.default_rng(seed + 2)
+    n, nb = CLI_YT_V, CLI_BLOCKS * CLI_BLOCK_V
+    blk = np.repeat(np.arange(CLI_BLOCKS), CLI_BLOCK_V * CLI_BLOCK_IN // 2)
+    u_in = blk * CLI_BLOCK_V + rng.integers(0, CLI_BLOCK_V, blk.size)
+    v_in = blk * CLI_BLOCK_V + rng.integers(0, CLI_BLOCK_V, blk.size)
+    u_out = np.repeat(np.arange(nb), CLI_BLOCK_OUT)
+    v_out = rng.integers(nb, n, u_out.size)
+    walk = nb + rng.permutation(n - nb)
+
+    def unique_edges(u, v):
+        """Canonical codes lo * n + hi of the distinct non-loop edges, in
+        the order of their first occurrence."""
+        lo, hi = np.minimum(u, v), np.maximum(u, v)
+        code = (lo * n + hi)[lo != hi]
+        _, first = np.unique(code, return_index=True)
+        return code[np.sort(first)]
+
+    planted = unique_edges(np.concatenate([u_in, u_out, walk[:-1]]),
+                           np.concatenate([v_in, v_out, walk[1:]]))
+    n_bg = int(1.02 * (CLI_YT_E - planted.size)) + 16
+    bg = unique_edges(rng.integers(nb, n, n_bg), rng.integers(nb, n, n_bg))
+    # The planted edges first, all kept; background edges up to the count.
+    code = unique_edges(np.concatenate([planted // n, bg // n]),
+                        np.concatenate([planted % n, bg % n]))[:CLI_YT_E]
+    check(code.size == CLI_YT_E, f"cli graph: {code.size} unique edges, not {CLI_YT_E}")
+    code = code[rng.permutation(code.size)]
+    lo, hi = code // n, code % n
+    flip = rng.random(code.size) < 0.5
+    u, v = np.where(flip, hi, lo), np.where(flip, lo, hi)
+    path = cli_file(f"youtube-{seed}-{n}v-{CLI_YT_E}e.txt",
+                    lambda f: f.write(b"# planted-partition graph at com-Youtube's scale\n"
+                                      + int_lines([u, v])))
+    return u, v, path
+
+
+def _rss_sampler():
+    """A thread sampling the process's resident set (``/proc/self/statm``)
+    every 20 ms; ``stop()`` returns the peak in GiB, or None where the
+    file is not there."""
+    import threading
+
+    statm = Path("/proc/self/statm")
+    if not statm.exists():
+        return lambda: None
+    page = os.sysconf("SC_PAGE_SIZE")
+    peak = [0]
+    done = threading.Event()
+
+    def run():
+        while not done.wait(0.02):
+            peak[0] = max(peak[0], int(statm.read_text().split()[1]) * page)
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+
+    def stop():
+        done.set()
+        thread.join()
+        return peak[0] / 2**30
+
+    return stop
+
+
+def cli_path(sky, dev, reset_counts, read_counts, smi) -> set:
+    """Phase 3l: the reference's command-line drivers, run in process
+    through each one's ``main(argv)`` on the card, on files written from
+    the seed (``cli_ls_data``, ``cli_mnist_data``, ``cli_graph_data``):
+    ``linear`` three times (Blendenpik with ``--cond-est``, ``--solver
+    sketched``, ``--stream``), ``svd``, ``krr`` and ``ml`` (Fastfood
+    maps), ``graph_se`` (``--streamed``, and in core with power
+    iterations), ``community`` and ``convert2hdf5``.  Each driver runs
+    with the launch counters and the native parser's counters reset
+    before it and read after it (path ``cli (<driver>)``); its host
+    seconds are split into the read (the native parse inside it), the
+    copy to the card and the rest, beside its peak memory.  Each result
+    is held to its bound in PERF.md §2 beside a control that misses, and
+    the first launch of each kernel signature against its plain version.
+    Returns the signatures held."""
+    import contextlib
+    import io as io_
+
+    from libskylark_tpu_torch import native
+    from libskylark_tpu_torch.cli import common as cli_common
+    from libskylark_tpu_torch.graph import stream as gs
+    from libskylark_tpu_torch.sketch import kernels_fut as kf
+    from libskylark_tpu_torch.sketch import kernels_scatter as ks
+    from libskylark_tpu_torch.sketch import kernels_window as kw
+
+    card = f"[{smi}]"
+    check(native.available(), "cli: the native C core did not build (g++)")
+    print(f"cli: native library {native.library_path()} {card}")
+    out_dir = CLI_DIR / "out"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    A_q, b_q, ls_file = cli_ls_data(SEED)
+    (mn_train, train_file), (mn_test, test_file) = cli_mnist_data(SEED)
+    gu, gv, graph_file = cli_graph_data(SEED)
+    print(f"cli: data from the seed in {time.perf_counter() - t0:.1f} s: {ls_file.name}, "
+          f"{train_file.name}, {test_file.name}, {graph_file.name} (no rows cut)")
+
+    held = set()
+
+    def segsum_held(out, vals, keys, segs):
+        ref = ks.segment_sum_flat_plain(vals, keys, segs)
+        _, r = max_err(out, ref)
+        i = int(vals.abs().argmax())
+        ctl = ks.segment_sum_flat_plain(torch.cat([vals[:i], vals[i + 1:]]),
+                                        torch.cat([keys[:i], keys[i + 1:]]), segs)
+        _, c = max_err(out, ctl)
+        print(f"cli (held) segment_sum_flat {vals.shape[0]} -> {segs} {vals.dtype}: vs its plain "
+              f"version rel {r:.3g} (tol 1e-5); control (the plain version without entry {i}) "
+              f"{c:.3g}")
+        check(r <= 1e-5 and c > 1e-5, f"cli segment_sum_flat {vals.shape[0]}: {r}, control {c}")
+
+    restore = hold_kernels("cli", kf, kw, ("rfut_rowwise", "rfut_rowwise_sampled",
+                                           "gather_scaled_rows", "scatter_rows"), held)
+    restore.append((ks, "segment_sum_flat", hold(ks, "segment_sum_flat", segsum_held, held)))
+
+    # Host seconds of the drivers' reads and copies, from stand-ins for
+    # the functions they call (looked up at call time, as the drivers
+    # import them inside main).
+    spent = {}
+
+    def timed(mod, name, key, sync=False):
+        fn = getattr(mod, name)
+
+        def stand_in(*args, **kwargs):
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
+            spent[key] = spent.get(key, 0.0) + time.perf_counter() - t
+            return out
+
+        setattr(mod, name, stand_in)
+        return mod, name, fn
+
+    restore += [timed(sky.io, "read_libsvm", "read"), timed(sky.graph, "read_arc_list", "read"),
+                timed(sky.io, "scan_libsvm_dims", "scan"),
+                timed(cli_common, "to_device", "copy", sync=True)]
+    totals, by_kernel = {}, {}
+
+    def drive(label, name, argv, expect, file_mb, libsvm=True):
+        from importlib import import_module
+
+        main_fn = import_module(f"libskylark_tpu_torch.cli.{name}").main
+        spent.clear()
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        stop_rss = _rss_sampler()
+        buf = io_.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = main_fn([str(a) for a in argv])
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t
+        host_peak = stop_rss()
+        out = buf.getvalue()
+        for line in out.splitlines():
+            print(f"cli ({label}) | {line}")
+        check(rc == 0, f"cli ({label}): exit code {rc}")
+        counts = read_counts(f"cli ({label})", t, expect)
+        if libsvm:
+            check(native.parse_libsvm_bytes.calls > 0,
+                  f"cli ({label}): the LIBSVM reads did not go through the native parser")
+        for name, count in counts.items():
+            by_kernel[name] = by_kernel.get(name, 0) + count
+        calls, nbytes, nsec = (native.parse_libsvm_bytes.calls, native.parse_libsvm_bytes.bytes,
+                               native.parse_libsvm_bytes.seconds)
+        read, scan, copy = (spent.get(k, 0.0) for k in ("read", "scan", "copy"))
+        native_s = (f"native parser {calls} calls, {nbytes / 1e6:.1f} MB in {nsec:.3f} s "
+                    f"({nbytes / 1e6 / nsec:.1f} MB/s)" if calls else "native parser not called")
+        read_s = (f"read {read:.3f} s ({file_mb / read:.1f} MB/s of {file_mb:.1f} MB)" if read
+                  else f"read inside the stream ({file_mb:.1f} MB)")
+        if scan:
+            read_s += f" + the shape scan {scan:.3f} s ({file_mb / scan:.1f} MB/s)"
+        print(f"cli ({label}): {total:.3f} s of host clock = {read_s}; {native_s}; copy to the "
+              f"card {copy:.3f} s; solve and the rest {total - read - scan - copy:.3f} s; "
+              f"peak memory on the card {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, "
+              f"host resident {host_peak if host_peak is None else round(host_peak, 2)} GiB "
+              f"{card}")
+        totals[label] = {"seconds": total, "read": read, "scan": scan, "copy": copy,
+                         "native_calls": calls}
+        return out, counts
+
+    def mb(path):
+        return path.stat().st_size / 1e6
+
+    def number(pattern, out):
+        found = re.search(pattern, out)
+        check(found is not None, f"cli: no {pattern!r} in the driver's output")
+        return float(found.group(1))
+
+    # (a) linear: Blendenpik (the default) with --cond-est, sketch-and-solve,
+    # and the streamed sketch-and-solve, each against an f64 lstsq.
+    A64, b64 = A_q / 1e6, b_q / 1e6
+    x_ref, *_ = np.linalg.lstsq(A64, b64, rcond=None)
+    r_ref = float(np.linalg.norm(A64 @ x_ref - b64))
+
+    def solution(path):
+        x = np.load(path).astype(np.float64)
+        return x, float(np.linalg.norm(A64 @ x - b64)) / r_ref, \
+            float(np.abs(x - x_ref).max() / np.abs(x_ref).max())
+
+    out, _ = drive("linear", "linear", [ls_file, "--cond-est", "--solution", out_dir / "x_acc.npy"],
+                   ("gather_scaled_rows", "scatter_rows"), mb(ls_file))
+    x_acc, ratio_acc, err_acc = solution(out_dir / "x_acc.npy")
+    cond = number(r"Cond-est: cond ([0-9.e+-]+),", out)
+    A_dev = torch.from_numpy(A64.astype(np.float32)).to(dev)
+    s_ce = 4 * CLI_LS_N
+    SA = sky.sketch.CWT(CLI_LS_M, s_ce, sky.SketchContext(seed=38734)).apply(A_dev)
+    cond_exact = float(np.linalg.cond(SA.double().cpu().numpy()))
+    SA_ctl = SA.double().clone()
+    SA_ctl[:, 0] *= 100.0
+    cond_ctl = float(np.linalg.cond(SA_ctl.cpu().numpy()))
+    print(f"cli (linear): Blendenpik x vs the f64 lstsq max rel {err_acc:.3g} (bound "
+          f"{NLA_X_TOL}), residual ratio {ratio_acc!r} (bound {NLA_RATIO_BOUND}); --cond-est "
+          f"{cond:.6g} against cond(S·A) {cond_exact:.6g} of the same CWT sketch (within 1.1x); "
+          f"control (column 0 of S·A scaled by 100) {cond_ctl:.6g}")
+    check(err_acc <= NLA_X_TOL and ratio_acc <= NLA_RATIO_BOUND,
+          f"cli (linear): x rel {err_acc}, ratio {ratio_acc}")
+    check(max(cond / cond_exact, cond_exact / cond) <= 1.1 < cond_ctl / cond,
+          f"cli (linear): cond-est {cond}, exact {cond_exact}, control {cond_ctl}")
+    del SA, SA_ctl
+
+    drive("linear sketched", "linear", [ls_file, "--solver", "sketched", "--solution",
+                                        out_dir / "x_sk.npy"], ("gather_scaled_rows",), mb(ls_file))
+    x_sk, ratio_sk, err_sk = solution(out_dir / "x_sk.npy")
+    S_n = sky.sketch.FJLT(CLI_LS_M, CLI_LS_N, sky.SketchContext(seed=38734))
+    b_dev = torch.from_numpy(b64.astype(np.float32)).to(dev)
+    x_ctl = torch.linalg.lstsq(S_n.apply(A_dev), S_n.apply(b_dev[:, None])).solution[:, 0]
+    ratio_ctl = float(np.linalg.norm(A64 @ x_ctl.double().cpu().numpy() - b64)) / r_ref
+    print(f"cli (linear sketched): residual ratio {ratio_sk!r} (bound {LS_RATIO_BOUND}); control "
+          f"(FJLT at s = n) {ratio_ctl:.4g}; the Blendenpik bound on x (control for it) missed "
+          f"by this x: {err_sk:.3g}")
+    check(ratio_sk <= LS_RATIO_BOUND < ratio_ctl and err_sk > NLA_X_TOL,
+          f"cli (linear sketched): ratio {ratio_sk}, control {ratio_ctl}, x rel {err_sk}")
+
+    drive("linear stream", "linear", [ls_file, "--stream", "--batch-rows", CLI_LS_BATCH,
+                                      "--solution", out_dir / "x_st.npy"], (), mb(ls_file))
+    x_st, ratio_st, _ = solution(out_dir / "x_st.npy")
+
+    def whole_file(seed):
+        S = sky.sketch.JLT(CLI_LS_M, 4 * CLI_LS_N, sky.SketchContext(seed=seed))
+        return sky.linalg.exact_least_squares(S.apply(A_dev), S.apply(b_dev[:, None]))[:, 0]
+
+    x_whole = whole_file(38734).double().cpu().numpy()
+    x_other = whole_file(38735).double().cpu().numpy()
+    d_st = float(np.abs(x_st - x_whole).max() / np.abs(x_whole).max())
+    d_ctl = float(np.abs(x_other - x_whole).max() / np.abs(x_whole).max())
+    print(f"cli (linear stream): residual ratio {ratio_st!r} (bound {LS_RATIO_BOUND}); x vs the "
+          f"whole-file solve with the stream's sketch (JLT, s = 4n) max rel {d_st:.3g} (tol 1e-5, "
+          f"the streaming tests' f32 bound); control (the same at seed + 1) {d_ctl:.3g}; "
+          f"Blendenpik x vs this x {float(np.abs(x_acc - x_st).max() / np.abs(x_st).max()):.3g} "
+          f"(different sketches: not checked)")
+    check(ratio_st <= LS_RATIO_BOUND and d_st <= 1e-5 < d_ctl,
+          f"cli (linear stream): ratio {ratio_st}, vs whole file {d_st}, control {d_ctl}")
+    del A_dev, b_dev, x_ctl
+
+    # (b) svd, rank CLI_LS_TOP, two power iterations, on the same file.
+    drive("svd", "svd", [ls_file, "-k", CLI_LS_TOP, "-i", 2, "--prefix", out_dir / "year"], (),
+          mb(ls_file))
+    s_got = np.load(out_dir / "year.S.npy").astype(np.float64)
+    s_ref = np.sqrt(np.linalg.eigvalsh(A64.T @ A64)[::-1][:CLI_LS_TOP])
+    Q = np.linalg.qr(np.random.default_rng(SEED).standard_normal((CLI_LS_N, CLI_LS_TOP)))[0]
+    s_ctl = np.linalg.svd(A64 @ Q, compute_uv=False)
+    e_svd = float(np.abs(s_got - s_ref).max() / s_ref[0])
+    e_ctl = float(np.abs(s_ctl - s_ref).max() / s_ref[0])
+    print(f"cli (svd): sigma vs sqrt(eigvalsh(A^T A)) f64 max rel {e_svd:.3g} (bound 1e-3); "
+          f"control (A on a random {CLI_LS_TOP}-dim basis) {e_ctl:.3g}")
+    check(e_svd <= 1e-3 < e_ctl, f"cli (svd): {e_svd}, control {e_ctl}")
+    del A64, b64, A_q, b_q
+
+    # (c) krr (approximate RLSC on Fastfood features) and ml (BlockADMM on
+    # Fastfood maps) on the mnist-shaped files: test accuracy, a control of
+    # random coefficients, and the saved model reloaded on the card and on
+    # the CPU.
+    (Xt_q, yt), files_mb = mn_test, mb(train_file) + mb(test_file)
+    Xt = torch.from_numpy((Xt_q / 1e6).astype(np.float32)).to(dev)
+    del mn_train
+
+    def model_checks(label, out, model_file):
+        acc = number(r"Test accuracy: ([0-9.]+)%", out) / 100
+        model = sky.ml.load_model(str(model_file))
+        pred = model.predict_labels(Xt).cpu().numpy()
+        acc_reload = float((pred == yt).mean())
+        W = model.W
+        model.W = torch.randn(W.shape, generator=torch.Generator(dev).manual_seed(SEED),
+                              device=dev, dtype=W.dtype)
+        acc_ctl = float((model.predict_labels(Xt).cpu().numpy() == yt).mean())
+        model.W = W
+        rows = Xt[:ML_CHECK_ROWS]
+        on_cpu = sky.ml.load_model(str(model_file), device="cpu").predict(rows.cpu())
+        _, e_cpu = max_err(model.predict(rows).cpu(), on_cpu)
+        print(f"cli ({label}): test accuracy {acc:.4f} (bound {CLI_ACC_BOUND}); the model file "
+              f"reloaded predicts {acc_reload:.4f}; control (random coefficients) {acc_ctl:.4f}; "
+              f"card vs the CPU route on {ML_CHECK_ROWS} rows rel {e_cpu:.3g} (tol "
+              f"{TRAIN_CPU_TOL})")
+        check(acc >= CLI_ACC_BOUND > acc_ctl and abs(acc_reload - acc) < 1e-4
+              and e_cpu <= TRAIN_CPU_TOL,
+              f"cli ({label}): acc {acc}, reloaded {acc_reload}, control {acc_ctl}, cpu {e_cpu}")
+
+    out, _ = drive("krr", "krr", ["--trainfile", train_file, "--testfile", test_file,
+                                  "--modelfile", out_dir / "krr.json", "-a", 2, "--use-fast",
+                                  "-f", CLI_MN_S, "--sigma", CLI_MN_SIGMA, "--lambda", CLI_MN_LAM],
+                   ("rfut_rowwise",), files_mb)
+    model_checks("krr", out, out_dir / "krr.json")
+    out, _ = drive("ml", "ml", ["--trainfile", train_file, "--testfile", test_file, "--modelfile",
+                                out_dir / "ml.json", "--usefast", "-g", CLI_MN_SIGMA, "-f", CLI_MN_S,
+                                "-n", 4, "-i", CLI_ML_ITERS, "-l", "hinge", "--lambda", CLI_ML_LAM],
+                   ("rfut_rowwise",), files_mb)
+    model_checks("ml", out, out_dir / "ml.json")
+    acc_train_run = number(r"Test accuracy: ([0-9.]+)%", out)
+    out, _ = drive("ml predict", "ml", ["--testfile", test_file, "--modelfile", out_dir / "ml.json",
+                                        "--outputfile", out_dir / "ml.pred", "--batch", 4096],
+                   ("rfut_rowwise",), mb(test_file))
+    acc_stream = number(r"Test accuracy: ([0-9.]+)%", out)
+    n_pred = len((out_dir / "ml.pred").read_text().splitlines())
+    print(f"cli (ml predict): the saved model's streamed predict {acc_stream}% on {n_pred} rows, "
+          f"the training run's {acc_train_run}%")
+    check(acc_stream == acc_train_run and n_pred == CLI_MN_T,
+          f"cli (ml predict): {acc_stream} vs {acc_train_run}, {n_pred} predictions")
+    del Xt
+
+    # (d) graph_se, streamed (the adjacency sketch folded in edge blocks)
+    # and in core with power iterations, and community, on the arc list.
+    n = CLI_YT_V
+    flat = np.stack([gu, gv], axis=1).ravel()
+    names, first = np.unique(flat, return_index=True)
+    ids = np.empty(n, np.int64)
+    ids[names[np.argsort(first)]] = np.arange(names.size)  # read_arc_list's interning
+    check(names.size == n, f"cli graph: {names.size} vertices named, not {n}")
+    r, c = ids[gu], ids[gv]
+    g_idx = torch.from_numpy(np.stack([np.concatenate([r, c]), np.concatenate([c, r])]))
+    A_cpu = torch.sparse_coo_tensor(g_idx, torch.ones(g_idx.shape[1]), (n, n),
+                                    check_invariants=False)
+    out, _ = drive("graph_se streamed", "graph_se",
+                   [graph_file, "--streamed", "-k", CLI_ASE_K, "--batch-edges", 1 << 20,
+                    "--prefix", out_dir / "yt_streamed"], ("segment_sum_flat",), mb(graph_file),
+                   libsvm=False)
+
+    def eigenvalues(out):
+        found = re.search(r"eigenvalues: \[([^\]]*)\]", out)
+        check(found is not None, "cli graph_se: no eigenvalues printed")
+        return np.array([float(v) for v in found.group(1).split()])
+
+    lam = eigenvalues(out)
+
+    def lam_cpu(seed):
+        S = sky.sketch.SJLT(n, 2 * CLI_ASE_K, sky.SketchContext(seed=seed))
+        _, lam_ = gs.ase_from_sketch(gs.incore_adjacency_sketch(A_cpu, S), S, CLI_ASE_K)
+        return np.sort(lam_.numpy().astype(np.float64))
+
+    ref, other = lam_cpu(38734), lam_cpu(38735)
+    e_lam = float(np.abs(np.sort(lam) - ref).max() / np.abs(ref).max())
+    e_ctl = float(np.abs(other - ref).max() / np.abs(ref).max())
+    print(f"cli (graph_se streamed): eigenvalues vs the CPU eigensolve of the plain in-core sketch "
+          f"rel {e_lam:.3g} (tol 1e-4, phase 3c's); control (the sketch at seed + 1) {e_ctl:.3g}")
+    check(e_lam <= 1e-4 < e_ctl, f"cli (graph_se streamed): {e_lam}, control {e_ctl}")
+
+    out, _ = drive("graph_se", "graph_se", [graph_file, "--sparse", "-i", ASE_ITERS, "-k",
+                                            CLI_ASE_K, "--prefix", out_dir / "yt"], (),
+                   mb(graph_file), libsvm=False)
+    lam = torch.from_numpy(eigenvalues(out)).to(dev, torch.float32)
+    X = torch.from_numpy(np.load(out_dir / "yt.X.npy")).to(dev)
+    V = X / lam.abs().sqrt()[None, :]
+    A_g = A_cpu.float().to(dev)
+
+    def residuals(B):
+        return (torch.sparse.mm(A_g, B) - B * lam[None, :]).norm(dim=0) / lam.abs()
+
+    res = residuals(V)
+    g = torch.Generator(dev).manual_seed(SEED)
+    res_ctl = residuals(torch.linalg.qr(torch.randn(n, CLI_ASE_K, generator=g, device=dev))[0])
+    print(f"cli (graph_se): in core, sparse, q = {ASE_ITERS}: max ||A v - lam v|| / |lam| "
+          f"{float(res.max()):.3g} (bound {ASE_RES_BOUND}); control (a random orthonormal basis) "
+          f"min {float(res_ctl.min()):.3g}")
+    check(float(res.max()) <= ASE_RES_BOUND < float(res_ctl.min()),
+          f"cli (graph_se): residuals {res.tolist()}, control {res_ctl.tolist()}")
+    del A_g, X, V, A_cpu, g_idx
+
+    deg = np.bincount(np.concatenate([gu, gv]), minlength=n)
+    vol_all = int(deg.sum())
+
+    def conductance(members):
+        inside = np.zeros(n, bool)
+        inside[members] = True
+        cut = int((inside[gu] != inside[gv]).sum())
+        vol = int(deg[members].sum())
+        return cut / min(vol, vol_all - vol), vol
+
+    planted, vol = conductance(np.arange(CLI_BLOCK_V))
+    out, _ = drive("community", "community", [graph_file, "--seed", 0, "--recursive",
+                                              "--epsilon", LC_EPS], (), mb(graph_file),
+                   libsvm=False)
+    cond_found = number(r"Conductance: ([0-9.]+)", out)
+    members = np.array(out.split("Cluster:")[1].split(), np.int64)
+    perm = np.random.default_rng(SEED).permutation(n)
+    random_set = perm[:int(np.searchsorted(np.cumsum(deg[perm]), vol)) + 1]
+    ctl, _ = conductance(random_set)
+    overlap = len(set(members.tolist()) & set(range(CLI_BLOCK_V))) / len(
+        set(members.tolist()) | set(range(CLI_BLOCK_V)))
+    print(f"cli (community): from vertex 0, recursive, epsilon {LC_EPS}: {members.size} vertices, "
+          f"conductance {cond_found:.6f} against the planted block's {planted:.6f} (within "
+          f"{LC_COND_TOL:.0%}), Jaccard overlap {overlap:.4f}; control (a random set of the same "
+          f"volume) {ctl:.4f}")
+    check(abs(cond_found - planted) <= LC_COND_TOL * planted < abs(ctl - planted),
+          f"cli (community): {cond_found}, planted {planted}, control {ctl}")
+
+    # (e) convert2hdf5: HDF5 needs h5py, which a machine may lack.
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        from libskylark_tpu_torch.cli.convert2hdf5 import main as convert
+
+        try:
+            convert([str(test_file), str(out_dir / "test.h5")])
+            fail("cli (convert2hdf5): ran without h5py")
+        except ImportError as e:
+            print(f"cli (convert2hdf5): not run here: {e}")
+    else:
+        drive("convert2hdf5", "convert2hdf5", [test_file, out_dir / "test.h5"], (), mb(test_file))
+        Xh, yh = sky.io.read_hdf5(out_dir / "test.h5")
+        check(np.array_equal(yh, yt) and np.array_equal(Xh, Xt_q / 1e6),
+              "cli (convert2hdf5): the HDF5 file does not hold the test split")
+
+    for mod, name, fn in restore:
+        setattr(mod, name, fn)
+    print(f"cli: launches over the drivers {by_kernel}; host seconds "
+          f"{ {k: round(v['seconds'], 3) for k, v in totals.items()} } {card}")
+    for name in ("gather_scaled_rows", "scatter_rows", "rfut_rowwise", "segment_sum_flat"):
+        check(by_kernel.get(name, 0) > 0, f"cli: {name} was not launched by the drivers")
+    check({name for name, count in by_kernel.items() if count} <= {sig[0] for sig in held},
+          f"cli: kernels launched {by_kernel}, held {held}")
+    return held
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
@@ -3895,10 +4488,14 @@ def main() -> None:
     path_launches = {}
     rfut_by_nb = {}  # path -> rfut_rowwise's launches by NB
 
+    from libskylark_tpu_torch import native
+
     def reset_counts():
         for w in wrappers.values():
             w.launches = 0
         wrappers["rfut_rowwise"].launches_by_nb = {}
+        native.parse_libsvm_bytes.calls = native.parse_libsvm_bytes.bytes = 0
+        native.parse_libsvm_bytes.seconds = 0.0
 
     def read_counts(path, t0, expect):
         counts = {name: w.launches for name, w in wrappers.items()}
@@ -4139,6 +4736,14 @@ def main() -> None:
     # -- 3k. the plans layer: captured applies and stream steps, warm start
     plans_held = plans_path(sky, dev, reset_counts, read_counts, smi)
 
+    memory("3k")
+
+    # -- 3l. the command-line drivers, on files read from disk -------------
+    torch.cuda.empty_cache()
+    cli_held = cli_path(sky, dev, reset_counts, read_counts, smi)
+
+    memory("3l")
+
     # -- 4. times at main-path shapes ------------------------------------
     kernels = []
 
@@ -4146,9 +4751,9 @@ def main() -> None:
             path_count=None, err=None, shape=None, split=None):
         b_ms, by = bound(bytes_moved, ops)
         by_path = {p: c[name] for p, c in path_launches.items() if c[name]}
-        # Phases 3i's and 3j's items, and their sums under "refine" and
-        # "policy", on every row.
-        for phase in ("refine", "policy"):
+        # Phases 3i's, 3j's and 3l's items, and their sums under "refine",
+        # "policy" and "cli", on every row.
+        for phase in ("refine", "policy", "cli"):
             by_path[phase] = sum(c[name] for p, c in path_launches.items()
                                  if p.startswith(f"{phase} ("))
         kernels.append({
@@ -4165,6 +4770,9 @@ def main() -> None:
             # warm-up, outside its capture).
             "plans_held": sorted(str(sig[1:]).replace("torch.", "")
                                  for sig in plans_held if sig[0] == name),
+            # ... and those phase 3l held.
+            "cli_held": sorted(str(sig[1:]).replace("torch.", "")
+                               for sig in cli_held if sig[0] == name),
             "max_abs_err": errs[name] if err is None else err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
             "library_ms": library_ms, **({"shape": shape} if shape else {}), **(split or {}),

@@ -33,16 +33,20 @@ profile store shared with the JAX package which route, sketch size and
 precision rung a problem class should take.  The plans layer
 (``plans``) captures sketch applies and stream steps as CUDA graphs,
 keyed on the sketch's JSON and the input signature, and buckets ragged
-batches onto a row ladder.
+batches onto a row ladder.  The IO layer (``io``) reads LIBSVM (through
+the port's own native C parser, ``native``), HDF5 and arc lists, and the
+reference's command-line drivers (``cli``: ``python -m
+libskylark_tpu_torch.cli.linear FILE`` and the others) run the ported
+solvers on data read from disk.
 """
 
 from ._device import set_default_device
-from . import (core, flagship, graph, guard, linalg, ml, plans, policy, resilient, sketch,
+from . import (core, flagship, graph, guard, io, linalg, ml, plans, policy, resilient, sketch,
                solvers, streaming, utils)
 from .core.context import SketchContext
 
 __version__ = "0.1.0"
 
 __all__ = ["SketchContext", "sketch", "linalg", "solvers", "guard", "resilient", "graph",
-           "ml", "flagship", "core", "utils", "streaming", "plans", "policy",
+           "ml", "flagship", "core", "utils", "streaming", "plans", "policy", "io",
            "set_default_device"]

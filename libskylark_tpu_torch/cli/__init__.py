@@ -1,0 +1,9 @@
+"""Command-line drivers of the port (≙ reference ``nla/skylark_*.cpp``,
+``ml/skylark_*.cpp``; port of ``libskylark_tpu/cli``).
+
+Run as modules: ``python -m libskylark_tpu_torch.cli.linear FILE`` etc.
+Each driver keeps the JAX package's flags, exit codes and printed lines,
+and adds ``--device {cuda,cpu}`` (default ``cuda``: without a card the
+run raises unless ``--device cpu`` is given).  ``serve`` and ``top``
+wait for ROADMAP Queue A item 10 (``serve/``, ``telemetry/``).
+"""

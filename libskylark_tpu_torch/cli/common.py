@@ -1,0 +1,360 @@
+"""Shared helpers for the port's CLI drivers (port of
+``libskylark_tpu/cli/common.py``).
+
+Beside the JAX package's helpers: ``--device`` and :func:`run_scope`,
+which set the port's default device (and, under ``--x64``, torch's
+default dtype) for one run and put them back after it, and
+:func:`to_device`, the host→card copy of what the IO layer read (f32, or
+f64 under ``--x64``, as ``jnp.asarray`` gives).  Flags whose layer the
+port lacks raise :class:`~libskylark_tpu_torch.utils.UnsupportedError`
+naming the ROADMAP item that brings it.
+"""
+
+from __future__ import annotations
+
+import warnings
+from contextlib import contextmanager
+
+import numpy as np
+import torch
+
+from .. import _device
+from ..utils.exceptions import UnsupportedError
+from ..utils.sparse import is_sparse
+
+__all__ = [
+    "FILE_FORMATS",
+    "add_device_args",
+    "add_perf_args",
+    "add_policy_args",
+    "add_telemetry_args",
+    "float_dtype",
+    "in_run_dtype",
+    "load_classes",
+    "load_dataset",
+    "print_perf_report",
+    "print_policy_report",
+    "print_telemetry_report",
+    "print_test_metrics",
+    "refuse_deferred",
+    "run_scope",
+    "scan_dims",
+    "setup_perf",
+    "setup_policy",
+    "setup_telemetry",
+    "stream_dataset",
+    "sync",
+    "to_device",
+    "to_numpy",
+]
+
+ITEM_MULTI_DEVICE = "ROADMAP Queue A item 9: multi-device"
+ITEM_TELEMETRY = "ROADMAP Queue A item 10: telemetry"
+
+
+def add_device_args(p) -> None:
+    """The port's device flag (every driver)."""
+    p.add_argument(
+        "--device", choices=("cuda", "cpu"), default="cuda",
+        help="where the driver computes: the card (default; a run without "
+             "one raises) or the CPU, which takes each kernel's plain "
+             "PyTorch version",
+    )
+
+
+@contextmanager
+def run_scope(args):
+    """Resolve ``--device`` (raising without a card unless it is ``cpu``)
+    and make it the port's default device for the run; ``--x64`` makes
+    f64 torch's default dtype, as ``jax_enable_x64`` does in the JAX
+    package.  Both are put back when the run ends, so drivers called in
+    one process do not leak into each other."""
+    dev = _device.resolve_device(args.device)
+    prev_device, prev_dtype = _device._DEFAULT_DEVICE, torch.get_default_dtype()
+    _device.set_default_device(dev)
+    if getattr(args, "x64", False):
+        torch.set_default_dtype(torch.float64)
+    try:
+        yield dev
+    finally:
+        _device._DEFAULT_DEVICE = prev_device
+        torch.set_default_dtype(prev_dtype)
+
+
+def float_dtype(args) -> torch.dtype:
+    return torch.float64 if getattr(args, "x64", False) else torch.float32
+
+
+def in_run_dtype(batches, args):
+    """Host batches ``(X, y)`` (numpy or a COO X, numpy y) as CPU tensors
+    in the run's dtype (f32, or f64 under ``--x64``), as the JAX
+    package's placer casts them; the stream's placer copies them."""
+    dtype = float_dtype(args)
+    for X, y in batches:
+        X = X if isinstance(X, torch.Tensor) else torch.from_numpy(X)
+        yield X.to(dtype), torch.from_numpy(y).to(dtype)
+
+
+def to_device(X, args, device=None):
+    """The host→card copy of a dataset array: numpy or a dense tensor
+    becomes a dense tensor, a sparse COO stays one (uncoalesced, its
+    entries in order), in f32 (f64 under ``--x64``) on ``device`` (the
+    run's default)."""
+    dev = _device.resolve_device(device)
+    dtype = float_dtype(args)
+    if is_sparse(X):
+        return X.to(device=dev, dtype=dtype)
+    return torch.as_tensor(np.asarray(X) if not isinstance(X, torch.Tensor) else X,
+                           dtype=dtype, device=dev)
+
+
+def sync() -> None:
+    """Wait for the card (if one is in use) before reading a host clock."""
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+def to_numpy(x) -> np.ndarray:
+    """A host numpy copy of a tensor (dense or COO) or array."""
+    if isinstance(x, torch.Tensor):
+        x = x.to_dense() if is_sparse(x) else x
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def refuse_deferred(args) -> None:
+    """Raise UnsupportedError for a flag of a layer the port lacks: the
+    multi-device flags wait for ROADMAP Queue A item 9."""
+    for flag in ("shard", "distributed", "resume_policy", "collective_timeout"):
+        if getattr(args, flag, None) not in (None, False):
+            raise UnsupportedError(
+                f"--{flag.replace('_', '-')} is not ported yet ({ITEM_MULTI_DEVICE})")
+
+
+def add_perf_args(p) -> None:
+    """The shared compilation/plan observability flags (every driver)."""
+    p.add_argument(
+        "--xla-cache-dir", default=None,
+        help="persistent XLA compilation cache directory (a JAX package "
+             "flag: the port has no XLA cache and warns that it is not "
+             "applied)",
+    )
+    p.add_argument(
+        "--plan-stats", action="store_true",
+        help="print the sketch-plan cache counters "
+             "(hits/misses/traces/compile time) on exit",
+    )
+
+
+def setup_perf(args) -> None:
+    """--xla-cache-dir takes the JAX package's own "not applied" path: the
+    port compiles no XLA executables, so there is no cache to point."""
+    if not getattr(args, "xla_cache_dir", None):
+        return
+    warnings.warn(
+        "--xla-cache-dir not applied (the PyTorch port has no XLA "
+        "compilation cache); continuing without the persistent "
+        "compilation cache",
+        RuntimeWarning,
+        stacklevel=2,
+    )
+
+
+def print_perf_report(args) -> None:
+    """Emit the plan-cache counter block when --plan-stats was given."""
+    if not getattr(args, "plan_stats", False):
+        return
+    from .. import plans
+
+    st = plans.stats()
+    print(
+        "plan cache: "
+        f"{st['hits']} hits / {st['misses']} misses, "
+        f"{st['traces']} traces, {st['compiles']} compiles "
+        f"({st['compile_seconds']:.3f}s), "
+        f"{st['bypasses']} bypasses, "
+        f"{st['size']}/{st['max_size']} plans resident"
+        + (f", {st['evictions']} evicted" if st["evictions"] else "")
+    )
+
+
+def add_policy_args(p) -> None:
+    """The shared adaptive-policy flags (every driver)."""
+    g = p.add_mutually_exclusive_group()
+    g.add_argument(
+        "--policy", dest="policy", action="store_true", default=None,
+        help="enable the adaptive execution policy (the default; "
+             "profile-driven routing/autotuning once --policy-dir or "
+             "SKYLARK_POLICY_DIR points at a profile store)",
+    )
+    g.add_argument(
+        "--no-policy", dest="policy", action="store_false",
+        help="disable the policy layer (sets SKYLARK_POLICY=0): "
+             "default routes, no profile reads or writes, no warm start",
+    )
+    p.add_argument(
+        "--policy-dir", default=None,
+        help="profile-store directory (profile-<pid>.json per process); "
+             "enables persistent autotuning profiles and warm-start "
+             "plan replay across runs",
+    )
+
+
+def setup_policy(args) -> None:
+    """Apply the policy flags and warm-start the process (on the run's
+    device: call it inside :func:`run_scope`)."""
+    import os
+
+    from .. import policy
+
+    if getattr(args, "policy", None) is False:
+        os.environ["SKYLARK_POLICY"] = "0"
+        return
+    if getattr(args, "policy", None) is True:
+        os.environ["SKYLARK_POLICY"] = "1"
+    if getattr(args, "policy_dir", None):
+        policy.configure(args.policy_dir)
+    ws = policy.warm_start()
+    if ws["enabled"] and (ws["plans_replayed"] or ws["xla_cache_dir"]):
+        print(
+            f"policy warm start: {ws['plans_replayed']} plans replayed "
+            f"({ws['plans_skipped']} skipped), "
+            f"xla cache {ws['xla_cache_dir'] or 'unset'}, "
+            f"{ws['seconds']:.3f}s"
+        )
+
+
+def print_policy_report(args) -> None:
+    """Close out a policy run: the JAX package prints its decision
+    counters here, which live in its telemetry registry; the port counts
+    none until its telemetry layer comes (ROADMAP Queue A item 10), so
+    this prints nothing."""
+    return None
+
+
+def add_telemetry_args(p) -> None:
+    """The shared telemetry flags (every driver; they raise in the port)."""
+    p.add_argument(
+        "--telemetry", action="store_true",
+        help="enable the telemetry layer (not ported yet: raises)",
+    )
+    p.add_argument(
+        "--telemetry-dir", default=None,
+        help="directory for the JSONL run ledger (not ported yet: raises)",
+    )
+
+
+def _telemetry_requested(args) -> bool:
+    return bool(
+        getattr(args, "telemetry", False)
+        or getattr(args, "telemetry_dir", None)
+    )
+
+
+def setup_telemetry(args) -> None:
+    """--telemetry/--telemetry-dir raise UnsupportedError: the port's
+    telemetry layer waits for ROADMAP Queue A item 10."""
+    if _telemetry_requested(args):
+        flag = "--telemetry" if getattr(args, "telemetry", False) else "--telemetry-dir"
+        raise UnsupportedError(f"{flag} is not ported yet ({ITEM_TELEMETRY})")
+
+
+def print_telemetry_report(args) -> None:
+    """Nothing to report: a run that asked for telemetry has raised in
+    :func:`setup_telemetry`."""
+    return None
+
+
+# ≙ the reference's --fileformat choices (ml/options.hpp:46-47,173-174):
+# libsvm covers LIBSVM_DENSE/LIBSVM_SPARSE (the --sparse flag picks the
+# container), hdf5_dense/hdf5_sparse name the layout in the file itself
+# (ml/io.hpp:869-889).
+FILE_FORMATS = ("libsvm", "hdf5_dense", "hdf5_sparse")
+
+
+def _widen(X, y, n_features):
+    """Pad X's feature axis up to ``n_features`` (a test file converted
+    from a sparse split can have a smaller max feature index than the
+    train file — the libsvm reader pads the same way)."""
+    if n_features is None or X.shape[1] >= n_features:
+        return X, y
+    if is_sparse(X):  # the same triplets, a wider logical shape
+        X = torch.sparse_coo_tensor(X._indices(), X._values(),
+                                    (X.shape[0], int(n_features)), check_invariants=False)
+    else:
+        X = np.pad(
+            np.asarray(X), ((0, 0), (0, int(n_features) - X.shape[1]))
+        )
+    return X, y
+
+
+def load_dataset(path, fileformat: str, sparse: bool, n_features=None):
+    """(X, y) under any supported --fileformat.  For hdf5_dense,
+    ``sparse`` converts to a COO after the read (matching the libsvm
+    --sparse semantics); hdf5_sparse is sparse by construction."""
+    from ..io import read_hdf5, read_libsvm
+
+    if fileformat == "libsvm":
+        return read_libsvm(path, n_features=n_features, sparse=sparse)
+    if fileformat == "hdf5_dense":
+        return _widen(*read_hdf5(path, sparse=sparse), n_features)
+    if fileformat == "hdf5_sparse":
+        return _widen(*read_hdf5(path, sparse=True), n_features)
+    raise ValueError(f"unknown fileformat {fileformat!r}; use {FILE_FORMATS}")
+
+
+def stream_dataset(path, fileformat: str, d: int, batch: int, sparse: bool):
+    """Bounded-memory (X_batch, y_batch) iterator under any
+    --fileformat (the streaming-predict IO seam)."""
+    from ..io import stream_hdf5, stream_libsvm
+
+    if fileformat == "libsvm":
+        return stream_libsvm(path, d, batch, sparse=sparse)
+    if fileformat == "hdf5_dense":
+        return stream_hdf5(path, batch, sparse=sparse)
+    if fileformat == "hdf5_sparse":
+        return stream_hdf5(path, batch, sparse=True)
+    raise ValueError(f"unknown fileformat {fileformat!r}; use {FILE_FORMATS}")
+
+
+def scan_dims(path, fileformat: str) -> tuple[int, int]:
+    """Global ``(n_examples, n_features)`` of a dataset WITHOUT loading
+    it — streaming drivers need the shape up front (rows address the
+    sketch counter stream).  LIBSVM takes one tokenize-only pass
+    (``io.scan_libsvm_dims``); HDF5 reads the stored shape."""
+    if fileformat == "libsvm":
+        from ..io import scan_libsvm_dims
+
+        return scan_libsvm_dims(path)
+    if fileformat in ("hdf5_dense", "hdf5_sparse"):
+        from ..utils.deps import require
+
+        h5py = require("h5py")
+        with h5py.File(path, "r") as f:
+            if "X" in f:
+                return int(f["X"].shape[0]), int(f["X"].shape[1])
+            d, n, _ = (int(v) for v in f["dimensions"][:])
+            return n, d
+    raise ValueError(f"unknown fileformat {fileformat!r}; use {FILE_FORMATS}")
+
+
+def load_classes(modelfile):
+    """Read the legacy label-decoding sidecar (pre-round-2 models; the
+    coding now rides the model JSON itself — ``ml/model.py``)."""
+    try:
+        return np.load(str(modelfile) + ".classes.npy")
+    except FileNotFoundError:
+        return None
+
+
+def print_test_metrics(model, Xt, yt, regression: bool) -> None:
+    """Uniform test-set scoring block for all drivers."""
+    if regression or getattr(model, "classes", None) is None:
+        pred = to_numpy(model.predict(Xt))
+        pred = pred[:, 0] if pred.ndim > 1 else pred
+        err = np.linalg.norm(pred - yt) / max(np.linalg.norm(yt), 1e-30)
+        print(f"Test relative error: {err:.4f}")
+    else:
+        pred = to_numpy(model.predict_labels(Xt, model.classes))
+        acc = float((pred == yt).mean()) * 100
+        print(f"Test accuracy: {acc:.2f}%")

@@ -1,0 +1,227 @@
+"""skylark-linear: accelerated least-squares driver (port of
+``libskylark_tpu/cli/linear.py``; ≙ ``nla/skylark_linear.cpp:1-201``):
+reads a problem, runs ``faster_least_squares`` (Blendenpik) or the
+``--solver`` chosen, writes the solution as ``.npy`` (readable by either
+package).
+
+Where the port departs from the JAX driver: ``--cond-est`` sketches A
+with CWT whether A is dense or sparse (the JAX driver takes FJLT for a
+dense A, and fails on a sparse one: its QR refuses a BCOO), and a sparse
+A's sketch comes out dense; the multi-device flags (``--shard``,
+``--distributed``, ``--resume-policy``, ``--collective-timeout``) and
+the telemetry flags raise ``UnsupportedError`` naming their ROADMAP
+items.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+import torch
+
+from .common import (
+    add_device_args,
+    add_perf_args,
+    add_policy_args,
+    add_telemetry_args,
+    print_perf_report,
+    print_policy_report,
+    print_telemetry_report,
+    refuse_deferred,
+    run_scope,
+    setup_perf,
+    setup_policy,
+    setup_telemetry,
+)
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="skylark-linear")
+    p.add_argument("inputfile", help="LIBSVM file: features = A, labels = b")
+    p.add_argument("--solution", default="solution.npy")
+    p.add_argument("--seed", type=int, default=38734)
+    p.add_argument("--solver", default="accelerated",
+                   choices=["exact", "sketched", "accelerated", "lsrn",
+                            "refine", "auto"],
+                   help="'refine' is certified mixed-precision iterative "
+                        "refinement; 'auto' lets the adaptive policy route "
+                        "between sketch-and-solve, refine, Blendenpik, "
+                        "LSRN, and exact from the profile store")
+    p.add_argument("--cond-est", action="store_true",
+                   help="print a sketched condition / effective-rank "
+                        "report of A before solving (a CWT sketch of A, "
+                        "QR, cond_est on R, one small SVD)")
+    p.add_argument("--sparse", action="store_true")
+    p.add_argument("--x64", action="store_true")
+    p.add_argument("--shard", action="store_true",
+                   help="shard the input rows over all visible devices "
+                        "(not ported yet: raises)")
+    p.add_argument("--stream", action="store_true",
+                   help="out-of-core sketch-and-solve: stream the input "
+                        "in --batch-rows row blocks instead of reading "
+                        "it whole (one pass; A is never resident)")
+    p.add_argument("--batch-rows", type=int, default=4096,
+                   help="rows per streamed batch (with --stream)")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="with --stream: checkpoint the partial sketch "
+                        "so a killed pass can resume bit-for-bit")
+    p.add_argument("--checkpoint-every", type=int, default=8,
+                   help="streamed batches per checkpoint round")
+    p.add_argument("--resume", action="store_true",
+                   help="resume a streamed pass from the newest valid "
+                        "checkpoint in --checkpoint-dir")
+    p.add_argument("--distributed", action="store_true",
+                   help="with --stream: partition the stream over a "
+                        "multi-process world (not ported yet: raises)")
+    p.add_argument("--resume-policy", default=None,
+                   choices=["strict", "repartition"],
+                   help="with --distributed --resume (not ported yet: "
+                        "raises)")
+    p.add_argument("--collective-timeout", type=float, default=None,
+                   metavar="SECONDS",
+                   help="with --distributed: deadline for cross-host "
+                        "collectives (not ported yet: raises)")
+    add_device_args(p)
+    add_perf_args(p)
+    add_policy_args(p)
+    add_telemetry_args(p)
+    args = p.parse_args(argv)
+
+    refuse_deferred(args)
+    setup_telemetry(args)
+    setup_perf(args)
+    with run_scope(args) as dev:
+        setup_policy(args)
+        if args.stream:
+            return _stream_main(args)
+        return _whole_file_main(args, dev)
+
+
+def _whole_file_main(args, dev) -> int:
+    from ..core.context import SketchContext
+    from ..io import read_libsvm
+    from ..solvers import RegressionProblem, solve_regression
+    from .common import to_device, to_numpy
+
+    A, b = read_libsvm(args.inputfile, sparse=args.sparse)
+    Aj = to_device(A, args)
+    if args.cond_est:
+        _print_cond_est(args, Aj)
+    t0 = time.perf_counter()
+    result = solve_regression(
+        RegressionProblem(Aj),
+        to_device(b, args),
+        solver=args.solver,
+        context=SketchContext(seed=args.seed),
+    )
+    x = result[0] if isinstance(result, tuple) else result
+    x = to_numpy(x)
+    dt = time.perf_counter() - t0
+    xj = torch.as_tensor(x, device=dev)
+    both = torch.promote_types(Aj.dtype, xj.dtype)  # as jnp's f32 @ f64 promotes
+    Ab, xj = Aj.to(both), xj.to(both)
+    Ax = torch.sparse.mm(Ab, xj[:, None])[:, 0] if Ab.layout == torch.sparse_coo else Ab @ xj
+    r = np.linalg.norm(to_numpy(Ax) - b)
+    print(f"Solved {A.shape[0]}x{A.shape[1]} ({args.solver}) in {dt:.3f}s; "
+          f"residual {r:.6e}")
+    info = result[1] if isinstance(result, tuple) else None
+    rf = (info or {}).get("refine") if isinstance(info, dict) else None
+    if rf:
+        gate = rf.get("gate")
+        gate_s = f", gate {gate:.3e}" if isinstance(gate, float) else ""
+        print(f"Refine: {rf.get('iters')} sweeps (rung {rf.get('rung')}, "
+              f"halt {rf.get('halt', 'converged')}{gate_s})")
+    np.save(args.solution, x)
+    print(f"Solution -> {args.solution}")
+    print_perf_report(args)
+    print_policy_report(args)
+    print_telemetry_report(args)
+    return 0
+
+
+def _print_cond_est(args, Aj) -> None:
+    """The serve layer's cond_est report, computed locally: sketch once
+    (CWT, ``s = min(max(4n, n + 16), m)``; a sparse A's sketch comes out
+    dense), QR, short-budget ``cond_est`` on R (which carries S·A's
+    singular values) plus one small SVD for the effective rank — the full
+    (m, n) matrix is never probed directly."""
+    from .. import plans
+    from ..core.context import SketchContext
+    from ..sketch.base import create_sketch
+    from ..solvers.cond_est import CondEstParams, cond_est
+
+    m, n = (int(d) for d in Aj.shape)
+    s = min(max(4 * n, n + 16), m)
+    S = create_sketch("CWT", m, s, SketchContext(seed=args.seed))
+    if Aj.layout == torch.sparse_coo:
+        SA = S.apply(Aj, "columnwise", dense_output=True)
+    else:
+        SA = plans.apply(S, Aj, "columnwise")
+    R = torch.linalg.qr(SA, mode="r").R
+    rep = cond_est(R, SketchContext(seed=0x5EED),
+                   CondEstParams(iter_lim=60, powerits=25))
+    sv = torch.linalg.svdvals(R).cpu().numpy()
+    cutoff = float(np.finfo(sv.dtype).eps) * n * float(sv[0])
+    print(f"Cond-est: cond {float(rep.cond):.4e}, "
+          f"sigma [{float(rep.sigma_min):.4e}, {float(rep.sigma_max):.4e}], "
+          f"effective rank {int((sv > cutoff).sum())}/{n} "
+          f"(sketch size {s})")
+
+
+def _stream_main(args) -> int:
+    """Out-of-core path: one streamed sketch-and-solve pass.
+
+    ≙ the whole-file path with ``--solver sketched``, but the sketch
+    applies decompose over row blocks (``streaming.sketch_least_squares``,
+    JLT by default, CWT for a sparse stream) so the file never needs to
+    fit in memory.  Other --solver choices need the resident matrix and
+    are rejected up front.
+    """
+    if args.solver not in ("sketched", "accelerated"):
+        print(f"error: --stream is sketch-and-solve only; --solver "
+              f"{args.solver} needs the resident matrix", file=sys.stderr)
+        return 2
+
+    from ..core.context import SketchContext
+    from ..io import scan_libsvm_dims, stream_libsvm
+    from ..linalg import streaming_least_squares
+    from ..streaming import StreamParams, skip_batches
+    from .common import in_run_dtype, to_numpy
+
+    nrows, ncols = scan_libsvm_dims(args.inputfile)
+    print(f"Streaming {nrows}x{ncols} in batches of {args.batch_rows} rows")
+    def batches(start: int):
+        it = stream_libsvm(
+            args.inputfile, ncols, batch=args.batch_rows,
+            sparse=args.sparse,
+        )
+        it = in_run_dtype(it, args)
+        return skip_batches(it, start) if start else it
+
+    sp = StreamParams(
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every,
+        resume=args.resume,
+    )
+    t0 = time.perf_counter()
+    x, info = streaming_least_squares(
+        batches, nrows, ncols, SketchContext(seed=args.seed),
+        sparse=args.sparse, stream_params=sp,
+    )
+    x = to_numpy(x)
+    dt = time.perf_counter() - t0
+    print(f"Solved {nrows}x{ncols} (streamed sketch-and-solve, "
+          f"{info['batches']} batches) in {dt:.3f}s")
+    np.save(args.solution, x)
+    print(f"Solution -> {args.solution}")
+    print_perf_report(args)
+    print_policy_report(args)
+    print_telemetry_report(args)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -7,7 +7,7 @@ et al): randomized symmetric SVD of the adjacency matrix, embeddings
 a sparse COO (``sparse=True``: ``SimpleGraph.adjacency_coo``, torch's
 default dtype) whose products run through ``torch.sparse``, or never
 built (``streamed=True``: one pass over edge blocks,
-:func:`~.stream.streaming_ase`).  It is computed on ``device`` (the card
+:func:`~.stream.streaming_ase`, folded in torch's default dtype).  It is computed on ``device`` (the card
 by default), or where a tensor ``G`` lies.
 """
 
@@ -51,8 +51,10 @@ def approximate_ase(G, k: int, context: SketchContext, params: ASEParams | None 
         from ..streaming.pipeline import pinned_placer
         from .stream import graph_block_source, streaming_ase
 
+        # The fold accumulates in torch's default float, as the JAX
+        # package's f64 request follows its x64 mode (f32 without it).
         return streaming_ase(graph_block_source(G, batch_edges=params.batch_edges), G.n, k,
-                             context, params,
+                             context, params, dtype=torch.get_default_dtype(),
                              stream_params=StreamParams(placer=pinned_placer(resolve_device(device))))
     if isinstance(G, SimpleGraph):
         A = G.adjacency_coo(device=device) if params.sparse else as_tensor(G.adjacency(), device)

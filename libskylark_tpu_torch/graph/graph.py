@@ -16,7 +16,7 @@ import torch
 
 from .._device import resolve_device
 
-__all__ = ["SimpleGraph"]
+__all__ = ["SimpleGraph", "read_arc_list"]
 
 
 def _csr(n: int, rows, cols):
@@ -123,3 +123,22 @@ class SimpleGraph:
         data = torch.ones(self.indices.size, dtype=dtype or torch.get_default_dtype(),
                           device=dev)
         return torch.sparse_coo_tensor(idx, data, (self.n, self.n), check_invariants=False)
+
+
+def read_arc_list(path) -> SimpleGraph:
+    """Build a :class:`SimpleGraph` from an arc list.
+
+    Accepts anything ``io.open_source`` does: a local path, ``file://``
+    or fsspec URL, raw bytes, or a ``ByteSource``.  For graphs too large
+    to hold, use ``io.stream_arc_list`` and the streamed sketch path
+    (``graph.stream``) instead.
+    """
+    from ..io.arclist import _chunk_lines, _parse_edge_block
+    from ..io.source import open_source
+
+    src = open_source(path)
+    edges: list[tuple[str, str]] = []
+    for block in _chunk_lines(src, 8 << 20):
+        us, vs = _parse_edge_block(block)
+        edges.extend(zip(us, vs))
+    return SimpleGraph(edges)

@@ -99,3 +99,27 @@ def test_policy_exports_the_plan_hooks(name):
 
     assert name in T.policy.__all__ and name in jpolicy.__all__
     assert callable(getattr(T.policy, name))
+
+
+@pytest.mark.parametrize("module", ["io", "native"])
+def test_io_and_native_export_the_jax_names(module):
+    import importlib
+
+    ported = importlib.import_module(f"libskylark_tpu_torch.{module}")
+    reference = importlib.import_module(f"libskylark_tpu.{module}")
+    assert ported.__all__ == reference.__all__
+    assert all(callable(getattr(ported, name)) for name in ported.__all__)
+
+
+def test_cli_common_keeps_the_jax_names():
+    import libskylark_tpu.cli.common as jcommon
+    import libskylark_tpu_torch.cli.common as tcommon
+
+    assert set(jcommon.__all__) <= set(tcommon.__all__)
+    assert all(hasattr(tcommon, name) for name in tcommon.__all__)
+
+
+def test_graph_exports_read_arc_list_as_jax():
+    assert T.graph.__all__ == J.graph.__all__
+    assert T.graph.read_arc_list is T.graph.graph.read_arc_list
+    assert "io" in T.__all__ and T.io.read_libsvm is T.io.libsvm.read_libsvm
