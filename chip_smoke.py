@@ -54,10 +54,10 @@ paths:
   8 x 65536 x 2048 -> 1024 (CWT, MMT); the overlapped streamed sketch of
   8 pinned host batches against the serial one and the resident apply,
   and the FJLT rowwise form; streaming sketch-and-solve least squares of
-  a 2^22 x 512 A (8 GiB) in 32 pinned batches, killed after batch 17
+  a 2^21 x 512 A (4 GiB) in 32 pinned batches, killed after batch 17
   and resumed; the north-star streaming KRR at 10^7 x 4096 -> 2048 bf16
   with its check at n = 2^20; the streaming randomized SVD of a rank-100
-  2^21 x 1024 matrix in bf16 panels; the graph of the third path
+  2^20 x 1024 matrix in bf16 panels; the graph of the third path
   streamed in edge blocks of 2^22.  Each bitwise pin (fused, overlap,
   resume, streamed graph) and each bound beside a control that misses;
 - the remaining sketches and the graph analytics (``sketches_path``):
@@ -102,7 +102,18 @@ paths:
   saved model's streamed predict) and SNAP com-Youtube (graph_se streamed
   and in core, community), each against an f64 reference beside a
   control that misses, the reads through the port's native parser, the
-  host seconds split into read, copy to the card and solve.
+  host seconds split into read, copy to the card and solve;
+- the telemetry layer and the randomized Gauss-Seidel solvers
+  (``telemetry_path``): bench.py's telemetry acceptance run (streaming
+  least squares of a rank-deficient 262144 x 512 A with an injected
+  fault, JLT and CWT) held to the JAX package's ledger assertions;
+  telemetry off against on, bitwise, with equal launch counts, on the
+  kernel paths (the LS solves, a sparse SJLT stream, approximate KRR,
+  Blendenpik, LSRN), each priced in host seconds; the drivers'
+  ``--telemetry`` flags; ``randomized_block_gauss_seidel`` and
+  ``asy_fcg`` on a 16384 x 16384 SPD A of condition 100, each X held
+  against an f64 solve by the a-posteriori bound ||B - A X|| / lambda_min
+  beside controls that miss it; and a ``utils.profiling`` trace.
 
 It exits non-zero, printing no result, without a CUDA device or without
 the package beside it.  It imports nothing of JAX.
@@ -205,10 +216,11 @@ ML_BETA = 1.0 / (1.2146 * ML_DIM)
 # bench.py:487-555's overlapped pass: 8 chunks of 65536 x 2048 f32 -> 1024.
 ST_CHUNK, ST_N, ST_S, ST_CHUNKS = 65_536, 2048, 1024, 8
 ST_REPEATS = 5                     # timed passes (min kept, as bench.py keeps it)
-# (c) streaming sketch-and-solve: A 2^22 x 512 f32 (8 GiB) plus b in 32
+# (c) streaming sketch-and-solve: A 2^21 x 512 f32 (4 GiB; 2^22 until phase
+# 3m came, cut to keep the script's time) plus b in 32
 # pinned host batches, the default sketch (JLT, s = 4n); killed after
 # batch 17 (chunk 8 of two batches) and resumed.
-LSQ_M, LSQ_N, LSQ_BATCH, LSQ_EVERY, LSQ_KILL_CHUNK = 1 << 22, 512, 131_072, 2, 8
+LSQ_M, LSQ_N, LSQ_BATCH, LSQ_EVERY, LSQ_KILL_CHUNK = 1 << 21, 512, 65_536, 2, 8
 LSQ_NOISE = 1.0
 # (d) the north star, bench.py:719-766: 10^7 x 4096 -> 2048 Gaussian
 # features (sigma 8), bf16, hot panels of 125000 rows, lam 0.1, 3 sweeps.
@@ -224,9 +236,10 @@ NS_N, NS_D, NS_S, NS_BR, NS_SIGMA, NS_LAM, NS_SWEEPS = (
 # holds the bf16 path against the JAX package's on the CPU).
 NS_CHECK_N, NS_CHECK_LAM, NS_INCORE_TOL, NS_W_TOL = 1 << 20, 50.0, 2e-2, 1e-2
 # (e) the streaming randomized SVD: bench.py:768-800's matrix (rank 100,
-# 1024 columns, noise 0.01, bf16 panels), m cut from 10^7 to 2^21 as in
-# phase 3e (the counter stream makes a 10^7 pass ~14 s; PERF.md).
-SSVD_M, SSVD_N, SSVD_R, SSVD_BR, SSVD_NOISE, SSVD_TOL = 1 << 21, 1024, 100, 262_144, 0.01, 1e-2
+# 1024 columns, noise 0.01, bf16 panels), m cut from 10^7 to 2^20 (the
+# counter stream makes a 10^7 pass ~14 s; PERF.md): 2^21, as in phase 3e,
+# until phase 3m came, then halved to keep the script's time.
+SSVD_M, SSVD_N, SSVD_R, SSVD_BR, SSVD_NOISE, SSVD_TOL = 1 << 20, 1024, 100, 262_144, 0.01, 1e-2
 SSVD_CTL_R = 50                    # the control: a rank-50 matrix's sigma
 # (f) the streamed graph: phase 3c's planted graph in edge blocks of 2^22.
 GRAPH_BATCH = 1 << 22
@@ -326,6 +339,32 @@ CLI_ML_ITERS, CLI_ML_LAM = 20, 0.01
 CLI_YT_V, CLI_YT_E = 1_134_890, 2_987_624
 CLI_BLOCKS, CLI_BLOCK_V, CLI_BLOCK_IN, CLI_BLOCK_OUT = 8, 1000, 30, 2
 CLI_ASE_K, CLI_ACC_BOUND = 8, 0.9
+# The telemetry layer and the randomized Gauss-Seidel solvers (phase 3m).
+# (a) bench.py's bench_telemetry (bench.py:2011-2016): streaming LS of a
+# TM_M x TM_N f32 A in batches of TM_BATCH, here rank-deficient with a
+# FaultPlan(bad_sketch_at=1) (tests/test_telemetry.py's acceptance run);
+# (b) telemetry off against on, TM_REPEATS runs each, on (a) and the kernel
+# paths, among them a sparse SJLT stream of phase 3b's TM_SP_M rows and
+# TM_SP_NNZ nonzeros over TM_N columns in TM_SP_BATCHES COO batches.
+TM_DIR = HERE / "build" / "telemetry"
+TM_M, TM_N, TM_BATCH, TM_REPEATS = 262_144, 512, 32_768, 3
+TM_SP_M, TM_SP_NNZ, TM_SP_BATCHES = 1_000_000, 10_000_000, 8
+# (c) The JAX drivers' ledgers, as (kind, name) with the plans layer's
+# events left out, on phase 3l's flags: tests/test_torch_cli.py holds the
+# JAX package's drivers to these on small files of the same shape.
+CLI_LEDGERS = {
+    "linear": [("guard", "initial"), ("run_summary", "blendenpik")],
+    "linear sketched": [("guard", "initial"), ("run_summary", "sketch_and_solve_ls")],
+    "krr": [("run_summary", "approximate_krr")],
+    "ml": [],
+}
+# (d) GS on an SPD A = I + U diag(mu) U^T (U orthonormal GS_N x GS_R from
+# the seed, mu log-spaced so that the eigenvalues run from 1 to GS_COND):
+# the JAX defaults (block GS_BLOCK, GS_SWEEPS sweeps; asy_fcg at
+# KrylovParams() with 2 inner sweeps), GS_RHS right-hand sides; the
+# schedule held card against CPU at GS_CHECK_N.
+GS_N, GS_R, GS_COND, GS_BLOCK, GS_SWEEPS, GS_RHS, GS_CHECK_N = (
+    16_384, 256, 100.0, 64, 10, (1, 16), 2048)
 
 
 def fail(msg: str) -> None:
@@ -3820,7 +3859,8 @@ def cli_path(sky, dev, reset_counts, read_counts, smi) -> set:
     copy to the card and the rest, beside its peak memory.  Each result
     is held to its bound in PERF.md §2 beside a control that misses, and
     the first launch of each kernel signature against its plain version.
-    Returns the signatures held."""
+    Returns the signatures held and the LIBSVM files (``ls``, ``train``,
+    ``test``), which phase 3m reads again."""
     import contextlib
     import io as io_
 
@@ -4178,6 +4218,516 @@ def cli_path(sky, dev, reset_counts, read_counts, smi) -> set:
         check(by_kernel.get(name, 0) > 0, f"cli: {name} was not launched by the drivers")
     check({name for name, count in by_kernel.items() if count} <= {sig[0] for sig in held},
           f"cli: kernels launched {by_kernel}, held {held}")
+    return held, {"ls": ls_file, "train": train_file, "test": test_file}
+
+
+def _ledger_events(directory: Path) -> list:
+    """Every event of the ledgers under ``directory``, in ``seq`` order."""
+    events = []
+    for path in sorted(directory.glob("ledger-*.jsonl")):
+        with open(path, encoding="utf-8") as fh:
+            events += [json.loads(line) for line in fh]
+    return sorted(events, key=lambda e: e["seq"])
+
+
+def _kinds(events) -> list:
+    """A ledger's (kind, name) sequence without the plans layer's events
+    (kind ``plan``, the planned apply's ``sketch.apply`` span): the part
+    an eager run and a planned one share."""
+    return [(e["kind"], e["name"]) for e in events
+            if e["kind"] != "plan" and e["name"] != "sketch.apply"]
+
+
+def _comparable(counters: dict) -> dict:
+    """Telemetry counters without the plans layer's, the timing ones (and
+    the producer thread's hit/wait split) by name only."""
+    return {k: (None if "seconds" in k or k in ("prefetch.hits", "prefetch.waits",
+                                                "prefetch.produced") else v)
+            for k, v in counters.items()
+            if not k.startswith("plans.") and not k.startswith("span.sketch.apply.")}
+
+
+def _bitwise(a, b) -> bool:
+    """``a`` and ``b`` (tensors, numbers, nests of dicts and lists) equal
+    bitwise, wall-clock ``seconds`` aside."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and set(a) - {"seconds"} == set(b) - {"seconds"}
+                and all(_bitwise(a[k], b[k]) for k in a if k != "seconds"))
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(_bitwise(x, y) for x, y in zip(a, b)))
+    if torch.is_tensor(a):
+        return torch.is_tensor(b) and a.dtype == b.dtype and torch.equal(a, b)
+    return a == b or (a != a and b != b)
+
+
+def telemetry_path(sky, dev, reset_counts, read_counts, smi, cli_files) -> set:
+    """Phase 3m: the telemetry layer and the randomized Gauss-Seidel
+    solvers on the card.
+
+    (a) bench.py's ``bench_telemetry`` acceptance run (TM_M x TM_N f32 in
+    batches of TM_BATCH; rank-deficient A, ``FaultPlan(bad_sketch_at=1)``,
+    guard on) with the default JLT and with CWT, its ledger held to
+    ``tests/test_telemetry.py:185-230``; (b) telemetry off against on,
+    bitwise, with equal launch counts, on the kernel paths, its host
+    seconds off and on, and each call's telemetry counters planned against
+    eager; (c) the drivers' ``--telemetry-dir`` and ``--telemetry`` on
+    phase 3l's files (``cli_files``); (d) ``randomized_block_gauss_seidel``
+    and ``asy_fcg`` at GS_N, an SPD A of condition number GS_COND; (e)
+    ``utils.profiling.trace`` around two (b) solves.  Every first launch
+    of a kernel signature is held against its plain version.  Returns the
+    signatures held."""
+    import contextlib
+    import io as io_
+    import shutil
+
+    from libskylark_tpu_torch import telemetry
+    from libskylark_tpu_torch.sketch import kernels_fut as kf
+    from libskylark_tpu_torch.sketch import kernels_scatter as ks
+    from libskylark_tpu_torch.sketch import kernels_window as kw
+    from libskylark_tpu_torch.solvers import gauss_seidel as gs_mod
+
+    card = f"[{smi}]"
+    knob = os.environ.get("SKYLARK_TELEMETRY")
+    check(not telemetry.enabled(), f"telemetry: SKYLARK_TELEMETRY={knob!r} before phase 3m")
+    check(sky.guard.enabled(), "telemetry: the guard is off")
+    shutil.rmtree(TM_DIR, ignore_errors=True)
+    g = torch.Generator(device=dev).manual_seed(SEED + 18)
+    held = set()
+    u = 2.0 ** -24
+
+    def scatter_held(out, A, b, v, segs, acc=None):
+        b, v = (b[None], v[None]) if b.ndim == 1 else (b, v)
+        part, err_bound, (row, piece) = scatter_error_bound(A, b, v, segs, kw._L)
+        exact = part if acc is None else acc.double() + part
+        if acc is not None:
+            err_bound = err_bound + u * 1.01 * exact.abs()  # the fused emit's one add
+        r = bound_ratio(out, exact, err_bound)
+        c = bound_ratio(out[row].double() - piece, exact[row], err_bound[row])
+        print(f"telemetry (held) scatter_rows{'(acc=)' if acc is not None else ''} A "
+              f"{tuple(A.shape)} {A.dtype} -> {segs}, nnz = {b.shape[0]}: max |out - exact| / "
+              f"rounding bound {r:.3g} (must be <= 1); control (bucket {row}'s first piece left "
+              f"out) {c:.3g}")
+        check(r <= 1.0 and c > 1.0, f"telemetry scatter_rows {tuple(A.shape)}: {r}, control {c}")
+
+    def segsum_held(out, vals, keys, segs):
+        _, r = max_err(out, ks.segment_sum_flat_plain(vals, keys, segs))
+        i = int(vals.abs().argmax())
+        _, c = max_err(out, ks.segment_sum_flat_plain(torch.cat([vals[:i], vals[i + 1:]]),
+                                                      torch.cat([keys[:i], keys[i + 1:]]), segs))
+        print(f"telemetry (held) segment_sum_flat {vals.shape[0]} -> {segs} {vals.dtype}: vs its "
+              f"plain version rel {r:.3g} (tol 1e-5); control (the plain version without entry "
+              f"{i}) {c:.3g}")
+        check(r <= 1e-5 and c > 1e-5, f"telemetry segment_sum_flat {vals.shape[0]}: {r}, "
+              f"control {c}")
+
+    restore = hold_kernels("telemetry", kf, kw, ("rfut_rowwise", "rfut_rowwise_sampled",
+                                                 "gather_scaled_rows"), held)
+    restore.append((kw, "scatter_rows", hold(kw, "scatter_rows", scatter_held, held)))
+    restore.append((ks, "segment_sum_flat", hold(ks, "segment_sum_flat", segsum_held, held)))
+
+    @contextmanager
+    def telemetry_on(label):
+        """Telemetry on for the body, its ledger under TM_DIR/label (closed
+        after), the registry zeroed before; the knob put back after."""
+        os.environ["SKYLARK_TELEMETRY"] = "1"
+        telemetry.configure(TM_DIR / label)
+        telemetry.reset()
+        try:
+            yield TM_DIR / label
+        finally:
+            telemetry.close()
+            telemetry.configure(None)
+            os.environ.pop("SKYLARK_TELEMETRY")
+
+    try:
+        # -- (a) the JAX package's acceptance run, bench_telemetry's size -------
+        A = torch.randn(TM_M, TM_N, generator=g, device=dev)
+        A[:, -1] = A[:, 0]  # rank-deficient: the certificate says RESKETCH
+        b = torch.randn(TM_M, generator=g, device=dev)
+        A_h, b_h = A.cpu().pin_memory(), b.cpu().pin_memory()
+        del A, b
+
+        def factory(start):
+            for i in range(start, TM_M // TM_BATCH):
+                yield A_h[i * TM_BATCH:(i + 1) * TM_BATCH], b_h[i * TM_BATCH:(i + 1) * TM_BATCH]
+
+        def stream_ls(stype):
+            return sky.linalg.streaming_least_squares(
+                factory, TM_M, TM_N, sky.SketchContext(seed=SEED + 18),
+                sky.linalg.LeastSquaresParams(sketch_type=stype),
+                fault_plan=sky.resilient.FaultPlan(bad_sketch_at=1))
+
+        for stype, expect in ((None, ()), ("CWT", ("scatter_rows",))):
+            label = f"(a) {stype or 'JLT'}"
+            reset_counts()
+            t0 = time.perf_counter()
+            with telemetry_on(f"a-{stype or 'JLT'}") as where:
+                x, info = stream_ls(stype)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                plan_stats = sky.plans.stats()
+                snap = telemetry.snapshot()
+            read_counts(f"telemetry {label}", t0, expect)
+            events = _ledger_events(where)
+            kinds = set(_kinds(events))
+            chunk_ends = [e for e in events if (e["kind"], e["name"]) == ("span_end", "stream.chunk")]
+            replays = [e for e in events if (e["kind"], e["name"]) == ("guard", "replay")]
+            initial = [e for e in events if (e["kind"], e["name"]) == ("guard", "initial")]
+            summaries = [e for e in events if e["kind"] == "run_summary"]
+            payload = summaries[-1]["attrs"] if summaries else {"info": {}, "snapshot": {}}
+            snapshot = payload["snapshot"]
+            checks = {
+                "stream.chunk spans, each with rows": (
+                    ("span_start", "stream.chunk") in kinds and bool(chunk_ends)
+                    and all("rows" in e["attrs"] for e in chunk_ends)
+                    and sum(e["attrs"]["rows"] for e in chunk_ends) == TM_M),
+                "one replay": len(replays) == 1,
+                "initial RESKETCH, then a fallback": (
+                    bool(initial) and initial[-1]["attrs"]["verdict"] == "RESKETCH"
+                    and ("guard", "fallback") in kinds),
+                "one run_summary, the last seq": (
+                    len(summaries) == 1 and summaries[0]["name"] == "streaming_lsq"
+                    and summaries[0]["seq"] == max(e["seq"] for e in events)),
+                "its info is the returned info": (
+                    set(payload["info"]) == set(info)
+                    and payload["info"].get("recovery") == info["recovery"]
+                    and payload["info"].get("rows") == TM_M),
+                "snapshot.plans == plans.stats()": snapshot.get("plans") == plan_stats,
+                "guard.replay = stream.replays = 1": (
+                    snapshot.get("guard", {}).get("replay") == 1
+                    and snapshot.get("counters", {}).get("stream.replays") == 1),
+            }
+            check(tuple(x.shape) == (TM_N,) and bool(torch.isfinite(x).all()),
+                  f"telemetry {label}: x not finite of shape ({TM_N},)")
+            print(f"telemetry {label} streaming LS {TM_M} x {TM_N} in {TM_M // TM_BATCH} batches: "
+                  f"{len(events)} ledger events in {secs:.3f} s; ledger checks {checks}; "
+                  f"plan_cache_hit_rate {snap['plan_cache_hit_rate']}, prefetch_overlap "
+                  f"{snap['prefetch_overlap']}, overlap_efficiency {snap['overlap_efficiency']} "
+                  f"{card}")
+            check(all(checks.values()), f"telemetry {label}: ledger checks {checks}")
+
+        # -- (b) telemetry off against on, bitwise, on the kernel paths -----------
+        def lsq(A, b, **kw_):
+            return lambda: sky.linalg.approximate_least_squares(
+                A, b, sky.SketchContext(seed=SEED), sky.linalg.LeastSquaresParams(**kw_),
+                return_info=True)
+
+        def compare_off_on(label, fn, expect, warm=True):
+            outs, secs, counts, planned = {}, {}, {}, None
+            if warm:  # a plan's first call runs its body once more, eagerly
+                fn()
+            telemetry.reset()
+            for mode in ("off", "on"):
+                reset_counts()
+                t0 = time.perf_counter()
+                ctx = telemetry_on(f"b-{label}") if mode == "on" else contextlib.nullcontext()
+                runs = []
+                with ctx:
+                    # The registry zeroed before each run: it ends with the
+                    # last run's counters.
+                    secs[mode] = host_median(
+                        lambda: (mode == "on" and telemetry.reset(), runs.append(fn())),
+                        reps=TM_REPEATS)
+                    if mode == "on":
+                        planned = _comparable(telemetry.REGISTRY.snapshot()["counters"])
+                counts[mode] = read_counts(f"telemetry (b) {label} {mode}", t0, expect)
+                outs[mode] = runs[-1]
+                check(mode == "on" or telemetry.REGISTRY.snapshot()["counters"] == {},
+                      f"telemetry (b) {label}: the off runs counted")
+            with telemetry_on(f"b-{label}-eager"), no_plans():
+                fn()
+                eager = _comparable(telemetry.REGISTRY.snapshot()["counters"])
+            same = _bitwise(outs["off"], outs["on"])
+            print(f"telemetry (b) {label}: off ≡ on bitwise {same}; launches off {counts['off']}, "
+                  f"on {counts['on']}; host s median of {TM_REPEATS} off {secs['off'][0]!r} "
+                  f"({[round(r, 4) for r in secs['off'][1]]}), on {secs['on'][0]!r} "
+                  f"({[round(r, 4) for r in secs['on'][1]]}), on/off "
+                  f"{secs['on'][0] / secs['off'][0]:.4f}; counters planned ≡ eager "
+                  f"{planned == eager} ({len(planned)} counters) {card}")
+            check(same and counts["off"] == counts["on"] and planned == eager,
+                  f"telemetry (b) {label}: bitwise {same}, launches {counts}, counters planned "
+                  f"{planned} eager {eager}")
+            return secs
+
+        # (a)'s runs warmed the streams up (their steps are not planned).
+        overhead = {}
+        for stype, expect in ((None, ()), ("CWT", ("scatter_rows",))):
+            overhead[f"stream {stype or 'JLT'}"] = compare_off_on(
+                f"stream {stype or 'JLT'}", lambda: stream_ls(stype), expect, warm=False)
+        del A_h, b_h
+        A = torch.randn(NLA_M, NLA_N, generator=g, device=dev)
+        b = A @ torch.randn(NLA_N, generator=g, device=dev) + torch.randn(NLA_M, generator=g,
+                                                                          device=dev)
+        overhead["LS FJLT"] = compare_off_on(
+            "LS FJLT 2^20 x 512", lsq(A, b, sketch_size=2048), ("gather_scaled_rows",))
+        overhead["LS CWT"] = compare_off_on(
+            "LS CWT 2^20 x 512", lsq(A, b, sketch_type="CWT", sketch_size=2048),
+            ("scatter_rows",))
+        del A, b
+        A = torch.randn(PL_B_M, PL_B_N, generator=g, device=dev)
+        b = A @ torch.randn(PL_B_N, generator=g, device=dev) + torch.randn(PL_B_M, generator=g,
+                                                                           device=dev)
+        small_ls = lsq(A, b, sketch_size=3072)
+        overhead["LS FJLT small"] = compare_off_on(
+            "LS FJLT 32768 x 768", small_ls, ("rfut_rowwise_sampled",))
+
+        # -- (e) utils.profiling around two (b) solves: the planned FJLT solve
+        # above, and the same A streamed in 8 batches with CWT.
+        trace_dir = TM_DIR / "trace"
+        with telemetry_on("e"):
+            with sky.utils.profiling.trace(str(trace_dir)):
+                small_ls()
+                sky.linalg.streaming_least_squares(
+                    lambda start: ((A[i * 4096:(i + 1) * 4096], b[i * 4096:(i + 1) * 4096])
+                                   for i in range(start, PL_B_M // 4096)), PL_B_M, PL_B_N,
+                    sky.SketchContext(seed=SEED), sky.linalg.LeastSquaresParams(sketch_type="CWT"))
+                torch.cuda.synchronize()
+        (trace_file,) = list(trace_dir.glob("trace-*.json"))
+        trace_events = json.loads(trace_file.read_text())["traceEvents"]
+        names = sorted({e.get("name") for e in trace_events} & {"sketch.apply", "stream.chunk"})
+        kernels_n = sum(1 for e in trace_events if e.get("cat") == "kernel")
+        print(f"telemetry (e) profiling.trace: {trace_file.name} "
+              f"{trace_file.stat().st_size / 1e6:.1f} MB, annotate regions found {names}, "
+              f"{kernels_n} CUDA kernel events {card}")
+        # (A CPU rehearsal's trace holds no CUDA kernel.)
+        check(names == ["sketch.apply", "stream.chunk"] and (kernels_n > 0 or dev.type == "cpu"),
+              f"telemetry (e): regions {names}, kernel events {kernels_n}")
+        del A, b
+        # The sparse SJLT stream: phase 3b's rows and nonzeros, TM_N columns,
+        # COO batches staged on the card.
+        rows_b, nnz_b = TM_SP_M // TM_SP_BATCHES, TM_SP_NNZ // TM_SP_BATCHES
+        sp_batches = []
+        for _ in range(TM_SP_BATCHES):
+            idx = torch.stack([
+                torch.randint(0, rows_b, (nnz_b,), generator=g, device=dev),
+                torch.randint(0, TM_N, (nnz_b,), generator=g, device=dev)])
+            sp_batches.append((
+                torch.sparse_coo_tensor(idx, torch.randn(nnz_b, generator=g, device=dev),
+                                        (rows_b, TM_N), check_invariants=False),
+                torch.randn(rows_b, generator=g, device=dev)))
+
+        def sparse_stream():
+            # The batches already lie on the card: no staging thread.
+            return sky.linalg.streaming_least_squares(
+                lambda start: iter(sp_batches[start:]), TM_SP_M, TM_N,
+                sky.SketchContext(seed=SEED + 19),
+                sky.linalg.LeastSquaresParams(sketch_type="SJLT"), sparse=True,
+                stream_params=sky.streaming.StreamParams(prefetch=0, placer=None))
+
+        overhead["sparse SJLT stream"] = compare_off_on(
+            "sparse SJLT stream 10^6 x 512, 10^7 nnz", sparse_stream, ("segment_sum_flat",))
+        del sp_batches
+        # Approximate KRR on Fastfood features at phase 3f's shape.
+        X = torch.randn(ML_ROWS, ML_DIM, generator=g, device=dev)
+        Y = torch.sign(torch.randn(ML_ROWS, generator=g, device=dev))
+
+        def krr():
+            model = sky.ml.approximate_kernel_ridge(
+                sky.ml.GaussianKernel(ML_DIM, ML_SIGMA), X, Y, KRR_LAM, ML_S,
+                sky.SketchContext(seed=SEED), sky.ml.KrrParams(use_fast=True))
+            return model.W, model.info
+
+        overhead["KRR Fastfood"] = compare_off_on(
+            f"approximate KRR Fastfood {ML_ROWS} x {ML_DIM} -> {ML_S}", krr, ("rfut_rowwise",))
+        del X, Y
+        # Blendenpik and LSRN on phase 3e's problems: (a)'s column-scaled
+        # Gaussian A, (c)'s rank-deficient [G, G[:, :128]].
+        A = torch.randn(NLA_M, NLA_N, generator=g, device=dev)
+        A *= torch.logspace(0, -1.5, NLA_N, device=dev)
+        b = A @ torch.randn(NLA_N, generator=g, device=dev) + NLA_NOISE * torch.randn(
+            NLA_M, generator=g, device=dev)
+        overhead["Blendenpik"] = compare_off_on(
+            "Blendenpik f32 2^20 x 512", lambda: sky.solvers.faster_least_squares(
+                A, b, sky.SketchContext(seed=SEED)), ("gather_scaled_rows",))
+        q = NLA_N // 4
+        G = torch.randn(NLA_M, 3 * q, generator=g, device=dev)
+        A = torch.cat([G, G[:, :q]], dim=1)
+        b = G @ torch.randn(3 * q, generator=g, device=dev) + NLA_NOISE * torch.randn(
+            NLA_M, generator=g, device=dev)
+        del G
+        overhead["LSRN"] = compare_off_on(  # its one sketch is of A, over the plans' bound
+            "LSRN f32 2^20 x 512", lambda: sky.solvers.lsrn_least_squares(
+                A, b, sky.SketchContext(seed=SEED)), (), warm=False)
+        del A, b
+        print("telemetry (b) host seconds off / on (median of "
+              f"{TM_REPEATS}): " + "; ".join(f"{k} {v['off'][0]:.4f} / {v['on'][0]:.4f}"
+                                             for k, v in overhead.items()) + f" {card}")
+
+        # -- (c) the drivers' telemetry flags on phase 3l's files -------------------
+        ls_file, train_file, test_file = cli_files["ls"], cli_files["train"], cli_files["test"]
+        out_dir = TM_DIR / "cli"
+        drivers = {
+            "linear": (["linear", ls_file, "--cond-est", "--solution", out_dir / "x.npy"],
+                       ("gather_scaled_rows", "scatter_rows")),
+            "linear sketched": (["linear", ls_file, "--solver", "sketched", "--solution",
+                                 out_dir / "x_sk.npy"], ("gather_scaled_rows",)),
+            "svd": (["svd", ls_file, "-k", CLI_LS_TOP, "-i", 2, "--prefix", out_dir / "y"], ()),
+            "krr": (["krr", "--trainfile", train_file, "--testfile", test_file, "--modelfile",
+                     out_dir / "krr.json", "-a", 2, "--use-fast", "-f", CLI_MN_S, "--sigma",
+                     CLI_MN_SIGMA, "--lambda", CLI_MN_LAM], ("rfut_rowwise",)),
+            "ml": (["ml", "--trainfile", train_file, "--testfile", test_file, "--modelfile",
+                    out_dir / "ml.json", "--usefast", "-g", CLI_MN_SIGMA, "-f", CLI_MN_S, "-n", 4,
+                    "-i", CLI_ML_ITERS, "-l", "hinge", "--lambda", CLI_ML_LAM], ("rfut_rowwise",)),
+        }
+        out_dir.mkdir(parents=True, exist_ok=True)
+        for label, (argv, expect) in drivers.items():
+            from importlib import import_module
+
+            where = TM_DIR / "cli" / label.replace(" ", "_")
+            flags = ["--telemetry-dir", where] if label != "svd" else ["--telemetry"]
+            main_fn = import_module(f"libskylark_tpu_torch.cli.{argv[0]}").main
+            telemetry.reset()
+            reset_counts()
+            buf = io_.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = main_fn([str(a) for a in argv[1:] + flags])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            read_counts(f"telemetry (c) {label}", t0, expect)
+            out = buf.getvalue()
+            for line in out.splitlines():
+                print(f"telemetry (c) ({label}) | {line}")
+            events = _ledger_events(where)
+            ledger = _kinds(events)
+            policy_counters = telemetry.snapshot()["policy"]
+            checks = {
+                "rc 0": rc == 0,
+                "SKYLARK_TELEMETRY put back": os.environ.get("SKYLARK_TELEMETRY") == knob,
+                "ledger closed": telemetry.ledger_path() is None,
+                "the summary line": "telemetry: plan-cache hit rate" in out,
+                "the policy line": ("policy: {" in out) == bool(policy_counters),
+            }
+            if label != "svd":
+                summaries = [e for e in events if e["kind"] == "run_summary"]
+                checks.update({
+                    "the JAX driver's events": ledger == CLI_LEDGERS[label],
+                    "the ledger line": (f"telemetry ledger -> " in out) == bool(events),
+                    "run_summary last": (not summaries
+                                         or summaries[-1]["seq"] == events[-1]["seq"]),
+                })
+            print(f"telemetry (c) {label}: {secs:.3f} s, ledger {ledger}, policy counters "
+                  f"{policy_counters}; checks {checks} {card}")
+            check(all(checks.values()), f"telemetry (c) {label}: {checks}")
+
+        # -- (d) the randomized Gauss-Seidel solvers at full width ------------------
+        f64 = torch.float64
+        # A = I + U diag(mu) U^T, U (GS_N, GS_R) orthonormal: eigenvalues 1
+        # (GS_N - GS_R of them) and 1 + mu = 1 ... GS_COND, cond(A) = GS_COND.
+        U = torch.linalg.qr(torch.randn(GS_N, GS_R, generator=g, device=dev, dtype=f64))[0]
+        mu = torch.logspace(0, math.log10(GS_COND), GS_R, device=dev, dtype=f64) - 1.0
+        A64 = (U * mu) @ U.T
+        A64.diagonal().add_(1.0)
+        orth = float((U.T @ U - torch.eye(GS_R, device=dev, dtype=f64)).abs().max())
+        del U
+        A = A64.float()
+        lam_min = 1.0
+        print(f"telemetry (d) A {GS_N} x {GS_N} f32 ({A.numel() * 4 / 2**30:.2f} GiB), SPD, "
+              f"eigenvalues 1 and 1 + mu in [1, {GS_COND:g}]: cond {GS_COND:g} (U's "
+              f"orthonormality max |U^T U - I| {orth:.3g}) {card}")
+        check(orth < 1e-12, f"telemetry (d): U not orthonormal ({orth})")
+        # The schedule on the card against the CPU route's, bitwise.
+        nb_check = gs_mod.gs_num_blocks(GS_CHECK_N, GS_BLOCK)
+        sched = gs_mod.gs_schedule(SEED, 7, GS_SWEEPS, nb_check, device=dev).cpu()
+        sched_cpu = gs_mod.gs_schedule(SEED, 7, GS_SWEEPS, nb_check, device="cpu")
+        Ac = A[:GS_CHECK_N, :GS_CHECK_N]
+        Bc = torch.randn(GS_CHECK_N, 2, generator=g, device=dev)
+        Xc = sky.solvers.randomized_block_gauss_seidel(Ac, Bc, sky.SketchContext(seed=SEED))[0]
+        Xc_cpu = sky.solvers.randomized_block_gauss_seidel(
+            Ac.cpu(), Bc.cpu(), sky.SketchContext(seed=SEED))[0]
+        _, xc_rel = max_err(Xc.cpu(), Xc_cpu)
+        print(f"telemetry (d) schedule at n = {GS_CHECK_N} ({GS_SWEEPS} x {nb_check}): card ≡ CPU "
+              f"bitwise {torch.equal(sched, sched_cpu)}; X card vs CPU rel {xc_rel:.3g} (tol 1e-5)")
+        check(torch.equal(sched, sched_cpu) and xc_rel <= 1e-5,
+              f"telemetry (d): schedule bitwise {torch.equal(sched, sched_cpu)}, X {xc_rel}")
+        del Ac, Bc, Xc, Xc_cpu
+
+        def held_to_solve(label, X, B, B64, X_ref, controls):
+            """X against the f64 solve X_ref: ‖X − X*‖ ≤ ‖B − A X‖ / λ_min per
+            column (the run's own residual, in f64, and A's condition),
+            while every control misses the same bound."""
+            def rel(Y):
+                R = B64 - A64 @ Y.double()
+                err = torch.linalg.vector_norm(Y.double() - X_ref, dim=0)
+                bnd = torch.linalg.vector_norm(B64 - A64 @ X.double(), dim=0) / lam_min
+                return float((err / bnd).max()), float((err / torch.linalg.vector_norm(
+                    X_ref, dim=0)).max()), float((torch.linalg.vector_norm(R, dim=0)
+                                                 / torch.linalg.vector_norm(B64, dim=0)).max())
+            ratio, err, res = rel(X)
+            ctl = {name: rel(Y)[0] for name, Y in controls.items()}
+            print(f"telemetry (d) {label}: ||X - X*|| / (||B - A X|| / lambda_min) {ratio:.4f} "
+                  f"(must be <= 1), ||X - X*|| / ||X*|| {err:.3g}, ||B - A X|| / ||B|| {res:.3g}; "
+                  f"controls (the same bound) " + ", ".join(f"{k} {v:.3g}" for k, v in ctl.items()))
+            check(ratio <= 1.0 and all(v > 1.0 for v in ctl.values()),
+                  f"telemetry (d) {label}: {ratio}, controls {ctl}")
+
+        for k in GS_RHS:
+            B = torch.randn(GS_N, k, generator=g, device=dev)
+            B64 = B.double()
+            X_ref = torch.linalg.solve(A64, B64)
+            def solve(sweeps, B=B):
+                return sky.solvers.randomized_block_gauss_seidel(
+                    A, B, sky.SketchContext(seed=SEED), block_size=GS_BLOCK, sweeps=sweeps)
+            reset_counts()
+            t0 = time.perf_counter()
+            (t_full, runs_full) = host_median(lambda: solve(GS_SWEEPS), reps=TM_REPEATS)
+            (t_zero, _) = host_median(lambda: solve(0), reps=TM_REPEATS)
+            read_counts(f"telemetry (d) GS k={k}", t0, ())
+            X, info = solve(GS_SWEEPS)
+            per_sweep = (t_full - t_zero) / GS_SWEEPS
+            sweep_bytes = 4 * GS_N * GS_N + 2 * 4 * GS_N * k  # A read once, X and B
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                solve(1)
+                torch.cuda.synchronize()
+            one = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                solve(0)
+                torch.cuda.synchronize()
+            zero = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+            dev_ms = (sum(e.device_time_total for e in one)
+                      - sum(e.device_time_total for e in zero)) / 1e3
+            print(f"telemetry (d) GS k={k}: {GS_SWEEPS} sweeps median {t_full!r} s "
+                  f"({[round(r, 4) for r in runs_full]}), 0 sweeps {t_zero!r} s; "
+                  f"{per_sweep * 1e3:.3f} ms per sweep of host clock, {dev_ms:.3f} ms of device "
+                  f"kernels per sweep, bytes bound {sweep_bytes / MEM_BYTES_PER_S * 1e3:.3f} ms, "
+                  f"{len(one) - len(zero)} device launches per sweep "
+                  f"({(len(one) - len(zero)) / gs_mod.gs_num_blocks(GS_N, GS_BLOCK):.1f} per "
+                  f"block) {card}")
+            held_to_solve(f"GS k={k}, {GS_SWEEPS} sweeps", X, B, B64, X_ref, {
+                "0 sweeps": solve(0)[0], "1 sweep": solve(1)[0]})
+            resid_rel = float((info["resid"].double() - torch.linalg.vector_norm(
+                B64 - A64 @ X.double(), dim=0)).abs().max() / torch.linalg.vector_norm(B64))
+            check(resid_rel <= 1e-5, f"telemetry (d) GS k={k}: info['resid'] off by {resid_rel}")
+            # asy_fcg at KrylovParams() defaults, 2 inner sweeps.
+            reset_counts()
+            t0 = time.perf_counter()
+            torch.cuda.synchronize()
+            Xa, ia = sky.solvers.asy_fcg(A, B, sky.SketchContext(seed=SEED), inner_sweeps=2,
+                                         block_size=GS_BLOCK)
+            torch.cuda.synchronize()
+            t_fcg = time.perf_counter() - t0
+            read_counts(f"telemetry (d) asy_fcg k={k}", t0, ())
+            short = sky.solvers.asy_fcg(A, B, sky.SketchContext(seed=SEED),
+                                        sky.solvers.KrylovParams(iter_lim=2), inner_sweeps=2,
+                                        block_size=GS_BLOCK)[0]
+            print(f"telemetry (d) asy_fcg k={k}: {int(ia['iterations'])} iterations (flag "
+                  f"{int(ia['flag'])}) in {t_fcg:.3f} s {card}")
+            held_to_solve(f"asy_fcg k={k}", Xa, B, B64, X_ref, {
+                "2 iterations": short, "GS at 10 sweeps": X})
+            del B, B64, X_ref, X, Xa, short
+        del A, A64
+    finally:
+        for mod, name, fn in restore:
+            setattr(mod, name, fn)
+        telemetry.close()
+        telemetry.configure(None)
+        telemetry.reset()
+        if knob is None:
+            os.environ.pop("SKYLARK_TELEMETRY", None)
+        else:
+            os.environ["SKYLARK_TELEMETRY"] = knob
     return held
 
 
@@ -4740,9 +5290,17 @@ def main() -> None:
 
     # -- 3l. the command-line drivers, on files read from disk -------------
     torch.cuda.empty_cache()
-    cli_held = cli_path(sky, dev, reset_counts, read_counts, smi)
+    cli_held, cli_files = cli_path(sky, dev, reset_counts, read_counts, smi)
 
     memory("3l")
+
+    # -- 3m. the telemetry layer and the randomized Gauss-Seidel solvers ----
+    torch.cuda.empty_cache()
+    t_3m = time.perf_counter()
+    telemetry_held = telemetry_path(sky, dev, reset_counts, read_counts, smi, cli_files)
+    print(f"telemetry: phase 3m {time.perf_counter() - t_3m:.1f} s [{smi}]")
+
+    memory("3m")
 
     # -- 4. times at main-path shapes ------------------------------------
     kernels = []
@@ -4751,9 +5309,9 @@ def main() -> None:
             path_count=None, err=None, shape=None, split=None):
         b_ms, by = bound(bytes_moved, ops)
         by_path = {p: c[name] for p, c in path_launches.items() if c[name]}
-        # Phases 3i's, 3j's and 3l's items, and their sums under "refine",
-        # "policy" and "cli", on every row.
-        for phase in ("refine", "policy", "cli"):
+        # Phases 3i's, 3j's, 3l's and 3m's items, and their sums under
+        # "refine", "policy", "cli" and "telemetry", on every row.
+        for phase in ("refine", "policy", "cli", "telemetry"):
             by_path[phase] = sum(c[name] for p, c in path_launches.items()
                                  if p.startswith(f"{phase} ("))
         kernels.append({
@@ -4773,6 +5331,9 @@ def main() -> None:
             # ... and those phase 3l held.
             "cli_held": sorted(str(sig[1:]).replace("torch.", "")
                                for sig in cli_held if sig[0] == name),
+            # ... and those phase 3m held.
+            "telemetry_held": sorted(str(sig[1:]).replace("torch.", "")
+                                     for sig in telemetry_held if sig[0] == name),
             "max_abs_err": errs[name] if err is None else err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
             "library_ms": library_ms, **({"shape": shape} if shape else {}), **(split or {}),

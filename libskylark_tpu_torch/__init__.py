@@ -37,16 +37,18 @@ batches onto a row ladder.  The IO layer (``io``) reads LIBSVM (through
 the port's own native C parser, ``native``), HDF5 and arc lists, and the
 reference's command-line drivers (``cli``: ``python -m
 libskylark_tpu_torch.cli.linear FILE`` and the others) run the ported
-solvers on data read from disk.
+solvers on data read from disk.  The telemetry layer (``telemetry``,
+``SKYLARK_TELEMETRY=1``) counts, times and ledgers what every layer
+does, and ``utils.profiling`` traces it with ``torch.profiler``.
 """
 
 from ._device import set_default_device
 from . import (core, flagship, graph, guard, io, linalg, ml, plans, policy, resilient, sketch,
-               solvers, streaming, utils)
+               solvers, streaming, telemetry, utils)
 from .core.context import SketchContext
 
 __version__ = "0.1.0"
 
 __all__ = ["SketchContext", "sketch", "linalg", "solvers", "guard", "resilient", "graph",
            "ml", "flagship", "core", "utils", "streaming", "plans", "policy", "io",
-           "set_default_device"]
+           "telemetry", "set_default_device"]

@@ -3,7 +3,9 @@
 
 Beside the JAX package's helpers: ``--device`` and :func:`run_scope`,
 which set the port's default device (and, under ``--x64``, torch's
-default dtype) for one run and put them back after it, and
+default dtype, and under ``--telemetry``/``--telemetry-dir`` the
+telemetry knob and ledger directory) for one run and put them back after
+it, and
 :func:`to_device`, the host→card copy of what the IO layer read (f32, or
 f64 under ``--x64``, as ``jnp.asarray`` gives).  Flags whose layer the
 port lacks raise :class:`~libskylark_tpu_torch.utils.UnsupportedError`
@@ -12,6 +14,7 @@ naming the ROADMAP item that brings it.
 
 from __future__ import annotations
 
+import os
 import warnings
 from contextlib import contextmanager
 
@@ -49,7 +52,6 @@ __all__ = [
 ]
 
 ITEM_MULTI_DEVICE = "ROADMAP Queue A item 9: multi-device"
-ITEM_TELEMETRY = "ROADMAP Queue A item 10: telemetry"
 
 
 def add_device_args(p) -> None:
@@ -67,10 +69,16 @@ def run_scope(args):
     """Resolve ``--device`` (raising without a card unless it is ``cpu``)
     and make it the port's default device for the run; ``--x64`` makes
     f64 torch's default dtype, as ``jax_enable_x64`` does in the JAX
-    package.  Both are put back when the run ends, so drivers called in
-    one process do not leak into each other."""
+    package.  Both are put back when the run ends, and so are
+    ``SKYLARK_TELEMETRY`` and the ledger directory, which
+    :func:`setup_telemetry` sets inside the scope (closing the run's
+    ledger), so drivers called in one process do not leak into each
+    other or into their caller."""
+    from ..telemetry import ledger
+
     dev = _device.resolve_device(args.device)
     prev_device, prev_dtype = _device._DEFAULT_DEVICE, torch.get_default_dtype()
+    prev_knob, prev_dir = os.environ.get("SKYLARK_TELEMETRY"), ledger._STATE["dir"]
     _device.set_default_device(dev)
     if getattr(args, "x64", False):
         torch.set_default_dtype(torch.float64)
@@ -79,6 +87,12 @@ def run_scope(args):
     finally:
         _device._DEFAULT_DEVICE = prev_device
         torch.set_default_dtype(prev_dtype)
+        if _telemetry_requested(args):
+            if prev_knob is None:
+                os.environ.pop("SKYLARK_TELEMETRY", None)
+            else:
+                os.environ["SKYLARK_TELEMETRY"] = prev_knob
+            ledger.configure(prev_dir)
 
 
 def float_dtype(args) -> torch.dtype:
@@ -203,8 +217,6 @@ def add_policy_args(p) -> None:
 def setup_policy(args) -> None:
     """Apply the policy flags and warm-start the process (on the run's
     device: call it inside :func:`run_scope`)."""
-    import os
-
     from .. import policy
 
     if getattr(args, "policy", None) is False:
@@ -225,22 +237,29 @@ def setup_policy(args) -> None:
 
 
 def print_policy_report(args) -> None:
-    """Close out a policy run: the JAX package prints its decision
-    counters here, which live in its telemetry registry; the port counts
-    none until its telemetry layer comes (ROADMAP Queue A item 10), so
-    this prints nothing."""
-    return None
+    """Close out a policy run: the decision counters, when any fired
+    (they count in the telemetry registry, so with telemetry on)."""
+    if getattr(args, "policy", None) is False:
+        return
+    from .. import telemetry
+
+    counters = telemetry.snapshot()["policy"]
+    if counters:
+        print(f"policy: {counters}")
 
 
 def add_telemetry_args(p) -> None:
-    """The shared telemetry flags (every driver; they raise in the port)."""
+    """The shared telemetry flags (every driver)."""
     p.add_argument(
         "--telemetry", action="store_true",
-        help="enable the telemetry layer (not ported yet: raises)",
+        help="enable the telemetry layer (sets SKYLARK_TELEMETRY=1 for the "
+             "run): spans + counters in-process, and the JSONL run ledger "
+             "when --telemetry-dir is also given",
     )
     p.add_argument(
         "--telemetry-dir", default=None,
-        help="directory for the JSONL run ledger (not ported yet: raises)",
+        help="directory for the JSONL run ledger "
+             "(ledger-<pid>.jsonl; implies --telemetry)",
     )
 
 
@@ -252,17 +271,35 @@ def _telemetry_requested(args) -> bool:
 
 
 def setup_telemetry(args) -> None:
-    """--telemetry/--telemetry-dir raise UnsupportedError: the port's
-    telemetry layer waits for ROADMAP Queue A item 10."""
-    if _telemetry_requested(args):
-        flag = "--telemetry" if getattr(args, "telemetry", False) else "--telemetry-dir"
-        raise UnsupportedError(f"{flag} is not ported yet ({ITEM_TELEMETRY})")
+    """Apply --telemetry/--telemetry-dir before the solve starts (inside
+    :func:`run_scope`, which puts both back when the run ends)."""
+    if not _telemetry_requested(args):
+        return
+    from .. import telemetry
+
+    os.environ["SKYLARK_TELEMETRY"] = "1"
+    if args.telemetry_dir:
+        telemetry.configure(args.telemetry_dir)
 
 
 def print_telemetry_report(args) -> None:
-    """Nothing to report: a run that asked for telemetry has raised in
-    :func:`setup_telemetry`."""
-    return None
+    """Close out a --telemetry run: one summary line + the ledger path."""
+    if not _telemetry_requested(args):
+        return
+    from .. import telemetry
+
+    snap = telemetry.snapshot()
+    hit = snap["plan_cache_hit_rate"]
+    overlap = snap["prefetch_overlap"]
+    print(
+        "telemetry: "
+        f"plan-cache hit rate {hit if hit is not None else 'n/a'}, "
+        f"prefetch overlap {overlap if overlap is not None else 'n/a'}, "
+        f"guard {snap['guard'] or {}}, checkpoint {snap['checkpoint'] or {}}"
+    )
+    telemetry.flush()
+    if telemetry.ledger_path():
+        print(f"telemetry ledger -> {telemetry.ledger_path()}")
 
 
 # ≙ the reference's --fileformat choices (ml/options.hpp:46-47,173-174):

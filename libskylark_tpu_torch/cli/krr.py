@@ -5,8 +5,7 @@ Algorithm choices mirror the reference's -a flag:
   0 exact kernel ridge, 1 faster (precond CG), 2 approximate (feature map),
   3 sketched approximate, 4 large-scale (block coordinate descent).
 The model file is the JAX package's format, so either package predicts
-from it.  The telemetry flags raise ``UnsupportedError`` naming ROADMAP
-Queue A item 10.
+from it.
 """
 
 from __future__ import annotations
@@ -95,9 +94,9 @@ def main(argv=None) -> int:
     add_telemetry_args(p)
     args = p.parse_args(argv)
 
-    setup_telemetry(args)
     setup_perf(args)
     with run_scope(args):
+        setup_telemetry(args)
         setup_policy(args)
         is_sparse = args.sparse or args.fileformat == "hdf5_sparse"
         if args.stream:

@@ -8,9 +8,8 @@ Where the port departs from the JAX driver: ``--cond-est`` sketches A
 with CWT whether A is dense or sparse (the JAX driver takes FJLT for a
 dense A, and fails on a sparse one: its QR refuses a BCOO), and a sparse
 A's sketch comes out dense; the multi-device flags (``--shard``,
-``--distributed``, ``--resume-policy``, ``--collective-timeout``) and
-the telemetry flags raise ``UnsupportedError`` naming their ROADMAP
-items.
+``--distributed``, ``--resume-policy``, ``--collective-timeout``) raise
+``UnsupportedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -91,9 +90,9 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     refuse_deferred(args)
-    setup_telemetry(args)
     setup_perf(args)
     with run_scope(args) as dev:
+        setup_telemetry(args)
         setup_policy(args)
         if args.stream:
             return _stream_main(args)

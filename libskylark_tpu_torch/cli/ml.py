@@ -5,8 +5,8 @@
 (``ml/options.hpp:53-381``) + the GetSolver kernel×options → feature-map
 factory (``ml/hilbert.hpp:11-219``).  The model file is the JAX package's
 format, so either package predicts from it.  ``--distributed`` and its
-flags (``--resume-policy``, ``--collective-timeout``) and the telemetry
-flags raise ``UnsupportedError`` naming their ROADMAP items.
+flags (``--resume-policy``, ``--collective-timeout``) raise
+``UnsupportedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -99,11 +99,11 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     refuse_deferred(args)
-    setup_telemetry(args)
     setup_perf(args)
     if args.trainfile is None and args.testfile is None:
         p.error("need --trainfile (train) or --testfile + --modelfile (predict)")
     with run_scope(args):
+        setup_telemetry(args)
         setup_policy(args)
         return _run(args)
 

@@ -10,8 +10,8 @@ U/S/V as .npy, or as the reference's ASCII convention (``El::Write(...,
 El::ASCII)`` to ``prefix.U`` / ``prefix.S`` / ``prefix.V``,
 ``skylark_svd.cpp:110-112``) with ``--ascii``.  ``--profile`` generates a
 synthetic low-rank + noise matrix instead of reading a file (≙
-``skylark_svd.cpp:37-60``).  ``--shard`` and the telemetry flags raise
-``UnsupportedError`` naming their ROADMAP items.
+``skylark_svd.cpp:37-60``).  ``--shard`` raises ``UnsupportedError``
+naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -106,9 +106,9 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     refuse_deferred(args)
-    setup_telemetry(args)
     setup_perf(args)
     with run_scope(args) as dev:
+        setup_telemetry(args)
         setup_policy(args)
         return _run(p, args, dev)
 

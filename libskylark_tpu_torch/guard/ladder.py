@@ -8,9 +8,9 @@
 4. ``fallback`` — the exact dense solve.
 
 Every attempt lands in a :class:`RecoveryReport`, whose ``to_dict()``
-solvers attach as ``info["recovery"]``.  The JAX package also sends each
-rung to its telemetry ledger; the port's telemetry waits for ROADMAP
-Queue A item 10.
+solvers attach as ``info["recovery"]``; with telemetry on, each rung is
+also a ``guard`` ledger event, a trace event and the ``guard.attempts``
+/ ``guard.<action>`` counters.
 """
 
 from __future__ import annotations
@@ -63,6 +63,20 @@ class RecoveryReport:
     def record(self, action: str, **kw) -> RecoveryAttempt:
         a = RecoveryAttempt(action=action, **kw)
         self.attempts.append(a)
+        from .. import telemetry
+
+        if telemetry.enabled():
+            # One ledger event per rung taken, with the certificate's
+            # verdict riding along — the run ledger's view of the ladder.
+            attrs = a.to_dict()
+            attrs["stage"] = self.stage
+            attrs["rung"] = len(self.attempts) - 1
+            telemetry.event("guard", action, attrs)
+            # ... and the request trace's view: a rung > 0 here marks
+            # the trace SLO-violating (see telemetry.trace.is_violating)
+            telemetry.trace_event("guard", **attrs)  # attrs carry action
+            telemetry.inc("guard.attempts")
+            telemetry.inc(f"guard.{action}")
         return a
 
     def to_dict(self) -> dict:

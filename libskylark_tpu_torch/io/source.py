@@ -87,7 +87,9 @@ class FsspecSource(ByteSource):
     exponential backoff (``retries`` extra attempts after the first) —
     a flaky remote store must not kill a multi-hour stream over one
     dropped connection.  Non-OSError failures (missing backend deps,
-    auth errors) propagate immediately.
+    auth errors) propagate immediately.  Retries are counted in the
+    telemetry registry (``io.open_retries``) with one ledger event per
+    retried attempt.
     """
 
     def __init__(self, url: str, *, retries: int = 3, backoff: float = 0.2):
@@ -102,19 +104,24 @@ class FsspecSource(ByteSource):
         self._jitter = random.random  # likewise
 
     def open(self):
-        # The JAX package also counts each retry (``io.open_retries``) and
-        # logs it to its ledger; the port's telemetry layer waits for
-        # ROADMAP Queue A item 10 (telemetry).
+        from .. import telemetry
+
         attempt = 0
         while True:
             try:
                 return self._fsspec.open(self.url, "rb").open()
-            except OSError:
+            except OSError as e:
                 if attempt >= self.retries:
                     raise
                 # Full jitter on the exponential step: concurrent hosts
                 # re-opening the same store must not thunder in lockstep.
-                self._sleep(self.backoff * (2**attempt) * (0.5 + self._jitter()))
+                delay = self.backoff * (2**attempt) * (0.5 + self._jitter())
+                if telemetry.enabled():
+                    telemetry.inc("io.open_retries")
+                    telemetry.event("io", "open_retry", {
+                        "url": self.url, "attempt": attempt, "delay": round(delay, 4),
+                        "error": f"{type(e).__name__}: {e}"[:200]})
+                self._sleep(delay)
                 attempt += 1
 
 

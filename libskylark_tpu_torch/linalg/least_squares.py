@@ -20,7 +20,9 @@ caller's pinned fields; a matured key may reroute to ``exact``,
 bf16 copy of A, or one rounded to e4m3 (``core.round_to_e4m3``) and
 lifted to bf16, escalating to A itself when attempt 0 does not certify
 OK.  Each routed solve then records what it saw (``policy.observe``)
-and writes it to the store (``policy.flush``).
+and closes with ``telemetry.run_summary``, which writes the observation
+to the store (``policy.flush``) and, with telemetry on, ledgers the
+run's info beside the registry's snapshot.
 ``streaming_least_squares`` is the out-of-core face: the same
 sketch-and-solve over ``(A_block, b_block)`` batches
 (``streaming.sketch_least_squares``), JLT by default (FJLT has no
@@ -33,7 +35,7 @@ from dataclasses import dataclass, replace
 
 import torch
 
-from .. import guard, plans, policy
+from .. import guard, plans, policy, telemetry
 from .._device import as_tensor
 from ..core.context import SketchContext
 from ..core.params import Params
@@ -155,11 +157,14 @@ def approximate_least_squares(
     default_size = min(4 * n, m)
 
     def finish(X, info, record=True, **obs):
-        """Attach the decision, record the run in the store, return."""
+        """Attach the decision, record the run in the store, close the run
+        (the unrecorded, unguarded solve only when it returns its info,
+        as the JAX package does), return."""
         info["policy"] = decision.to_dict()
         if record:
             policy.observe(decision, info, default_size=default_size, **obs)
-            policy.flush("sketch_and_solve_ls", info)
+        if record or return_info:
+            telemetry.run_summary("sketch_and_solve_ls", info)
         out = X[:, 0] if squeeze else X
         return (out, info) if return_info else out
 
@@ -295,5 +300,8 @@ def streaming_least_squares(source, nrows: int, ncols: int, context: SketchConte
     policy.observe(decision, info, default_size=min(4 * ncols, nrows),
                    rows_per_s=(info.get("rows", 0) / seconds) if seconds else None,
                    batches=info.get("batches"))
+    # The driver's run_summary (the run's terminal ledger event, carrying
+    # info["policy"]) fired before this observation existed; flush it
+    # now, as the JAX package does, so it reaches the store exactly once.
     policy.flush("streaming_lsq", info)
     return x, info

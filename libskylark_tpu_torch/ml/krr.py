@@ -50,7 +50,7 @@ from dataclasses import dataclass
 
 import torch
 
-from .. import guard, plans, policy
+from .. import guard, plans, policy, telemetry
 from .._device import as_tensor
 from ..core.context import SketchContext
 from ..core.params import Params
@@ -224,7 +224,7 @@ def approximate_kernel_ridge(
     model = FeatureMapModel([S], W)
     model.info = {"recovery": report.to_dict(), "policy": decision.to_dict()}
     policy.observe(decision, model.info, bf16=bf16_note)
-    policy.flush("approximate_krr", model.info)
+    telemetry.run_summary("approximate_krr", model.info)
     return model
 
 

@@ -36,9 +36,9 @@ point takes the eager path and counts a ``bypass``); otherwise the
 least recently used plans go until the rest fit.  The graphs' shared
 pool of intermediates is not counted: it is as large as the largest
 captured body's, and an evicted plan's share goes back to the device
-once no graph uses the pool.  The JAX package's
-telemetry events for hits and compiles come with the
-port's telemetry (ROADMAP Queue A item 10).
+once no graph uses the pool.  With telemetry on, every lookup is a
+``plan`` / ``cache`` ledger event (``hit``, the plan kind) and a trace
+event, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -48,6 +48,8 @@ import threading
 from collections import OrderedDict
 
 import torch
+
+from .. import telemetry
 
 __all__ = ["stats", "reset", "reset_stats", "clear", "set_cache_size", "PlanCache"]
 
@@ -92,8 +94,14 @@ class PlanCache:
             if plan is not None:
                 self._counters["hits"] += 1
                 self._plans.move_to_end(key)
-                return plan
-            self._counters["misses"] += 1
+            else:
+                self._counters["misses"] += 1
+        if telemetry.enabled():
+            telemetry.event("plan", "cache", {"hit": plan is not None, "plan": key[0]})
+            # a serve dispatch in flight sees its plan-cache fate too
+            telemetry.trace_event("plan", hit=plan is not None, plan=key[0])
+        if plan is not None:
+            return plan
         plan = builder()
         with self._lock:
             existing = self._plans.get(key)

@@ -65,6 +65,11 @@ How a plan runs (:class:`SketchPlan`):
 
 ``SKYLARK_NO_PLANS=1`` bypasses everything (the entry points run the
 eager path and count a ``bypass``).
+
+With telemetry on, a plan's first call is a ``plan`` / ``compile``
+event, each planned slice and rowwise step a ``plan`` / ``slice`` or
+``rowwise`` event, and a planned apply a ``sketch.apply`` span, all
+outside the captured body, as the JAX package has them outside ``jit``.
 """
 
 from __future__ import annotations
@@ -77,6 +82,7 @@ import weakref
 
 import torch
 
+from .. import telemetry
 from .._device import as_tensor
 from ..policy.record import _dtype_name, note_plan
 from ..sketch import _launch
@@ -281,6 +287,8 @@ class SketchPlan:
         self.compile_seconds = seconds
         PLAN_CACHE.bump("compiles")
         PLAN_CACHE.bump("compile_seconds", seconds)
+        if telemetry.enabled():
+            telemetry.event("plan", "compile", {"plan": self.key[0], "seconds": round(seconds, 6)})
         self.held.update({(self.device, ("out", i), tuple(o.shape), o.dtype):
                           _nbytes(o.shape, o.dtype) for i, o in enumerate(outs)})
         self.held[("sketch", id(self.sketch))] = _tensor_bytes(self.sketch.__dict__)
@@ -401,6 +409,10 @@ def apply(S, A, dim: Dimension | str = Dimension.COLUMNWISE):
     note_plan("apply", S, dim=dim.value, shape=tuple(A.shape), dtype=_dtype_name(A.dtype))
     plan = _get_plan(key, S, token, lambda S_, A_: S_.apply(A_, dim), A.device,
                      [A.shape], [A.dtype])
+    if telemetry.enabled():
+        with telemetry.span("sketch.apply", dim=dim.value, shape=list(A.shape)) as sp:
+            sp.result = plan(A)
+        return sp.result
     return plan(A)
 
 
@@ -466,6 +478,8 @@ def accumulate_slice(S, acc, block, start, *, donate: bool | None = None,
 
     plan = _get_plan(key, S, token, fn, acc.device, [acc.shape, shape, ()],
                      [acc.dtype, block.dtype, torch.int64])
+    if telemetry.enabled():
+        telemetry.event("plan", "slice", {"bucket": shape[0], "rows": k, "fused": bool(fused)})
     return plan(acc, block, int(start))
 
 
@@ -516,6 +530,8 @@ def apply_rowwise_bucketed(S, block, *, pad_out: bool = False, true_rows: int | 
         return torch.where(valid[:, None], Z, torch.zeros((), dtype=Z.dtype, device=Z.device))
 
     plan = _get_plan(key, S, token, fn, block.device, [shape, ()], [block.dtype, torch.int64])
+    if telemetry.enabled():
+        telemetry.event("plan", "rowwise", {"bucket": kb, "rows": k})
     Z = plan(block, k)
     if pad_out:
         return Z, k

@@ -36,6 +36,7 @@ from dataclasses import dataclass, field
 
 import torch
 
+from .. import telemetry
 from . import config
 from .profile import load_entries, profile_key
 
@@ -167,7 +168,9 @@ def choose_route(
     view = store_view if store_view is not None else load_entries()
     entry = (view or {}).get("entries", {}).get(sig.key)
     if entry is None or int(entry.get("runs", 0)) < config.min_samples():
+        telemetry.inc("policy.profile_misses")
         return d
+    telemetry.inc("policy.profile_hits")
     d.source = "profile"
     runs = max(1, int(entry.get("runs", 1)))
     g = entry.get("guard") or {}

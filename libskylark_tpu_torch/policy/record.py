@@ -2,14 +2,16 @@
 ``libskylark_tpu/policy/record.py``).
 
 Routed entry points call :func:`consult` before the solve, then
-:func:`observe` (which queues the run's observation in memory) and
-:func:`flush` (which folds everything pending into this process's
-profile file) after it, so every observation is on disk by the end of
-the call that made it.  With the layer off or no store directory,
-``observe``, ``note_plan`` and ``flush`` return at once.  The plans
-layer calls :func:`note_plan` on every planned apply, and ``flush``
-writes the plan-compile totals into the store's meta.  The port's
-telemetry (ROADMAP Queue A item 10) will take over the ``flush`` calls.
+:func:`observe` (which queues the run's observation in memory); the
+run's terminal ``telemetry.run_summary`` calls :func:`flush` (which
+folds everything pending into this process's profile file) before its
+telemetry gate, so every observation is on disk by the end of the call
+that made it, with telemetry on or off.  With the layer off or no store
+directory, ``observe``, ``note_plan`` and ``flush`` return at once.  The
+plans layer calls :func:`note_plan` on every planned apply, and
+``flush`` writes the plan-compile totals into the store's meta.  With
+telemetry on, decisions, routes, precision rungs, escalations and
+profile writes count under ``policy.*``.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import time
 
 import torch
 
+from .. import telemetry
 from . import config
 from .decide import Decision, ProblemSignature, choose_route
 from .profile import ProfileStore
@@ -73,8 +76,21 @@ def consult(kind: str, *, m: int, n: int, targets: int = 1, dtype, sparse: bool 
     sig = ProblemSignature(kind=kind, m=int(m), n=int(n), targets=int(targets),
                            dtype=_dtype_name(dtype), sparse=bool(sparse),
                            backend=_backend_name(device))
-    return choose_route(sig, route=route, sketch_type=sketch_type, sketch_size=sketch_size,
-                        guard_on=guard_on)
+    d = choose_route(sig, route=route, sketch_type=sketch_type, sketch_size=sketch_size,
+                     guard_on=guard_on)
+    if telemetry.enabled():  # (disabled, not even the trace's attrs are built)
+        telemetry.inc("policy.decisions")
+        # route + provenance onto any serve trace this solve is answering
+        telemetry.trace_event("policy", route=d.route, sketch_type=d.sketch_type,
+                              sketch_size=int(d.sketch_size), source=d.source,
+                              escalated=d.escalated, reasons=list(d.reasons))
+        if d.route not in ("sketch", "cholesky"):
+            telemetry.inc(f"policy.route.{d.route}")
+        if d.compute_dtype == "float8_e4m3fn":
+            telemetry.inc("policy.fp8_first")
+        elif d.compute_dtype:
+            telemetry.inc("policy.bf16_first")
+    return d
 
 
 def _recovery_obs(info: dict | None) -> dict:
@@ -138,6 +154,8 @@ def observe(
     with _LOCK:
         _store().fold(decision.key, obs, now=time.time())
         _STATE["pending"] += 1
+    if decision.escalated:
+        telemetry.inc("policy.escalations")
 
 
 def note_plan(plan: str, S, *, dim: str | None = None, shape=None, dtype: str | None = None,
@@ -163,8 +181,8 @@ def flush(name: str | None = None, info: dict | None = None) -> str | None:
     """Persist pending observations and the plan-compile totals (the
     store's meta; ``xla_cache_dir`` is None, the port has no XLA cache);
     returns the profile file's path, or None when nothing was written.
-    ``name`` and ``info`` are the run's (the JAX package passes them on
-    from its run summary)."""
+    Called by ``telemetry.run_summary``, which passes on the run's
+    ``name`` and ``info``."""
     if not recording_active():
         return None
     with _LOCK:
@@ -179,4 +197,5 @@ def flush(name: str | None = None, info: dict | None = None) -> str | None:
         path = store.save(now=time.time())
         if path is not None:
             _STATE["pending"] = 0
+        telemetry.inc("policy.profile_writes")
         return path

@@ -24,6 +24,7 @@ import time
 
 import torch
 
+from .. import telemetry
 from .._device import resolve_device
 from . import config
 from .profile import load_entries
@@ -114,4 +115,7 @@ def warm_start(directory: str | None = None, *, max_plans: int | None = None,
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     summary["seconds"] = round(time.perf_counter() - t0, 6)
+    if telemetry.enabled():
+        telemetry.inc("policy.warm_plans", summary["plans_replayed"])
+        telemetry.event("policy", "warm_start", dict(summary))
     return summary

@@ -7,15 +7,21 @@ CRC-guarded checkpoint after every round.  A preempted process restarts
 with ``resume=True`` and loses at most one round; a corrupt newest
 checkpoint falls back to the previous slot; transient IO errors are
 retried with backoff; a non-finite state halts the run with the last
-finite iterate attached.  The JAX package's telemetry events wait for
-the port's telemetry layer (ROADMAP Queue A item 10).
+finite iterate attached.  With telemetry on, each chunk is a
+``solver`` ledger event (its iteration and, where the state carries one,
+its residual) and each checkpoint a ``checkpoint`` save or restore event
+with the ``checkpoint.saves`` / ``restores`` / ``bytes`` counters.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass
 
+import torch
+
+from .. import telemetry
 from ..core.params import Params
 from ..guard.sentinels import tree_all_finite
 from ..utils.checkpoint import CheckpointStore, place_like, tree_flatten, tree_unflatten
@@ -23,6 +29,23 @@ from ..utils.exceptions import CheckpointError, ConvergenceError
 from .faults import with_retries
 
 __all__ = ["ResilientParams", "ResilientRunner"]
+
+
+def _residual_of(state):
+    """Best-effort residual read at a chunk boundary: the chunked solver
+    states that track one keep it under a conventional key (LSQR's
+    ``phibar``, generic ``resid``/``rnorm``).  Returns a float (max over
+    targets) or None — never raises, never reads the card for states
+    that carry no residual."""
+    if not isinstance(state, dict):
+        return None
+    for key in ("phibar", "resid", "rnorm", "residual"):
+        if key in state:
+            try:
+                return float(torch.max(torch.abs(torch.as_tensor(state[key]))))
+            except (TypeError, ValueError, RuntimeError):
+                return None
+    return None
 
 
 @dataclass
@@ -85,6 +108,11 @@ class ResilientRunner:
             raise CheckpointError(f"checkpoint step {step} has {len(leaves)} leaves, "
                                   f"solver state has {len(proto)}")
         self.params.log(1, f"resumed from checkpoint step {step}")
+        if telemetry.enabled():
+            # crc_ok is True by construction here: load_latest only
+            # returns slots whose per-leaf CRC32 validated.
+            telemetry.event("checkpoint", "restore", {"step": step, "crc_ok": True, "kind": kind})
+            telemetry.inc("checkpoint.restores")
         return tree_unflatten(treedef, [place_like(v, p) for v, p in zip(leaves, proto)])
 
     def _commit(self, state, chunk: int) -> None:
@@ -97,9 +125,21 @@ class ResilientRunner:
                 self.fault_plan.before_save(chunk)
             return self.store.save(state, step=step, metadata=meta)
 
-        with_retries(attempt, retries=self.params.io_retries,
-                     backoff=self.params.io_backoff, sleep=self.sleep)
+        t0 = time.perf_counter()
+        path = with_retries(attempt, retries=self.params.io_retries,
+                            backoff=self.params.io_backoff, sleep=self.sleep)
         self.params.log(2, f"checkpoint committed at iteration {step}")
+        if telemetry.enabled():
+            try:
+                nbytes = os.path.getsize(path)
+            except OSError:
+                nbytes = None
+            telemetry.event("checkpoint", "save", {
+                "step": step, "chunk": chunk, "bytes": nbytes, "crc": "crc32-per-leaf",
+                "seconds": round(time.perf_counter() - t0, 6)})
+            telemetry.inc("checkpoint.saves")
+            if nbytes:
+                telemetry.inc("checkpoint.bytes", nbytes)
 
     def run(self):
         p = self.params
@@ -121,6 +161,12 @@ class ResilientRunner:
                     result=solver.extract_result(state),
                     iteration=int(solver.iteration(state)))
             state = new_state
+            if telemetry.enabled():
+                attrs = {"chunk": chunk, "iteration": int(solver.iteration(state))}
+                resid = _residual_of(state)
+                if resid is not None:
+                    attrs["resid"] = resid
+                telemetry.event("solver", getattr(solver, "kind", "chunked_solver"), attrs)
             if self.store is not None:
                 self._commit(state, chunk)
             if self.fault_plan is not None:

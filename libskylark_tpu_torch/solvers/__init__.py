@@ -9,15 +9,16 @@
   (≙ ``nla/CondEst.hpp``);
 - ``regression``: the regression-problem dispatch;
 - ``prox``: loss/regularizer prox library (≙ ``algorithms/regression/
-  loss.hpp``, ``regularizers.hpp``).
-
-Not ported yet, each raising ``UnsupportedError`` naming its ROADMAP
-item: ``asy_fcg`` and ``randomized_block_gauss_seidel`` (item 10).
+  loss.hpp``, ``regularizers.hpp``);
+- ``gauss_seidel``: synchronous randomized block Gauss-Seidel
+  (≙ ``algorithms/asynch/AsyRGS.hpp``);
+- ``asynch``: flexible CG preconditioned by it (≙ ``AsyFCG.hpp``).
 """
 
-from ..utils.exceptions import deferred
 from .accelerated import FasterLeastSquaresParams, faster_least_squares, lsrn_least_squares
+from .asynch import asy_fcg
 from .cond_est import CondEstParams, CondEstResult, cond_est
+from .gauss_seidel import randomized_block_gauss_seidel
 from .krylov import (
     KrylovParams,
     cg,
@@ -33,10 +34,6 @@ from .precond import IdPrecond, MatPrecond, TriInversePrecond
 from .prox import LOSSES, REGULARIZERS, get_loss, get_regularizer
 from .refine import RefineParams, refine_least_squares
 from .regression import RegressionProblem, solve_regression
-
-asy_fcg = deferred("asy_fcg", "ROADMAP Queue A item 10: solvers/asynch.py")
-randomized_block_gauss_seidel = deferred(
-    "randomized_block_gauss_seidel", "ROADMAP Queue A item 10: solvers/gauss_seidel.py")
 
 __all__ = [
     "KrylovParams",

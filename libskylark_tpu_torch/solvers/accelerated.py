@@ -9,9 +9,8 @@ accelerated_linearl2_regression_solver_Elemental.hpp`` and
 - LSRN: SVD of S·A → N = V·Σ⁻¹ as the right preconditioner of LSQR.
 
 Sparse A is refused: the JAX package fails on it too (its QR and SVD of
-the BCOO sketch S·A; ROADMAP Queue C).  The JAX package's
-``telemetry.run_summary`` calls wait for ROADMAP Queue A item 10; the
-``info`` dicts keep every other key.
+the BCOO sketch S·A; ROADMAP Queue C).  Each solve closes its run with
+``telemetry.run_summary``.
 """
 
 from __future__ import annotations
@@ -21,7 +20,7 @@ from dataclasses import dataclass
 
 import torch
 
-from .. import guard
+from .. import guard, telemetry
 from .._device import as_tensor
 from ..core.context import SketchContext
 from ..core.params import Params
@@ -117,14 +116,17 @@ def faster_least_squares(A, B, context: SketchContext,
         X = exact_least_squares(A, B, alg="svd")
         report.record("fallback", verdict=guard.FALLBACK, detail="exact svd solve")
         report.recovered = True
-        return X, {"attempts": attempt, "condest": cond, "fallback": "svd", "iterations": 0,
-                   "recovery": report.to_dict()}
+        info = {"attempts": attempt, "condest": cond, "fallback": "svd", "iterations": 0,
+                "recovery": report.to_dict()}
+        telemetry.run_summary("blendenpik", info)
+        return X, info
     X, info = lsqr(A, B, precond=TriInversePrecond(R, lower=False), params=params.krylov)
     if guarded:
         guard.check_finite(X, "blendenpik_lsqr", report=report)
     info["attempts"] = attempt
     info["condest"] = cond
     info["recovery"] = report.to_dict()
+    telemetry.run_summary("blendenpik", info)
     return X, info
 
 
@@ -166,4 +168,5 @@ def lsrn_least_squares(A, B, context: SketchContext,
     if guarded:
         guard.check_finite(X, "lsrn_lsqr", report=report)
     info["recovery"] = report.to_dict()
+    telemetry.run_summary("lsrn", info)
     return X, info

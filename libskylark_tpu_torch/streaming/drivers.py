@@ -15,9 +15,10 @@ bounded memory while the prefetch pipeline copies the next batch.
 Each takes an iterable or a re-openable ``factory(start_batch) ->
 iterator`` (needed for resume; ``engine.as_block_factory``).  Batches
 are tensors or numpy arrays; the placer stages them on the card unless
-``StreamParams(placer=pinned_placer("cpu"))`` says otherwise.  The
-multi-host routes (``partition=``) raise ``UnsupportedError`` naming
-ROADMAP Queue A item 9.
+``StreamParams(placer=pinned_placer("cpu"))`` says otherwise.  The two
+solvers close their run with ``telemetry.run_summary``.  The multi-host
+routes (``partition=``) raise ``UnsupportedError`` naming ROADMAP Queue
+A item 9.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import time
 import numpy as np
 import torch
 
-from .. import guard, plans
+from .. import guard, plans, telemetry
 from ..sketch.base import Dimension
 from ..utils.exceptions import UnsupportedError
 from .engine import StreamParams, accumulate_slice, as_block_factory, run_stream, stream_device
@@ -205,6 +206,7 @@ def sketch_least_squares(source, S, *, ncols: int, targets: int = 1, alg: str = 
             "recovery": report.to_dict()}
     if policy_decision is not None:
         info["policy"] = policy_decision
+    telemetry.run_summary("streaming_lsq", info)
     return x, info
 
 
@@ -273,4 +275,5 @@ def kernel_ridge(source, kernel, lam: float, s: int, context, *, targets: int = 
     model = FeatureMapModel([S], W)
     model.info = {"rows": int(acc["rows"]), "batches": nbatches,
                   "recovery": report.to_dict()}
+    telemetry.run_summary("streaming_krr", model.info)
     return model

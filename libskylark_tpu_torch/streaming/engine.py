@@ -20,6 +20,13 @@ A columnwise step goes through the plans layer
 graph per bucket where the transform's step is launch-bound, bitwise
 the eager step.  A step never updates its accumulator in place, so the
 chunk-entry state the guard's replay reads again needs no copy.
+
+With telemetry on, each chunk is a ``stream.chunk`` span (it waits for
+the folded accumulator, the PhaseTimer rule, and carries the chunk's
+``rows`` and ``batches``) with the ``stream.rows``, ``stream.batches``,
+``stream.sentinel_checks`` and ``stream.replays`` counters and the
+``stream.rows_per_s`` gauge; a pass's prefetch counters fold into the
+registry and a ``stream`` / ``prefetch`` event when it ends.
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ from itertools import islice
 import numpy as np
 import torch
 
-from .. import guard, plans
+from .. import guard, plans, telemetry
 from .._device import resolve_device
 from ..plans import fused_enabled
 from ..resilient import ChunkedSolver, ResilientParams, ResilientRunner
@@ -147,6 +154,19 @@ class _Cursor:
             self._prefetcher.close()
 
 
+def _rows_of(acc):
+    """Row count of a driver accumulator, when it carries one (the
+    streaming drivers keep a host ``"row"``/``"rows"`` bookkeeping leaf)."""
+    if isinstance(acc, dict):
+        for key in ("row", "rows"):
+            if key in acc:
+                try:
+                    return int(acc[key])
+                except (TypeError, ValueError):
+                    return None
+    return None
+
+
 def skip_batches(it, k: int):
     """Drop the first ``k`` items: the generic (re-parse) skip for
     factories over sources that cannot seek."""
@@ -177,7 +197,7 @@ def run_stream(source, step_fn, init_acc, params: StreamParams | None = None, *,
     def init_state():
         return {"batch": np.asarray(0, np.int64), "acc": init_acc}
 
-    def step_chunk(state, k):
+    def fold_chunk(state, k, sp):
         guarded = guard.enabled()
         b0 = int(state["batch"])
         cursor.ensure(b0)
@@ -199,10 +219,15 @@ def run_stream(source, step_fn, init_acc, params: StreamParams | None = None, *,
             cursor.advance()
         if overlapped and b > b0:
             _overlap.chunk_sync(acc)
+        if sp is not None:
+            sp.attrs["batches"] = b - b0
+            if guarded and b > b0:
+                telemetry.inc("stream.sentinel_checks")
         if guarded and b > b0 and not guard.tree_all_finite(acc):
             if report is not None:
                 report.record("replay", chunk=b0,
                               detail="non-finite accumulator; re-folding chunk")
+            telemetry.inc("stream.replays")
             acc = state["acc"]
             for j, block in enumerate(blocks):
                 if fault_plan is not None:
@@ -215,6 +240,23 @@ def run_stream(source, step_fn, init_acc, params: StreamParams | None = None, *,
             if report is not None:
                 report.recovered = True
         return {"batch": np.asarray(b, np.int64), "acc": acc}
+
+    def step_chunk(state, k):
+        if not telemetry.enabled():
+            return fold_chunk(state, k, None)
+        with telemetry.span("stream.chunk", kind=kind, chunk=int(state["batch"])) as sp:
+            new_state = fold_chunk(state, k, sp)
+            # PhaseTimer discipline: wait for the folded accumulator so the
+            # span (and its derived rows/s) measures device time.
+            sp.result = new_state["acc"]
+            rows = _rows_of(new_state["acc"])
+            if rows is not None:
+                sp.attrs["rows"] = rows - (_rows_of(state["acc"]) or 0)
+        if sp.seconds and sp.attrs.get("rows"):
+            telemetry.inc("stream.rows", sp.attrs["rows"])
+            telemetry.set_gauge("stream.rows_per_s", round(sp.attrs["rows"] / sp.seconds, 3))
+        telemetry.inc("stream.batches", sp.attrs.get("batches", 0))
+        return new_state
 
     def is_done(state):
         cursor.ensure(int(state["batch"]))
@@ -232,5 +274,27 @@ def run_stream(source, step_fn, init_acc, params: StreamParams | None = None, *,
         return ResilientRunner(solver, params, metadata=dict(metadata or {}),
                                fault_plan=fault_plan).run()
     finally:
-        params.prefetch_stats = cursor.stats
+        st = params.prefetch_stats = cursor.stats
         cursor.close()
+        if st is not None and telemetry.enabled():
+            _fold_prefetch(st, kind, overlapped)
+
+
+def _fold_prefetch(st, kind: str, overlapped: bool) -> None:
+    """A pass's pipeline evidence into the registry (so ``snapshot()``'s
+    ``prefetch_overlap`` and ``overlap_efficiency`` outlive the cursor)
+    and one ``stream`` / ``prefetch`` ledger event; ``waits`` are the
+    consumer's stalls, ``producer_seconds`` the staging (placer and
+    copies), ``wait_seconds`` what the stalls cost."""
+    telemetry.inc("prefetch.produced", st.produced)
+    telemetry.inc("prefetch.consumed", st.consumed)
+    telemetry.inc("prefetch.hits", st.hits)
+    telemetry.inc("prefetch.waits", st.waits)
+    telemetry.inc("prefetch.producer_seconds", round(st.producer_seconds, 6))
+    telemetry.inc("prefetch.wait_seconds", round(st.wait_seconds, 6))
+    gets = st.hits + st.waits
+    telemetry.event("stream", "prefetch", {
+        "kind": kind, "produced": st.produced, "consumed": st.consumed, "hits": st.hits,
+        "waits": st.waits, "producer_seconds": round(st.producer_seconds, 6),
+        "wait_seconds": round(st.wait_seconds, 6), "overlapped": overlapped,
+        "overlap": round(st.hits / gets, 6) if gets else None})

@@ -16,13 +16,16 @@ theirs for the same solver: least squares and Blendenpik 1e-9 relative
 numpy in both and equal.  Also: a model saved by one package predicts
 the same in the other, ``--stream`` equals the whole-file solve with the
 stream's own sketch, each deferred flag raises ``UnsupportedError``
-naming its ROADMAP item, and a run without ``--device cpu`` raises here,
+naming its ROADMAP item, the telemetry flags print and ledger what the
+JAX drivers do and hold for the run only, and a run without ``--device
+cpu`` raises here,
 where there is no card.  ``tests/test_cli_ml.py`` is mirrored case for
 case on the port (its ``TestGraftEntry`` tests ``__graft_entry__``, not a
 driver: the port's ``flagship.py`` has its counterpart).
 """
 
 import importlib
+import os
 import re
 
 import jax
@@ -434,15 +437,10 @@ def test_convert2hdf5_matches_jax(blob_files, capsys, sparse):
     ("linear", ["--stream", "--distributed"], "item 9"),
     ("linear", ["--resume-policy", "repartition"], "item 9"),
     ("linear", ["--collective-timeout", "5"], "item 9"),
-    ("linear", ["--telemetry"], "item 10: telemetry"),
-    ("linear", ["--telemetry-dir", "tdir"], "item 10: telemetry"),
     ("svd", ["--shard"], "item 9"),
-    ("svd", ["--telemetry"], "item 10: telemetry"),
-    ("krr", ["--telemetry"], "item 10: telemetry"),
     ("ml", ["--distributed"], "item 9"),
     ("ml", ["--resume-policy", "strict"], "item 9"),
     ("ml", ["--collective-timeout", "1"], "item 9"),
-    ("ml", ["--telemetry-dir", "tdir"], "item 10: telemetry"),
 ])
 def test_deferred_flags_raise_naming_their_item(blob_files, name, argv, item):
     root = blob_files
@@ -451,6 +449,75 @@ def test_deferred_flags_raise_naming_their_item(blob_files, name, argv, item):
              "ml": ["--trainfile", str(root / "train")]}[name]
     with pytest.raises(UnsupportedError, match=f"ROADMAP Queue A {item}"):
         tmain(name)(files + argv + CPU)
+
+
+def _ledger_events(directory):
+    """The (kind, name) of a ledger's events, the plans layer's left out:
+    the JAX side runs with its plans off (plan events and the planned
+    apply's ``sketch.apply`` span exist only on the port's side)."""
+    import glob
+    import json
+
+    events = []
+    for path in sorted(glob.glob(str(directory / "ledger-*.jsonl"))):
+        with open(path, encoding="utf-8") as fh:
+            events += [json.loads(line) for line in fh]
+    return [(e["kind"], e["name"]) for e in events
+            if e["kind"] != "plan" and e["name"] != "sketch.apply"]
+
+
+@pytest.mark.parametrize("name,argv", [
+    ("linear", ["--telemetry"]),
+    ("linear", ["--telemetry-dir", "tdir"]),
+    ("svd", ["-k", "2", "--telemetry"]),
+    ("krr", ["--telemetry"]),
+    ("krr", ["-a", "2", "--telemetry-dir", "tdir"]),
+    ("ml", ["--telemetry-dir", "tdir"]),
+])
+def test_telemetry_flags_work_as_in_jax(blob_files, capsys, monkeypatch, name, argv):
+    """The telemetry flags run: ``--telemetry`` prints the JAX driver's
+    summary line (the plan-cache hit rate aside: the JAX plans are off
+    here), ``--telemetry-dir`` writes a ledger holding the JAX driver's
+    events on the same input, a ``run_summary`` last where there is one;
+    after the port's driver ``SKYLARK_TELEMETRY`` and the ledger
+    directory are back to their values before it, and its ledger is
+    closed."""
+    from libskylark_tpu_torch.telemetry import ledger as tledger
+
+    root = blob_files
+    files = {"linear": [str(root / "train"), "--solution", str(root / "x.npy")],
+             "svd": [str(root / "train"), "--prefix", str(root / "svd")],
+             "krr": ["--trainfile", str(root / "train"), "--modelfile", str(root / "m")],
+             "ml": ["--trainfile", str(root / "train"), "--modelfile", str(root / "m")]}[name]
+    outs, ledgers = [], []
+    for tag, fn, pkg, extra in (("j", jmain(name), J, []), ("t", tmain(name), T, CPU)):
+        monkeypatch.setenv("SKYLARK_TELEMETRY", "0")  # the JAX driver sets it for good
+        args = [str(root / f"tdir_{tag}") if a == "tdir" else a for a in argv]
+        pkg.telemetry.reset()
+        capsys.readouterr()
+        try:
+            assert fn(files + args + ["--x64"] + extra) == 0
+        finally:
+            pkg.telemetry.close()
+        outs.append(capsys.readouterr().out)
+        if tag == "t":
+            assert os.environ["SKYLARK_TELEMETRY"] == "0"
+            assert tledger._STATE["dir"] is None and T.telemetry.ledger_path() is None
+        pkg.telemetry.configure(None)
+        pkg.telemetry.reset()
+        ledgers.append(_ledger_events(root / f"tdir_{tag}"))
+    if "--telemetry-dir" in argv:
+        assert ledgers[1] == ledgers[0]
+        # The ledger opens at its first event: a run without one writes none.
+        assert [("telemetry ledger -> " in out) for out in outs] == [bool(ledgers[0])] * 2
+        summaries = [i for i, ev in enumerate(ledgers[1]) if ev[0] == "run_summary"]
+        assert summaries == ([len(ledgers[1]) - 1] if summaries else [])
+        if name in ("linear", "krr"):
+            assert summaries  # Blendenpik and approximate KRR close their runs
+    else:
+        lines = [re.sub(r"plan-cache hit rate [^,]*,", "", out.split("telemetry: ")[1])
+                 for out in outs]
+        assert lines[1] == lines[0]
 
 
 def test_xla_cache_dir_warns_not_applied(blob_files, tmp_path):
@@ -655,3 +722,55 @@ class TestModelRoundTripAcrossCLIs:
         Xt, yt = T.io.read_libsvm(blob_files / "test")
         pred = m.predict_labels(torch.from_numpy(Xt)).numpy()
         assert (pred == yt).mean() > 0.85
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (its ``main`` runs only as a script)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_for_tests", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("label", ["linear", "linear sketched", "krr", "ml"])
+def test_driver_ledgers_are_the_ones_chip_smoke_expects(tmp_path, rng, capsys, monkeypatch,
+                                                        label):
+    """Phase 3m of ``chip_smoke.py`` holds the port's driver ledgers on the
+    card to ``CLI_LEDGERS``, run with phase 3l's flags: here the JAX
+    package's drivers, and the port's, write exactly those on small files
+    of the same kinds (a dense least-squares file, planted classes)."""
+    expected = _chip_smoke().CLI_LEDGERS[label]
+    A = rng.standard_normal((2000, 12))
+    write_libsvm(tmp_path / "ls", A, A @ rng.standard_normal(12) + rng.standard_normal(2000))
+    centers = 3.0 * rng.standard_normal((3, 20))
+    y = rng.integers(0, 3, 600)
+    X = centers[y] + rng.standard_normal((600, 20))
+    write_libsvm(tmp_path / "train", X[:500], y[:500] + 1)
+    write_libsvm(tmp_path / "test", X[500:], y[500:] + 1)
+    ls, train, test = str(tmp_path / "ls"), str(tmp_path / "train"), str(tmp_path / "test")
+    name, argv = {
+        "linear": ("linear", [ls, "--cond-est", "--solution", str(tmp_path / "x.npy")]),
+        "linear sketched": ("linear", [ls, "--solver", "sketched", "--solution",
+                                       str(tmp_path / "x.npy")]),
+        "krr": ("krr", ["--trainfile", train, "--testfile", test, "--modelfile",
+                        str(tmp_path / "k.json"), "-a", "2", "--use-fast", "-f", "64", "--sigma",
+                        "3", "--lambda", "0.01"]),
+        "ml": ("ml", ["--trainfile", train, "--testfile", test, "--modelfile",
+                      str(tmp_path / "m.json"), "--usefast", "-g", "3", "-f", "64", "-n", "4", "-i",
+                      "5", "-l", "hinge", "--lambda", "0.01"]),
+    }[label]
+    for tag, fn, pkg, extra in (("j", jmain(name), J, []), ("t", tmain(name), T, CPU)):
+        monkeypatch.setenv("SKYLARK_TELEMETRY", "0")
+        pkg.telemetry.reset()
+        try:
+            assert fn(argv + ["--x64", "--telemetry-dir", str(tmp_path / tag)] + extra) == 0
+        finally:
+            pkg.telemetry.close()
+            pkg.telemetry.configure(None)
+            pkg.telemetry.reset()
+        capsys.readouterr()
+        assert _ledger_events(tmp_path / tag) == expected, tag

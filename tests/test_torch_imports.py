@@ -37,7 +37,11 @@ def test_port_files_found():
             "engine.py", "drivers.py", "quasirand.py", "quasi.py", "spectral.py", "deps.py",
             "community.py", "ase.py", "refine.py", "decide.py", "profile.py",
             "record.py", "source.py", "libsvm.py", "hdf5.py", "arclist.py", "common.py",
-            "linear.py", "graph_se.py", "convert2hdf5.py"} <= names
+            "linear.py", "graph_se.py", "convert2hdf5.py", "profiling.py", "registry.py",
+            "ledger.py", "spans.py", "trace.py", "slo.py", "timeline.py", "exposition.py",
+            "fleet.py", "phases.py", "report.py", "gauss_seidel.py", "asynch.py"} <= names
+    telemetry = {p.name for p in FILES if p.parent.name == "telemetry"}
+    assert len(telemetry) == 12, sorted(telemetry)
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -2,9 +2,9 @@
 ``io.hdf5``, ``io.arclist``) and ``graph.read_arc_list``, on the same
 files made from a seed.
 
-``tests/test_io.py`` mirrored case for case (its telemetry-count case
-waits for the port's telemetry layer, ROADMAP Queue A item 10), each
-case run through both packages.  Tolerances: none — dense reads, labels,
+``tests/test_io.py`` mirrored case for case, each case run through both
+packages (the retry count also in the port's ledger, beside the JAX
+package's event).  Tolerances: none — dense reads, labels,
 batches, scans and arc-list blocks are held bitwise equal to the JAX
 package's, and a sparse read's ``(indices, values)`` bitwise equal to
 the BCOO's, in the same (file) order, uncoalesced.
@@ -369,6 +369,38 @@ def test_fsspec_open_retry_budget_exhausted():
     with pytest.raises(OSError, match="transient failure #3"):
         src.open()
     assert flaky.calls == 3  # first try + 2 retries, then the raise
+
+
+@pytest.mark.parametrize("pkg", [TIO, JIO], ids=["port", "jax"])
+def test_fsspec_open_retries_counted_in_telemetry(tmp_path, monkeypatch, pkg):
+    """Each retried open counts ``io.open_retries`` and writes one ``io``
+    / ``open_retry`` ledger event with the same attrs in both packages."""
+    pytest.importorskip("fsspec")
+    import importlib
+    import json
+
+    telemetry = importlib.import_module(pkg.__name__.rsplit(".", 1)[0] + ".telemetry")
+    monkeypatch.setenv("SKYLARK_TELEMETRY", "1")
+    telemetry.configure(tmp_path)
+    telemetry.reset()
+    try:
+        src = pkg.FsspecSource("memory://flaky/z", retries=3, backoff=0.01)
+        src._fsspec = _FlakyFsspec(fail=1)
+        src._sleep = lambda s: None
+        src._jitter = lambda: 0.5
+        with src.open() as f:
+            f.read()
+        assert telemetry.REGISTRY.snapshot()["counters"]["io.open_retries"] == 1
+        telemetry.flush()
+        with open(telemetry.ledger_path(), encoding="utf-8") as fh:
+            (ev,) = [json.loads(line) for line in fh]
+        assert (ev["kind"], ev["name"]) == ("io", "open_retry")
+        assert ev["attrs"] == {"url": "memory://flaky/z", "attempt": 0, "delay": 0.01,
+                               "error": "OSError: transient failure #1"}
+    finally:
+        telemetry.close()
+        telemetry.configure(None)
+        telemetry.reset()
 
 
 class TestRemoteSchemeIntegration:

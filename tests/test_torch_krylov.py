@@ -301,9 +301,15 @@ def test_exports():
                  "MatPrecond", "TriInversePrecond"):
         assert hasattr(T.solvers, name)
     assert T.resilient.ChunkedSolver is tk.ChunkedSolver
+    # The randomized Gauss-Seidel solvers are ported
+    # (tests/test_torch_gauss_seidel.py), no longer deferred.
+    from libskylark_tpu_torch.solvers import asynch, gauss_seidel
+
+    assert T.solvers.asy_fcg is asynch.asy_fcg
+    assert T.solvers.randomized_block_gauss_seidel is gauss_seidel.randomized_block_gauss_seidel
     for name in ("asy_fcg", "randomized_block_gauss_seidel"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
-            getattr(T.solvers, name)()
+        assert name in T.solvers.__all__
+        assert "not ported" not in (getattr(T.solvers, name).__doc__ or "")
     # Refinement is ported (tests/test_torch_refine.py).
     assert T.solvers.refine_least_squares.__module__.endswith("solvers.refine")
     assert "RefineParams" in T.solvers.__all__

@@ -123,3 +123,24 @@ def test_graph_exports_read_arc_list_as_jax():
     assert T.graph.__all__ == J.graph.__all__
     assert T.graph.read_arc_list is T.graph.graph.read_arc_list
     assert "io" in T.__all__ and T.io.read_libsvm is T.io.libsvm.read_libsvm
+
+
+def test_telemetry_exports_the_jax_names():
+    import importlib
+
+    import libskylark_tpu.telemetry as jtel
+
+    assert T.telemetry.__all__ == jtel.__all__
+    assert all(hasattr(T.telemetry, name) for name in T.telemetry.__all__)
+    assert "telemetry" in T.__all__ and "telemetry" in J.__all__
+    assert T.telemetry is importlib.import_module("libskylark_tpu_torch.telemetry")
+    assert "profiling" in T.utils.__all__
+    assert callable(T.utils.profiling.trace) and callable(T.utils.profiling.annotate)
+
+
+@pytest.mark.parametrize("name", ["asy_fcg", "randomized_block_gauss_seidel"])
+def test_solvers_export_the_gauss_seidel_solvers(name):
+    assert name in T.solvers.__all__ and name in J.solvers.__all__
+    fn = getattr(T.solvers, name)
+    assert fn.__module__ in ("libskylark_tpu_torch.solvers.asynch",
+                             "libskylark_tpu_torch.solvers.gauss_seidel")
