@@ -113,7 +113,17 @@ paths:
   ``--telemetry`` flags; ``randomized_block_gauss_seidel`` and
   ``asy_fcg`` on a 16384 x 16384 SPD A of condition 100, each X held
   against an f64 solve by the a-posteriori bound ||B - A X|| / lambda_min
-  beside controls that miss it; and a ``utils.profiling`` trace.
+  beside controls that miss it; and a ``utils.profiling`` trace;
+- the serving layer (``serve_path``): the port's server holding the LS
+  cell's 2^20 x 512 A under FJLT and CWT, a 32768 x 768 A under FJLT and
+  under CWT with reserved rows, a 10-class Fastfood model and the
+  com-Youtube-scale graph on the card; bench.py's serving drive (16
+  clients, 256 requests) serial and coalesced; coalesced ≡ serial and
+  routed ≡ serial bitwise beside a control that misses, plans captured
+  mid-traffic by three workers; a cache hit with no launch; live row
+  appends and edge folds against fresh registrations; a journaled
+  registry recovered bitwise; HTTP, ``/metrics``, ``cli.top`` and
+  ``cli.serve`` over stdio.
 
 It exits non-zero, printing no result, without a CUDA device or without
 the package beside it.  It imports nothing of JAX.
@@ -365,6 +375,29 @@ CLI_LEDGERS = {
 # schedule held card against CPU at GS_CHECK_N.
 GS_N, GS_R, GS_COND, GS_BLOCK, GS_SWEEPS, GS_RHS, GS_CHECK_N = (
     16_384, 256, 100.0, 64, 10, (1, 16), 2048)
+
+
+# The serving layer (phase 3n), the port's server on the card at full
+# width.  The registry: the LS cell (SV_M x SV_N f32, phase 1's shape)
+# under FJLT ("ls") and CWT ("ls_cwt") at the JAX default s = SV_S, one A
+# shared; SV_RF_M x SV_RF_N (phase 3i's shape) under FJLT at SV_RF_S
+# ("ls_rf") and under CWT with SV_UP_ROWS rows of reserved capacity
+# ("ls_up": the FJLT has no columnwise slice rule, so live appends take a
+# hash sketch); a 10-class FeatureMapModel on Fastfood features ML_DIM ->
+# ML_S ("mdl", phase 3f's shapes); phase 3l's com-Youtube-scale graph at
+# k = CLI_ASE_K ("g"), SV_EDGES random edges folded into it live.
+# bench.py:1048-1130's drive: SV_CLIENTS client threads, SV_REQUESTS
+# requests over SV_RHS distinct inputs, serial (max_coalesce 1) and
+# coalesced (SV_COALESCE); coalesced ≡ serial at SV_RUNGS requests.  A
+# live append is held to a fresh registration of the merged A: S·A and R
+# within SV_UPDATE_TOL of their largest entry (sums in another order), x
+# within SV_X_TOL.
+SV_DIR = HERE / "build" / "serve"
+SV_M, SV_N, SV_S = 1 << 20, 512, 2048
+SV_RF_M, SV_RF_N, SV_RF_S, SV_UP_ROWS, SV_EDGES = 32_768, 768, 3072, 64, 64
+SV_CLIENTS, SV_REQUESTS, SV_COALESCE, SV_RHS = 16, 256, 32, 8
+SV_RUNGS = (1, 8, 9, 17, 32)
+SV_UPDATE_TOL, SV_X_TOL = 1e-5, 1e-4
 
 
 def fail(msg: str) -> None:
@@ -4731,6 +4764,493 @@ def telemetry_path(sky, dev, reset_counts, read_counts, smi, cli_files) -> set:
     return held
 
 
+def serve_path(sky, dev, reset_counts, read_counts, smi) -> set:
+    """Phase 3n: the serving layer on the card, through the servers a
+    user starts.  (a) The registry (``ls``, ``ls_cwt``, ``ls_rf``,
+    ``ls_up``, ``mdl``, ``g``: SV_* above) and the server's prime;
+    (b) bench.py's drive, serial and coalesced, for each LS system and
+    ``predict``, with the copy-in cost per batch; (c) coalesced ≡ serial
+    bitwise at SV_RUNGS requests, 2 replicas behind a ``Router`` ≡ 1
+    worker serial, each beside a control that misses (one input entry
+    moved), and three workers capturing the plans mid-traffic after
+    ``plans.clear()``; (d) a cache hit launches nothing; (e) live
+    updates (row append into ``ls_up`` against a fresh registration, an
+    edge batch folded into ``g`` bitwise a fresh registration, the
+    structured refusal of an append past ``ls_rf``'s rows); (f) a journaled registry recovered
+    bitwise; (g) HTTP (``serve_http`` + ``Client``, ``/metrics``,
+    ``cli.top --once``) and ``cli.serve`` over stdio.  Every first launch
+    of a kernel signature is held against its plain version.  Returns
+    the signatures held."""
+    import concurrent.futures as cf
+    import contextlib
+    import io as io_
+    import shutil
+    import threading
+    import urllib.request
+
+    from libskylark_tpu_torch import serve, telemetry
+    from libskylark_tpu_torch.cli import serve as cli_serve
+    from libskylark_tpu_torch.cli import top as cli_top
+    from libskylark_tpu_torch.serve import batcher
+    from libskylark_tpu_torch.serve.registry import GraphSystem
+    from libskylark_tpu_torch.sketch import kernels_fut as kf
+    from libskylark_tpu_torch.sketch import kernels_scatter as ks
+    from libskylark_tpu_torch.sketch import kernels_window as kw
+
+    card = f"[{smi}]"
+    check(not telemetry.enabled(), "serve: telemetry is on before phase 3n")
+    shutil.rmtree(SV_DIR, ignore_errors=True)
+    SV_DIR.mkdir(parents=True)
+    g = torch.Generator(device=dev).manual_seed(SEED + 19)
+    held = set()
+
+    def segsum_held(out, vals, keys, segs):
+        _, r = max_err(out, ks.segment_sum_flat_plain(vals, keys, segs))
+        i = int(vals.abs().argmax())
+        _, c = max_err(out, ks.segment_sum_flat_plain(torch.cat([vals[:i], vals[i + 1:]]),
+                                                      torch.cat([keys[:i], keys[i + 1:]]), segs))
+        print(f"serve (held) segment_sum_flat {vals.shape[0]} -> {segs} {vals.dtype}: vs its "
+              f"plain version rel {r:.3g} (tol 1e-5); control (the plain version without entry "
+              f"{i}) {c:.3g}")
+        check(r <= 1e-5 and c > 1e-5, f"serve segment_sum_flat {vals.shape[0]}: {r}, control {c}")
+
+    restore = hold_kernels("serve", kf, kw, ("rfut_rowwise", "rfut_rowwise_sampled",
+                                             "gather_scaled_rows", "scatter_rows"), held)
+    restore.append((ks, "segment_sum_flat", hold(ks, "segment_sum_flat", segsum_held, held)))
+    launched = {}
+
+    def count(path, t0, expect):
+        counts = read_counts(path, t0, expect)
+        for name, n in counts.items():
+            launched[name] = launched.get(name, 0) + n
+        return counts
+
+    def server(registry=None, **kw_):
+        """A server on the card (cache off unless asked: the drive and the
+        pins measure dispatches, not dictionary lookups), sharing
+        ``registry`` when given."""
+        kw_.setdefault("warm_start", False)
+        kw_.setdefault("cache", False)
+        kw_.setdefault("max_queue", 4 * SV_REQUESTS)
+        kw_.setdefault("prime", False)
+        srv_ = serve.Server(serve.ServeParams(**kw_), seed=SEED, device=dev)
+        if registry is not None:
+            srv_.registry = registry
+        return srv_
+
+    def ctx(k):
+        return sky.SketchContext(seed=SEED + k)
+
+    # -- (a) the registry and the prime --------------------------------------
+    reset_counts()
+    t0 = time.perf_counter()
+    A = torch.randn((SV_M, SV_N), generator=g, device=dev)
+    A_rf = torch.randn((SV_RF_M, SV_RF_N), generator=g, device=dev)
+    srv = server(max_coalesce=SV_COALESCE)
+    reg = srv.registry
+    check(reg.device == dev, f"serve: the registry is on {reg.device}")
+    t_reg = {}
+    for name, A_, kw_ in (
+            ("ls", A, {"context": ctx(1), "sketch_size": SV_S}),
+            ("ls_cwt", A, {"context": ctx(2), "sketch_type": "CWT", "sketch_size": SV_S}),
+            ("ls_rf", A_rf, {"context": ctx(3), "sketch_size": SV_RF_S}),
+            ("ls_up", A_rf, {"context": ctx(4), "sketch_type": "CWT", "sketch_size": SV_RF_S,
+                             "capacity": SV_RF_M + SV_UP_ROWS})):
+        t1 = time.perf_counter()
+        reg.register_system(name, A_, **kw_)
+        torch.cuda.synchronize()
+        t_reg[name] = time.perf_counter() - t1
+    check(reg.get_system("ls").A.data_ptr() == A.data_ptr(), "serve: A was copied")
+    kern = sky.ml.GaussianKernel(ML_DIM, ML_SIGMA)
+    model = sky.ml.FeatureMapModel([kern.create_rft(ML_S, "fast", ctx(5))],
+                                   torch.randn((ML_S, ML_CLASSES), generator=g, device=dev),
+                                   scale_maps=True, classes=list(range(ML_CLASSES)))
+    reg.register_model("mdl", model)
+    t1 = time.perf_counter()
+    gu, gv, _ = cli_graph_data(SEED)
+    G = sky.graph.SimpleGraph(zip(gu.tolist(), gv.tolist()))
+    t_graph = time.perf_counter() - t1
+    del gu, gv
+    t1 = time.perf_counter()
+    reg.register_graph("g", G, k=CLI_ASE_K, context=ctx(6))
+    t_reg["g"] = time.perf_counter() - t1
+
+    # Inputs from the seed: 32 right-hand sides per system (b = A x + e,
+    # on the host in f64 as a client sends them) and 32 predict rows.
+    def rhs(A_):
+        m, n = A_.shape
+        return [(A_ @ torch.randn(n, generator=g, device=dev)
+                 + torch.randn(m, generator=g, device=dev)).double().cpu().numpy()
+                for _ in range(max(SV_RUNGS))]
+
+    b_big = rhs(A)
+    bs = {"ls": b_big, "ls_cwt": b_big, "ls_rf": rhs(A_rf)}
+    bs["ls_up"] = bs["ls_rf"]
+    xs = list(torch.randn((max(SV_RUNGS), ML_DIM), generator=g, device=dev).cpu().numpy())
+    keys = ("ls", "ls_cwt", "ls_rf", "predict")
+    expect = {"ls": ("gather_scaled_rows",), "ls_cwt": ("scatter_rows",),
+              "ls_rf": ("rfut_rowwise_sampled",), "predict": ("rfut_rowwise",)}
+
+    def req(key, i, x=None):
+        if key == "predict":
+            return serve.make_request("predict", model="mdl", dtype="float32",
+                                      x=xs[i] if x is None else x)
+        return serve.make_request("ls_solve", system=key, b=bs[key][i] if x is None else x)
+
+    # One request of each key first, so that each kernel signature of the
+    # served path is held on real inputs (the prime's are zeros), then
+    # the prime of every lane rung before the traffic.
+    srv.start()
+    for key in keys + ("ls_up",):
+        r = srv.call(req(key, 0))
+        check(r["ok"], f"serve first {key}: {r.get('error')}")
+    t1 = time.perf_counter()
+    srv.prime()
+    t_prime = time.perf_counter() - t1
+    count("serve (register)", t0, ("gather_scaled_rows", "scatter_rows",
+                                   "rfut_rowwise_sampled", "rfut_rowwise",
+                                   "segment_sum_flat"))
+    print(f"serve: registered {sorted(reg.describe()['systems'])}, mdl, g ({G.n} vertices, "
+          f"{G.volume // 2} edges, built from phase 3l's arc list in {t_graph:.1f} s) in "
+          f"{ {k: round(v, 3) for k, v in t_reg.items()} } s; primed {srv.primed} in "
+          f"{t_prime:.2f} s {card}")
+    print(f"serve: memory after registration: allocated "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB (A {A.numel() * 4 / 2**30:.2f} "
+          f"GiB shared by ls and ls_cwt, ls_rf/ls_up's A {A_rf.numel() * 4 / 2**20:.0f} MiB "
+          f"shared), reserved {torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB {card}")
+
+    # -- (b) bench.py's drive: SV_CLIENTS threads, SV_REQUESTS requests ------
+    srv_s = server(reg, max_coalesce=1, prime=True).start()
+    drives = {}
+
+    def drive(srv_, key):
+        sizes = []
+
+        def one(i):
+            t1 = time.perf_counter()
+            r = srv_.call(req(key, i % SV_RHS))
+            ms = (time.perf_counter() - t1) * 1e3
+            check(r["ok"], f"serve drive {key}: {r.get('error')}")
+            sizes.append(r["trace"]["batch_size"])
+            return ms
+
+        with cf.ThreadPoolExecutor(max_workers=SV_CLIENTS) as pool:
+            list(pool.map(one, range(SV_CLIENTS)))  # warm every rung first
+            sizes.clear()
+            t1 = time.perf_counter()
+            lat = sorted(pool.map(one, range(SV_REQUESTS)))
+        wall = time.perf_counter() - t1
+        return {"qps": SV_REQUESTS / wall, "p50_ms": lat[len(lat) // 2],
+                "p99_ms": lat[min(len(lat) - 1, int(len(lat) * 0.99))],
+                "mean_batch": statistics.mean(sizes)}
+
+    for key in keys:
+        for mode, srv_ in (("serial", srv_s), ("coalesced", srv)):
+            reset_counts()
+            t0 = time.perf_counter()
+            drives[(key, mode)] = d = drive(srv_, key)
+            count(f"serve (drive {key} {mode})", t0, expect[key])
+            print(f"serve drive {key} {mode} (max_coalesce "
+                  f"{1 if mode == 'serial' else SV_COALESCE}): QPS {d['qps']!r}, p50 "
+                  f"{d['p50_ms']!r} ms, p99 {d['p99_ms']!r} ms, mean batch {d['mean_batch']!r} "
+                  f"{card}")
+    # The copy-in cost of one batch at the 2^20-row systems, as the LS
+    # executor pays it: the host stack of the k right-hand sides into
+    # pinned f32 memory, then the staging copy (the copy stream), median
+    # of 5 each.
+    for k in (1, SV_COALESCE):
+        host, stage = [], []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            Bt = batcher._host_block(b_big[:k], torch.float32, dev)
+            t2 = time.perf_counter()
+            batcher._stage(Bt, dev)
+            torch.cuda.synchronize()
+            host.append(t2 - t1)
+            stage.append(time.perf_counter() - t2)
+        mb = Bt.numel() * 4 / 1e6
+        print(f"serve copy-in per batch of {k} at m = 2^20: host stack into pinned f32 "
+              f"{statistics.median(host) * 1e3!r} ms, staging {statistics.median(stage) * 1e3!r} "
+              f"ms for {mb:.1f} MB ({mb / 1e3 / statistics.median(stage)!r} GB/s) {card}")
+    del Bt
+
+    # -- (c) coalesced ≡ serial, routed ≡ serial, mid-traffic captures -------
+    reset_counts()
+    t0 = time.perf_counter()
+    serial = {key: [srv_s.call(req(key, i)) for i in range(max(SV_RUNGS))] for key in keys}
+    for key in keys:
+        check(all(r["ok"] and r["trace"]["batch_size"] == 1 for r in serial[key]),
+              f"serve serial {key}: {[r.get('error') for r in serial[key]][:2]}")
+        serial[key] = [r["result"] for r in serial[key]]
+
+    def alone_then(srv_, reqs):
+        """Every request queued before the worker starts: one batch."""
+        futs = [srv_.submit(r) for r in reqs]
+        srv_.start()
+        out = [f.result(timeout=300) for f in futs]
+        srv_.stop()
+        return out
+
+    for key in keys:
+        for n in SV_RUNGS:
+            out = alone_then(server(reg, max_coalesce=SV_COALESCE), [req(key, i) for i in range(n)])
+            check(all(r["ok"] for r in out), f"serve coalesced {key} x {n}: "
+                  f"{[r.get('error') for r in out if not r['ok']][:1]}")
+            check({r["trace"]["batch_size"] for r in out} == {n}
+                  and {r["trace"]["bucket"] for r in out} == {batcher._lane_bucket(n)},
+                  f"serve coalesced {key} x {n}: batches {[r['trace'] for r in out][:1]}")
+            same = all(np.array_equal(r["result"], serial[key][i]) for i, r in enumerate(out))
+            check(same, f"serve {key}: {n} coalesced requests are not bitwise the serial ones")
+        # The control: request 0 with its first entry moved by 1 (the
+        # entries are O(1) to O(sqrt(n))), coalesced with the others at
+        # the widest rung, must change its answer and only its answer.
+        x0 = (bs[key][0] if key != "predict" else xs[0]).copy()
+        x0[0] += 1.0
+        out = alone_then(server(reg, max_coalesce=SV_COALESCE),
+                         [req(key, 0, x0)] + [req(key, i) for i in range(1, max(SV_RUNGS))])
+        ctl_diff = float(np.abs(np.asarray(out[0]["result"], np.float64)
+                                - np.asarray(serial[key][0], np.float64)).max())
+        check(out[0]["ok"] and ctl_diff > 0 and all(
+            np.array_equal(r["result"], serial[key][i]) for i, r in enumerate(out) if i),
+              f"serve {key}: the control does not miss ({ctl_diff})")
+        print(f"serve coalesced ≡ serial {key}: bitwise at {SV_RUNGS} requests (buckets "
+              f"{[batcher._lane_bucket(n) for n in SV_RUNGS]}); control (request 0's first entry "
+              f"+ 1) max abs diff {ctl_diff:.3g}, its {max(SV_RUNGS) - 1} batch-mates bitwise "
+              f"{card}")
+    # Without the blocks: the LS solve's Qᵀ·S·B at the widest rung in one
+    # GEMM, against the base rung's columns (printed, not held).
+    sysm = reg.get_system("ls")
+    SB = torch.cat([sky.plans.apply(sysm.S, torch.from_numpy(np.stack(b_big[j:j + 8], 1)).to(
+        dev, torch.float32), "columnwise") for j in range(0, SV_COALESCE, 8)], dim=1)
+    whole = sysm.Qt @ SB
+    blocks = torch.cat([sysm.Qt @ SB[:, j:j + 8] for j in range(0, SV_COALESCE, 8)], dim=1)
+    print(f"serve: Q^T S B at {SV_COALESCE} columns in one GEMM vs in blocks of 8: "
+          f"{int((whole != blocks).any(0).sum())} of {SV_COALESCE} columns differ, max abs "
+          f"{float((whole - blocks).abs().max()):.3g} {card}")
+    del SB, whole, blocks
+    router = serve.Router()
+    reps = [server(reg, max_coalesce=SV_COALESCE).start() for _ in range(2)]
+    for i, r_ in enumerate(reps):
+        router.join(f"replica-{i}", server=r_)
+    for key in keys:
+        if key == "ls_rf":  # the other keys place on the other replica
+            router.drain("replica-0")
+        futs = [router.submit(req(key, i)) for i in range(max(SV_RUNGS))]
+        out = [f.result(timeout=300) for f in futs]
+        check(all(r["ok"] and np.array_equal(r["result"], serial[key][i])
+                  for i, r in enumerate(out)),
+              f"serve: routed {key} is not bitwise the serial answers")
+        print(f"serve routed ≡ serial {key}: {max(SV_RUNGS)} requests over replicas "
+              f"{sorted({r['trace']['replica'] for r in out})}, batches "
+              f"{sorted({r['trace']['batch_size'] for r in out})}, bitwise {card}")
+    router.stop()
+    for r_ in reps:
+        r_.stop()
+    # Mid-traffic captures: every plan dropped, then three workers on the
+    # one card and SV_CLIENTS clients; each plan is captured by whichever
+    # worker meets it first while the others launch.  A capture another
+    # thread invalidated would come back as an error envelope.
+    sky.plans.clear()
+    traces0 = sky.plans.stats()["traces"]
+    s3 = server(reg, max_coalesce=8, workers=3).start()
+    mixed = [(key, i) for i in range(max(SV_RUNGS)) for key in ("ls_rf", "predict", "ls_cwt")]
+    with cf.ThreadPoolExecutor(max_workers=SV_CLIENTS) as pool:
+        out = list(pool.map(lambda ki: s3.call(req(*ki)), mixed))
+    s3.stop()
+    errors = [r["error"] for r in out if not r["ok"]]
+    mism = [ki for ki, r in zip(mixed, out) if r["ok"]
+            and not np.array_equal(r["result"], serial[ki[0]][ki[1]])]
+    print(f"serve mid-traffic captures: 3 workers, {len(mixed)} requests, "
+          f"{sky.plans.stats()['traces'] - traces0} captures, {len(errors)} error envelopes "
+          f"{errors[:2]}, {len(mism)} answers not bitwise serial {card}")
+    check(not mism, f"serve mid-traffic captures: {mism[:4]} differ from serial")
+    check(not errors, f"serve mid-traffic captures: requests failed {errors[:2]}")
+    count("serve (pins)", t0, ("gather_scaled_rows", "scatter_rows",
+                                     "rfut_rowwise_sampled", "rfut_rowwise"))
+    srv_s.stop()
+
+    # -- (d) a cache hit launches nothing --------------------------------------
+    s4 = server(cache=True)
+    s4.registry.register_system("ls_rf", A_rf, context=ctx(3), sketch_size=SV_RF_S)
+    s4.start()
+    first = s4.call(req("ls_rf", 0))
+    reset_counts()
+    t0 = time.perf_counter()
+    hit = s4.call(req("ls_rf", 0))
+    counts = count("serve (cache hit)", t0, ())
+    s4.stop()
+    check(hit["ok"] and hit["trace"].get("cache_hit") and not any(counts.values())
+          and np.array_equal(hit["result"], first["result"]),
+          f"serve: the cache hit launched {counts} ({hit['trace']})")
+    print(f"serve cache: a repeated ls_rf request is a hit with no launch {counts} {card}")
+
+    # -- (e) live updates ------------------------------------------------------
+    reset_counts()
+    t0 = time.perf_counter()
+    rows = torch.randn((SV_UP_ROWS, SV_RF_N), generator=g, device=dev)
+    old = reg.get_system("ls_up")
+    up = srv.call(op="update", system="ls_up", append=rows.double().cpu().numpy(), idem_key="up")
+    check(up["ok"] and up["result"]["kind"] == "row_append"
+          and up["result"]["rows"] == SV_UP_ROWS, f"serve update ls_up: {up}")
+    again = srv.call(op="update", system="ls_up", append=rows.double().cpu().numpy(),
+                     idem_key="up")
+    check(again["ok"] and again["result"] == up["result"] and reg.get_system("ls_up").m
+          == SV_RF_M + SV_UP_ROWS, "serve: a replayed idempotency key applied twice")
+    new = reg.get_system("ls_up")
+    fresh_reg = serve.Registry(device=dev)
+    fresh = fresh_reg.register_system(
+        "ls_up", torch.cat([A_rf, rows]), context=ctx(4), sketch=old.S,
+        capacity=SV_RF_M + SV_UP_ROWS)
+    d_sa = float((new.SA - fresh.SA).abs().max() / fresh.SA.abs().max())
+    d_r = float((new.R - fresh.R).abs().max() / fresh.R.abs().max())
+    b_up = np.concatenate([bs["ls_rf"][0], np.ones(SV_UP_ROWS)])
+    x_live = srv.call(op="ls_solve", system="ls_up", b=b_up)["result"]
+    s5 = server(fresh_reg).start()
+    x_fresh = s5.call(op="ls_solve", system="ls_up", b=b_up)["result"]
+    s5.stop()
+    d_x = float(np.abs(x_live - x_fresh).max() / np.abs(x_fresh).max())
+    print(f"serve update: {SV_UP_ROWS} rows appended to ls_up (epoch {up['result']['epoch']}); "
+          f"vs a fresh registration of the merged A: S·A max rel {d_sa:.3g}, R {d_r:.3g} (tol "
+          f"{SV_UPDATE_TOL:g}), x max rel {d_x:.3g} (tol {SV_X_TOL:g}); the replayed idempotency "
+          f"key returned the first receipt {card}")
+    check(d_sa <= SV_UPDATE_TOL and d_r <= SV_UPDATE_TOL and d_x <= SV_X_TOL,
+          f"serve update: the live append is off a fresh registration ({d_sa}, {d_r}, {d_x})")
+    refused = srv.call(op="update", system="ls_rf", append=rows[:1].double().cpu().numpy())
+    check(not refused["ok"] and refused["error"]["code"] == 102,
+          f"serve: an append past ls_rf's rows did not refuse with code 102: {refused}")
+    erng = np.random.default_rng(SEED + 19)
+    edges = erng.integers(0, CLI_YT_V, (SV_EDGES, 2)).tolist()
+    fold = srv.call(op="update", graph="g", edges=edges)
+    check(fold["ok"] and fold["result"]["kind"] == "graph_fold", f"serve fold: {fold}")
+    g_new = reg.get_graph("g")
+    g_fresh = GraphSystem("g", g_new.G, k=CLI_ASE_K, context=ctx(6), device=dev)
+    check(torch.equal(g_new._sa, g_fresh._sa) and np.array_equal(g_new.X, g_fresh.X),
+          "serve fold: the folded graph is not bitwise a fresh registration of the merged graph")
+    seeds = [int(v) for v in np.flatnonzero(g_new.G.degrees > 0)[:2]]
+    ppr = srv.call(op="ppr", graph="g", seeds=seeds)
+    emb = srv.call(op="ase_embed", graph="g", ids=[0, 1, CLI_YT_V - 1])
+    check(ppr["ok"] and emb["ok"] and np.array_equal(emb["result"], g_new.X[[0, 1, CLI_YT_V - 1]]),
+          f"serve graph queries: {ppr.get('error')} {emb.get('error')}")
+    count("serve (update)", t0, ("scatter_rows", "segment_sum_flat"))
+    print(f"serve update: {fold['result']['edges']} new edges folded into g (volume "
+          f"{fold['result']['volume']}), SA and X bitwise a fresh registration of the merged "
+          f"graph; ppr around {seeds}: {len(ppr['result']['cluster'])} vertices, conductance "
+          f"{ppr['result']['conductance']:.4f}; ls_rf (no reserved rows) refused an append with "
+          f"code 102 {card}")
+    del fresh, fresh_reg, g_fresh
+
+    # -- (f) a journaled registry recovered bitwise --------------------------
+    reset_counts()
+    t0 = time.perf_counter()
+    state = SV_DIR / "state"
+    sj = server(state_dir=str(state), journal_compact_every=3, max_coalesce=SV_COALESCE)
+    sj.registry.register_system("ls_up", A_rf, context=ctx(4), sketch_type="CWT",
+                                sketch_size=SV_RF_S, capacity=SV_RF_M + SV_UP_ROWS)
+    sj.registry.register_model("mdl", sky.ml.FeatureMapModel(
+        model.maps, model.W, scale_maps=True, classes=model.classes))
+    sj.start()
+    host_rows = rows.double().cpu().numpy()
+    for upd in ({"append": host_rows[:8], "idem_key": "a"}, {"drop": [3, 5], "idem_key": "b"},
+                {"append": host_rows[8:16]}):
+        r = sj.call(op="update", system="ls_up", **upd)
+        check(r["ok"], f"serve journal update: {r}")
+    b_j = np.concatenate([bs["ls_rf"][1], np.ones(16)])
+    live = [sj.call(op="ls_solve", system="ls_up", b=b_j), sj.call(req("predict", 1))]
+    sj.stop()
+    sj.registry.journal.close()
+    t1 = time.perf_counter()
+    rec = serve.Registry.recover(str(state), device=dev)
+    t_rec = time.perf_counter() - t1
+    a, b_ = sj.registry.get_system("ls_up"), rec.get_system("ls_up")
+    same = (rec.epoch == sj.registry.epoch and rec.epoch_log == sj.registry.epoch_log
+            and rec._idem == sj.registry._idem and a.retired == b_.retired
+            and all(torch.equal(getattr(a, f), getattr(b_, f)) for f in ("A", "SA", "Qt", "R"))
+            and torch.equal(rec.get_model("mdl").W, model.W))
+    s6 = server(rec).start()
+    back = [s6.call(op="ls_solve", system="ls_up", b=b_j), s6.call(req("predict", 1))]
+    s6.stop()
+    rec.journal.close()
+    check(same and all(r["ok"] for r in live + back) and all(
+        np.array_equal(x["result"], y["result"]) for x, y in zip(live, back)),
+          "serve: the recovered registry is not bitwise the journaled one")
+    files = sorted(p.name for p in state.iterdir())
+    count("serve (recover)", t0, ("scatter_rows",))
+    print(f"serve journal: 2 registrations + 3 updates under {state.relative_to(HERE)} "
+          f"({files}); recovered in {t_rec:.2f} s at epoch {rec.epoch}: arrays, epoch log and "
+          f"idempotency window bitwise, ls_solve and predict answers bitwise {card}")
+
+    # -- (g) HTTP loopback, /metrics, cli.top, cli.serve over stdio ----------
+    reset_counts()
+    t0 = time.perf_counter()
+    os.environ["SKYLARK_TELEMETRY"] = "1"
+    telemetry.reset()
+    httpd = serve.serve_http(srv)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        client = serve.Client(url=url, timeout=120)
+        many = client.call_many([req("ls_rf", i) for i in range(16)])
+        client.close()
+        metrics = urllib.request.urlopen(url + "/metrics", timeout=60).read().decode()
+        frame = io_.StringIO()
+        with contextlib.redirect_stdout(frame):
+            top_rc = cli_top.main(["--url", url, "--once"])
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(10)
+        os.environ.pop("SKYLARK_TELEMETRY", None)
+        telemetry.reset()
+    check(all(r["ok"] and np.array_equal(np.asarray(r["result"], np.float32), serial["ls_rf"][i])
+              for i, r in enumerate(many)),
+          "serve http: the batched POST's answers are not the in-process ones")
+    names = sorted(set(re.findall(r"^(skylark_serve_[a-z_]+)", metrics, re.M)))
+    check("skylark_serve_requests" in " ".join(names), f"serve /metrics: {names}")
+    check(top_rc == 0 and f"serve {url}" in frame.getvalue() and "requests" in frame.getvalue(),
+          f"serve: cli.top --once gave {top_rc}: {frame.getvalue()[:300]}")
+    print(f"serve http: 16 ls_rf requests in one POST through Client, bitwise the in-process "
+          f"answers; /metrics names {names[:8]}...; cli.top --once:")
+    print("\n".join("    " + ln for ln in frame.getvalue().splitlines()))
+    npy = SV_DIR / "ls_rf.npy"
+    np.save(npy, A_rf.cpu().numpy())
+    line = serve.encode(serve.make_request("ls_solve", id="stdio", system="sys",
+                                           b=bs["ls_rf"][2]))
+    out_buf, err_buf = io_.StringIO(), io_.StringIO()
+    stdin = sys.stdin
+    sys.stdin = io_.StringIO(line + "\n")
+    try:
+        with contextlib.redirect_stdout(out_buf), contextlib.redirect_stderr(err_buf):
+            rc = cli_serve.main(["--system", f"sys={npy}", "--seed", str(SEED), "--sketch-size",
+                                 str(SV_RF_S), "--max-coalesce", "8"])
+    finally:
+        sys.stdin = stdin
+    resp = json.loads(out_buf.getvalue().strip().splitlines()[-1])
+    s7 = server()
+    s7.registry.register_system("sys", A_rf, context=sky.SketchContext(seed=SEED + 1),
+                                sketch_size=SV_RF_S)
+    s7.start()
+    ref = s7.call(op="ls_solve", system="sys", b=bs["ls_rf"][2])
+    s7.stop()
+    check(rc == 0 and resp["ok"] and resp["id"] == "stdio"
+          and np.array_equal(np.asarray(resp["result"], np.float32), ref["result"]),
+          f"serve: cli.serve over stdio answered {rc} {str(resp)[:300]}")
+    count("serve (http and stdio)", t0, ("rfut_rowwise_sampled",))
+    print(f"serve stdio: cli.serve --system sys={npy.relative_to(HERE)} answered "
+          f"{resp['id']!r} bitwise the in-process answer; stderr "
+          f"{err_buf.getvalue().strip().splitlines()[-1]!r} {card}")
+    srv.stop()
+
+    for mod, name, fn in restore:
+        setattr(mod, name, fn)
+    check({name for name, n in launched.items() if n} <= {sig[0] for sig in held},
+          f"serve: kernels launched {launched}, held {sorted({sig[0] for sig in held})}")
+    for name in ("gather_scaled_rows", "scatter_rows", "rfut_rowwise", "rfut_rowwise_sampled",
+                 "segment_sum_flat"):
+        check(launched.get(name, 0) > 0, f"serve: {name} was not launched through the server")
+    return held
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
@@ -5302,6 +5822,14 @@ def main() -> None:
 
     memory("3m")
 
+    # -- 3n. the serving layer: the server at full width -------------------
+    torch.cuda.empty_cache()
+    t_3n = time.perf_counter()
+    serve_held = serve_path(sky, dev, reset_counts, read_counts, smi)
+    print(f"serve: phase 3n {time.perf_counter() - t_3n:.1f} s [{smi}]")
+
+    memory("3n")
+
     # -- 4. times at main-path shapes ------------------------------------
     kernels = []
 
@@ -5309,9 +5837,10 @@ def main() -> None:
             path_count=None, err=None, shape=None, split=None):
         b_ms, by = bound(bytes_moved, ops)
         by_path = {p: c[name] for p, c in path_launches.items() if c[name]}
-        # Phases 3i's, 3j's, 3l's and 3m's items, and their sums under
-        # "refine", "policy", "cli" and "telemetry", on every row.
-        for phase in ("refine", "policy", "cli", "telemetry"):
+        # Phases 3i's, 3j's, 3l's, 3m's and 3n's items, and their sums
+        # under "refine", "policy", "cli", "telemetry" and "serve", on
+        # every row.
+        for phase in ("refine", "policy", "cli", "telemetry", "serve"):
             by_path[phase] = sum(c[name] for p, c in path_launches.items()
                                  if p.startswith(f"{phase} ("))
         kernels.append({
@@ -5334,6 +5863,9 @@ def main() -> None:
             # ... and those phase 3m held.
             "telemetry_held": sorted(str(sig[1:]).replace("torch.", "")
                                      for sig in telemetry_held if sig[0] == name),
+            # ... and those phase 3n held.
+            "serve_held": sorted(str(sig[1:]).replace("torch.", "")
+                                 for sig in serve_held if sig[0] == name),
             "max_abs_err": errs[name] if err is None else err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
             "library_ms": library_ms, **({"shape": shape} if shape else {}), **(split or {}),

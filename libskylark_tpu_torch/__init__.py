@@ -39,16 +39,19 @@ reference's command-line drivers (``cli``: ``python -m
 libskylark_tpu_torch.cli.linear FILE`` and the others) run the ported
 solvers on data read from disk.  The telemetry layer (``telemetry``,
 ``SKYLARK_TELEMETRY=1``) counts, times and ledgers what every layer
-does, and ``utils.profiling`` traces it with ``torch.profiler``.
+does, and ``utils.profiling`` traces it with ``torch.profiler``.  The
+serving layer (``serve``, ``cli.serve``, ``cli.top``) holds LS systems,
+models and graphs resident on the card and coalesces concurrent
+requests into planned dispatches.
 """
 
 from ._device import set_default_device
-from . import (core, flagship, graph, guard, io, linalg, ml, plans, policy, resilient, sketch,
-               solvers, streaming, telemetry, utils)
+from . import (core, flagship, graph, guard, io, linalg, ml, plans, policy, resilient, serve,
+               sketch, solvers, streaming, telemetry, utils)
 from .core.context import SketchContext
 
 __version__ = "0.1.0"
 
 __all__ = ["SketchContext", "sketch", "linalg", "solvers", "guard", "resilient", "graph",
            "ml", "flagship", "core", "utils", "streaming", "plans", "policy", "io",
-           "telemetry", "set_default_device"]
+           "telemetry", "serve", "set_default_device"]

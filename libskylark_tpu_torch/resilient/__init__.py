@@ -10,8 +10,9 @@
 - ``faults``: deterministic fault injection (preemption, corruption,
   transient IO, the guard's numerical faults) and ``with_retries``.
 
-The host and fleet fault plans of the elastic and serving layers raise
-``UnsupportedError`` naming their ROADMAP items.
+The host and fleet fault plans of the elastic layer raise
+``UnsupportedError`` naming ROADMAP Queue A item 9; the serve journal's
+``faults.JournalFaultPlan`` is ported.
 """
 
 from .chunked import ChunkedSolver

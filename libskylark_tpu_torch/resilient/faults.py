@@ -12,10 +12,11 @@ that the recovery paths run in the tests:
   recovery is :func:`with_retries`' exponential backoff.
 
 The numerical faults of the guard layer (``nan_at``, ``bad_sketch_at``)
-are here too.  The host and fleet faults (``HostFaultPlan``,
-``FleetFaultPlan``, ``JournalFaultPlan``, ``corrupt_manifest``,
-``tear_ledger_tail``) belong to the elastic and serving layers, which
-wait for ROADMAP Queue A items 9 and 10; their names raise
+are here too, and so is the serve journal's :class:`JournalFaultPlan`
+(a real SIGKILL inside the journal's commit window).  The host and
+fleet faults (``HostFaultPlan``, ``FleetFaultPlan``,
+``corrupt_manifest``, ``tear_ledger_tail``) belong to the elastic
+layer, which waits for ROADMAP Queue A item 9; their names raise
 ``UnsupportedError`` naming the item.
 """
 
@@ -41,12 +42,10 @@ __all__ = [
     "with_retries",
 ]
 
-_ITEM9 = "ROADMAP Queue A item 9: multi-device (elastic streaming, host faults)"
-_ITEM10 = "ROADMAP Queue A item 10: serve/ (journal and fleet faults)"
+_ITEM9 = "ROADMAP Queue A item 9: multi-device (elastic streaming, host and fleet faults)"
 
 HostFaultPlan = deferred("HostFaultPlan", _ITEM9)
 FleetFaultPlan = deferred("FleetFaultPlan", _ITEM9)
-JournalFaultPlan = deferred("JournalFaultPlan", _ITEM10)
 corrupt_manifest = deferred("corrupt_manifest", _ITEM9)
 tear_ledger_tail = deferred("tear_ledger_tail", _ITEM9)
 
@@ -177,3 +176,37 @@ class FaultPlan:
                 return out
             return SA * 0.0
         return SA
+
+
+@dataclass
+class JournalFaultPlan(FaultPlan):
+    """Write-ahead-journal chaos schedule for the serve registry's
+    durability layer, keyed by journal append index (0-based, counted
+    from the ``Journal``'s construction in this process).
+    ``serve.journal.Journal`` consults the plan at its two crash-window
+    edges:
+
+    - ``torn_journal_at``: write only the first half of append k's CRC
+      frame (fsync'd) and SIGKILL.  Recovery truncates the torn tail and
+      lands at append k-1's epoch.
+    - ``die_after_journal_before_publish``: append k reaches the disk
+      durably, then SIGKILL before the mutation publishes.  Recovery
+      replays that record and lands at append k's epoch.
+
+    Both are real ``SIGKILL``s, one-shot via :meth:`FaultPlan._fire`.
+    """
+
+    torn_journal_at: int | None = None
+    die_after_journal_before_publish: int | None = None
+
+    def kill(self) -> None:
+        """Die now: a real SIGKILL, nothing runs after this."""
+        import signal
+
+        os.kill(os.getpid(), signal.SIGKILL)
+
+    def torn_fires(self, index: int) -> bool:
+        return self._fire("torn_journal", self.torn_journal_at, index)
+
+    def die_after_fires(self, index: int) -> bool:
+        return self._fire("die_after_journal", self.die_after_journal_before_publish, index)

@@ -1,7 +1,8 @@
-"""Port vs JAX package: the seven command-line drivers (``linear``, ``svd``,
-``krr``, ``ml``, ``graph_se``, ``community``, ``convert2hdf5``), each run
-as the JAX package's ``main(argv)`` and as the port's ``main(argv +
-["--device", "cpu"])`` on the same files made from a seed.
+"""Port vs JAX package: the nine command-line drivers (``linear``, ``svd``,
+``krr``, ``ml``, ``graph_se``, ``community``, ``convert2hdf5``, ``serve``,
+``top``), each run as the JAX package's ``main(argv)`` and as the port's
+``main(argv + ["--device", "cpu"])`` on the same files made from a seed
+(``top`` has no ``--device``: it reads HTTP surfaces and ledgers).
 
 The JAX side runs with x64 on (the test configuration's default), so the
 port runs with ``--x64``; the fixtures are the existing parity tests'
@@ -13,7 +14,9 @@ theirs for the same solver: least squares and Blendenpik 1e-9 relative
 (``test_torch_svd.py``), KRR 1e-10 direct and 1e-6 through CG
 (``test_torch_krr.py``), BlockADMM 1e-9 (``test_torch_admm.py``), ASE
 1e-10 (``test_torch_graph_analytics.py``); community detection is host
-numpy in both and equal.  Also: a model saved by one package predicts
+numpy in both and equal; ``serve`` over stdio answers the same frames
+(least squares at 1e-9, the same error envelopes), and ``top --once``
+renders the same frame, timestamp aside.  Also: a model saved by one package predicts
 the same in the other, ``--stream`` equals the whole-file solve with the
 stream's own sketch, each deferred flag raises ``UnsupportedError``
 naming its ROADMAP item, the telemetry flags print and ledger what the
@@ -47,7 +50,7 @@ CG_TOL = 1e-6
 ADMM_TOL = 1e-9
 ASE_TOL = 1e-10
 CPU = ["--device", "cpu"]
-DRIVERS = ("linear", "svd", "krr", "ml", "graph_se", "community", "convert2hdf5")
+DRIVERS = ("linear", "svd", "krr", "ml", "graph_se", "community", "convert2hdf5", "serve")
 
 
 def jmain(name):
@@ -545,7 +548,8 @@ def test_without_a_card_each_driver_raises(blob_files, tmp_path, name):
             "ml": ["--trainfile", str(root / "train")],
             "graph_se": [str(tmp_path / "g.txt")],
             "community": [str(tmp_path / "g.txt"), "--seed", "a"],
-            "convert2hdf5": [str(root / "train"), str(tmp_path / "o.h5")]}[name]
+            "convert2hdf5": [str(root / "train"), str(tmp_path / "o.h5")],
+            "serve": ["--no-prime"]}[name]
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         tmain(name)(argv)
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
@@ -774,3 +778,101 @@ def test_driver_ledgers_are_the_ones_chip_smoke_expects(tmp_path, rng, capsys, m
             pkg.telemetry.reset()
         capsys.readouterr()
         assert _ledger_events(tmp_path / tag) == expected, tag
+
+
+# -- serve and top ----------------------------------------------------------------
+
+
+def test_serve_stdio_matches_jax(tmp_path, rng, capsys, monkeypatch):
+    """The same frames on stdin to both daemons: least squares (FJLT and
+    CWT systems), a kernel model's predict with labels, ping, and an
+    unknown system's error envelope."""
+    import io
+    import json
+
+    from libskylark_tpu.ml.kernels import GaussianKernel
+    from libskylark_tpu.ml.model import KernelModel
+
+    A = rng.standard_normal((200, 6))
+    np.save(tmp_path / "A.npy", A)
+    KernelModel(GaussianKernel(4, sigma=1.5), rng.standard_normal((30, 4)),
+                rng.standard_normal((30, 3)), classes=[5, 6, 7]).save(str(tmp_path / "k.json"))
+    frames = [{"id": i, "op": "ls_solve", "system": name, "b": rng.standard_normal(200).tolist()}
+              for i, name in enumerate(("fjlt", "cwt", "fjlt"))]
+    frames += [{"id": "p", "op": "predict", "model": "krr", "labels": True,
+                "x": rng.standard_normal((2, 4)).tolist()},
+               {"id": "ping", "op": "ping"},
+               {"id": "bad", "op": "ls_solve", "system": "nope", "b": [0.0]}]
+    lines = "".join(json.dumps(f) + "\n" for f in frames)
+    outs = []
+    for fn, extra in ((jmain("serve"), []), (tmain("serve"), CPU)):
+        for sketch in ("FJLT", "CWT"):  # one daemon per sketch type, as the flag is global
+            monkeypatch.setattr("sys.stdin", io.StringIO(lines))
+            capsys.readouterr()
+            assert fn(["--system", f"{sketch.lower()}={tmp_path / 'A.npy'}", "--model",
+                       f"krr={tmp_path / 'k.json'}", "--sketch-type", sketch, "--x64"]
+                      + extra) == 0
+            outs.append([json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+                         if ln.startswith("{")])
+    for j, t in ((outs[0], outs[2]), (outs[1], outs[3])):
+        assert [r["id"] for r in t] == [r["id"] for r in j] == [f["id"] for f in frames]
+        for rj, rt in zip(j, t):
+            assert rt["ok"] == rj["ok"]
+            if not rj["ok"]:
+                assert rt["error"] == rj["error"]
+            elif rj["id"] in (0, 1, 2):
+                assert _rel(rt["result"], rj["result"]) <= LS_TOL
+            else:
+                assert rt["result"] == rj["result"]
+
+
+@pytest.mark.parametrize("source", ["url", "telemetry-dir"])
+def test_top_once_renders_as_jax(tmp_path, rng, capsys, monkeypatch, source):
+    """``top --once`` of both packages against one port server (its
+    /healthz, /stats, /traces, /slo and /timeline) or one port driver's
+    ledger directory: the same frame but for the clock line."""
+    import threading
+
+    from libskylark_tpu_torch import serve
+
+    srv = httpd = None
+    if source == "url":
+        monkeypatch.setenv("SKYLARK_TELEMETRY", "1")
+        T.telemetry.reset()
+        srv = serve.Server(serve.ServeParams(warm_start=False), seed=1, device="cpu")
+        srv.register_system("sys", rng.standard_normal((64, 4)))
+        srv.start()
+        for _ in range(3):
+            assert srv.call(op="ls_solve", system="sys", b=rng.standard_normal(64).tolist())["ok"]
+        httpd = serve.serve_http(srv)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        argv = ["--url", f"http://127.0.0.1:{httpd.server_address[1]}", "--once"]
+    else:
+        A = rng.standard_normal((300, 5))
+        write_libsvm(tmp_path / "ls", A, A @ rng.standard_normal(5))
+        monkeypatch.setenv("SKYLARK_TELEMETRY", "0")
+        try:
+            assert tmain("linear")([str(tmp_path / "ls"), "--solution", str(tmp_path / "x.npy"),
+                                    "--telemetry-dir", str(tmp_path / "ledger")] + CPU) == 0
+        finally:
+            T.telemetry.close()
+            T.telemetry.configure(None)
+            T.telemetry.reset()
+        argv = ["--telemetry-dir", str(tmp_path / "ledger"), "--once"]
+    frames = []
+    try:
+        for fn in (jmain("top"), tmain("top")):
+            capsys.readouterr()
+            assert fn(argv) == 0
+            frames.append(capsys.readouterr().out.splitlines())
+    finally:
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+            srv.stop()
+            T.telemetry.reset()
+            serve.server._LATENCIES.clear()
+    assert frames[0][0].startswith("skylark-top") and frames[1][0].startswith("skylark-top")
+    assert frames[1][1:] == frames[0][1:] and len(frames[0]) > 2
+    if source == "url":
+        assert "requests 3  ok 3" in "\n".join(frames[1])

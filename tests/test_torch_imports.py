@@ -39,9 +39,14 @@ def test_port_files_found():
             "record.py", "source.py", "libsvm.py", "hdf5.py", "arclist.py", "common.py",
             "linear.py", "graph_se.py", "convert2hdf5.py", "profiling.py", "registry.py",
             "ledger.py", "spans.py", "trace.py", "slo.py", "timeline.py", "exposition.py",
-            "fleet.py", "phases.py", "report.py", "gauss_seidel.py", "asynch.py"} <= names
+            "fleet.py", "phases.py", "report.py", "gauss_seidel.py", "asynch.py",
+            "protocol.py", "qos.py", "admission.py", "cache.py", "journal.py", "dispatch.py",
+            "batcher.py", "server.py", "transport.py", "client.py", "router.py",
+            "autoscale.py", "serve.py", "top.py"} <= names
     telemetry = {p.name for p in FILES if p.parent.name == "telemetry"}
     assert len(telemetry) == 12, sorted(telemetry)
+    serve = {p.name for p in FILES if p.parent.name == "serve"}
+    assert len(serve) == 14, sorted(serve)
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -16,6 +16,8 @@ versions differ in the last ulps, so it is held at 1e-4 (as
 registers is registered in the port.
 """
 
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -74,7 +76,9 @@ def test_supported_sketch_transforms_is_the_jax_list_less_the_unported():
 @pytest.mark.parametrize("name", [
     "SkylarkError", "AllocationError", "InvalidParameters", "SketchError",
     "UnsupportedError", "IOError_", "ConvergenceError", "CheckpointError",
-    "NumericalHealthError", "StaleEpochError", "RefinementError",
+    "NumericalHealthError", "StaleEpochError", "RefinementError", "WorldMismatchError",
+    "AdmissionError", "DeadlineExceededError", "ReplicaLostError", "RegistryEpochError",
+    "QuotaExceededError", "JournalError",
 ])
 def test_error_codes_match_jax(name):
     ported, reference = getattr(T.utils, name), getattr(JE, name)
@@ -144,3 +148,26 @@ def test_solvers_export_the_gauss_seidel_solvers(name):
     fn = getattr(T.solvers, name)
     assert fn.__module__ in ("libskylark_tpu_torch.solvers.asynch",
                              "libskylark_tpu_torch.solvers.gauss_seidel")
+
+
+@pytest.mark.parametrize("module", ["serve", "serve.journal", "serve.dispatch", "serve.protocol",
+                                    "serve.cache", "serve.qos"])
+def test_serve_exports_the_jax_names(module):
+    import importlib
+
+    ported = importlib.import_module(f"libskylark_tpu_torch.{module}")
+    reference = importlib.import_module(f"libskylark_tpu.{module}")
+    assert ported.__all__ == reference.__all__
+    assert all(hasattr(ported, name) for name in ported.__all__)
+    if module == "serve":
+        assert "serve" in T.__all__ and T.serve is ported
+
+
+@pytest.mark.parametrize("name", ["serve", "top"])
+def test_cli_serve_and_top_exist(name):
+    import importlib
+
+    mod = importlib.import_module(f"libskylark_tpu_torch.cli.{name}")
+    assert callable(mod.main)
+    text = (Path(T.__file__).resolve().parent.parent / "pyproject.toml").read_text()
+    assert f'skylark-torch-{name} = "libskylark_tpu_torch.cli.{name}:main"' in text

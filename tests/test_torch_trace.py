@@ -33,6 +33,10 @@ JSLO = importlib.import_module("libskylark_tpu.telemetry.slo")
 TSLO = importlib.import_module("libskylark_tpu_torch.telemetry.slo")
 JTL = importlib.import_module("libskylark_tpu.telemetry.timeline")
 TTL = importlib.import_module("libskylark_tpu_torch.telemetry.timeline")
+JPLANS = importlib.import_module("libskylark_tpu.plans")
+TPLANS = importlib.import_module("libskylark_tpu_torch.plans")
+JSERVER = importlib.import_module("libskylark_tpu.serve.server")
+TSERVER = importlib.import_module("libskylark_tpu_torch.serve.server")
 
 
 @pytest.fixture(autouse=True)
@@ -48,6 +52,14 @@ def _clean(monkeypatch):
         pkg.drain_traces()
         pkg.reset_slo()
         pkg.reset_timeline()
+    # The snapshot's plan_cache_hit_rate and serve latency percentiles
+    # read process-wide state (the plan counters, the serve layer's
+    # latency reservoir), which earlier tests in this process may have
+    # moved.
+    for plans in (JPLANS, TPLANS):
+        plans.reset()
+    for server in (JSERVER, TSERVER):
+        server._LATENCIES.clear()
     yield
     for pkg in (telemetry, JT):
         pkg.close()
