@@ -123,7 +123,20 @@ paths:
   mid-traffic by three workers; a cache hit with no launch; live row
   appends and edge folds against fresh registrations; a journaled
   registry recovered bitwise; HTTP, ``/metrics``, ``cli.top`` and
-  ``cli.serve`` over stdio.
+  ``cli.serve`` over stdio;
+- the elastic multi-process path (``elastic_path``): at world 1 on NCCL
+  in this process, ``distributed_sketch_least_squares`` of the streaming
+  LS problem (2^21 x 512 in batches of 65536, s = 2048, JLT and CWT)
+  and the ``DistributedBlockADMMTrainer`` at the training path's shape,
+  each bitwise its single-process route; worlds of 2 ranks on the one
+  card over gloo, each rank a ``chip_smoke.py --elastic-rank`` process:
+  the LS problem uninterrupted, a rank SIGKILLed after its first commit
+  and the world resumed (bitwise), exact data shrunk 2 -> 1 and grown
+  1 -> 2 (bitwise the uninterrupted run at the new size), a straggler
+  past a 2 s collective deadline (exit 110 naming it), the trainer
+  killed after an ADMM chunk and resumed (bitwise), and the third
+  path's graph in edge blocks against its in-core sketch; every rank
+  holds the kernels it launches against their plain versions.
 
 It exits non-zero, printing no result, without a CUDA device or without
 the package beside it.  It imports nothing of JAX.
@@ -398,6 +411,13 @@ SV_RF_M, SV_RF_N, SV_RF_S, SV_UP_ROWS, SV_EDGES = 32_768, 768, 3072, 64, 64
 SV_CLIENTS, SV_REQUESTS, SV_COALESCE, SV_RHS = 16, 256, 32, 8
 SV_RUNGS = (1, 8, 9, 17, 32)
 SV_UPDATE_TOL, SV_X_TOL = 1e-5, 1e-4
+EL_DIR = HERE / "build" / "elastic"
+EL_M, EL_N, EL_BATCH, EL_S = 1 << 21, 512, 65_536, 2048   # phase 3g's streaming LS shape
+EL_EVERY, EL_KILL_CHUNK = 4, 0     # batches per checkpoint; rank 1 dies after its first commit
+EL_DEADLINE_S, EL_SLOW_S = 2.0, 60.0
+EL_ADMM_ITERS, EL_ADMM_BATCH = 41, 65_536   # s/iter = (t_41 - t_1) / 40
+EL_STAGE_TIMEOUT_S = 420           # each spawned stage of worlds
+EL_W_ULPS = 16                     # world 2's W from world 1's: u an iteration, relative
 
 
 def fail(msg: str) -> None:
@@ -5251,6 +5271,513 @@ def serve_path(sky, dev, reset_counts, read_counts, smi) -> set:
     return held
 
 
+def elastic_holds(label: str, held: set) -> list:
+    """Put :class:`Held` stand-ins on the elastic path's three kernels:
+    ``scatter_rows`` (the CWT stream fold, with ``acc``), ``rfut_rowwise``
+    (the trainer's Fastfood blocks at NB = 128) and ``segment_sum_flat``
+    (the partitioned graph stream): the first launch of each signature is
+    held against its plain version beside a control that misses.
+    Returns ``(module, name, kernel)`` triples to put back."""
+    from libskylark_tpu_torch.sketch import kernels_fut as kf
+    from libskylark_tpu_torch.sketch import kernels_scatter as ks
+    from libskylark_tpu_torch.sketch import kernels_window as kw
+
+    u = 2.0 ** -24
+
+    def rfut_held(out, x, d, nb):
+        tol = 1e-5 if x.dtype == torch.float32 else 1e-2
+        _, r = max_err(out, kf.rfut_rowwise_plain(x, d, nb))
+        d_ctl = d.clone()
+        d_ctl[0] = -d_ctl[0]
+        _, c = max_err(out, kf.rfut_rowwise_plain(x, d_ctl, nb))
+        print(f"{label} (held) rfut_rowwise x {tuple(x.shape)} {x.dtype}, NB = {nb}: vs its "
+              f"plain version rel {r:.3g} (tol {tol:g}); control (the plain version with d[0] "
+              f"negated) {c:.3g}", flush=True)
+        check(r <= tol and c > tol, f"{label} rfut_rowwise {tuple(x.shape)}: {r}, control {c}")
+
+    def scatter_held(out, A, b, v, segs, acc=None):
+        b, v = (b[None], v[None]) if b.ndim == 1 else (b, v)
+        part, err_bound, _ = scatter_error_bound(A, b, v, segs, kw._L)
+        exact = part if acc is None else acc.double() + part
+        if acc is not None:
+            err_bound = err_bound + u * 1.01 * exact.abs()  # the fused emit's one add
+        r = bound_ratio(out, exact, err_bound)
+        # The control leaves out the largest term (integer data can sum a
+        # whole piece to 0, so a piece is no control there).
+        k = int((v[0].abs() * A.abs().amax(1)).argmax())
+        row = int(b[0, k])
+        ctl = exact[row] - v[0, k].double() * A[k].double()
+        c = bound_ratio(out[row], ctl, err_bound[row])
+        print(f"{label} (held) scatter_rows{'(acc=)' if acc is not None else ''} A "
+              f"{tuple(A.shape)} {A.dtype} -> {segs}, nnz = {b.shape[0]}: max |out - exact| / "
+              f"rounding bound {r:.3g} (must be <= 1); control (entry {k}, the largest term, "
+              f"left out of bucket {row}) {c:.3g}", flush=True)
+        check(r <= 1.0 and c > 1.0, f"{label} scatter_rows {tuple(A.shape)}: {r}, control {c}")
+
+    def segsum_held(out, vals, keys, segs):
+        ref = ks.segment_sum_flat_plain(vals, keys, segs)
+        _, r = max_err(out, ref)
+        i = int(vals.abs().argmax())
+        ctl = ks.segment_sum_flat_plain(torch.cat([vals[:i], vals[i + 1:]]),
+                                        torch.cat([keys[:i], keys[i + 1:]]), segs)
+        _, c = max_err(out, ctl)
+        print(f"{label} (held) segment_sum_flat {vals.shape[0]} -> {segs} {vals.dtype}: vs its "
+              f"plain version rel {r:.3g} (tol 1e-5); control (the plain version without entry "
+              f"{i}) {c:.3g}", flush=True)
+        check(r <= 1e-5 and c > 1e-5, f"{label} segment_sum_flat {vals.shape[0]}: {r}, "
+              f"control {c}")
+
+    return [(kf, "rfut_rowwise", hold(kf, "rfut_rowwise", rfut_held, held)),
+            (kw, "scatter_rows", hold(kw, "scatter_rows", scatter_held, held)),
+            (ks, "segment_sum_flat", hold(ks, "segment_sum_flat", segsum_held, held))]
+
+
+def elastic_rank_main(argv: list) -> int:
+    """One rank process of phase 3o (``chip_smoke.py --elastic-rank
+    ARGS``): ``tools.elastic_drill``'s rank entry with ``ARGS``, on the
+    parent's card over gloo, the elastic path's kernels held in its
+    setup hook; the drill's report gains the held signatures."""
+    sys.path.insert(0, str(HERE))
+    from libskylark_tpu_torch.tools import elastic_drill
+
+    def setup(rank):
+        held = set()
+        elastic_holds(f"elastic rank {rank}", held)
+        return lambda: {"held": sorted([sig[0], str(sig[1:]).replace("torch.", "")]
+                                       for sig in held)}
+
+    return elastic_drill.main(argv, setup=setup)
+
+
+def spawn_stage(label: str, worlds: list, dev) -> dict:
+    """Start every world of a stage together, each rank a
+    ``chip_smoke.py --elastic-rank`` process on the one card over gloo,
+    and wait for them all (``EL_STAGE_TIMEOUT_S``).  A world is ``(name,
+    size, runs, end)``: ``end`` is None (every rank must exit 0 with
+    ``DRILL-OK``), or the rank whose own exit ends the world (a
+    SIGKILLed victim, a timed-out peer): the other ranks, blocked in a
+    collective with it, are then killed.  Returns ``{name: [(rc, stdout,
+    report or None) by rank]}``; every process has ended."""
+    procs = {}
+    t0 = time.perf_counter()
+    for name, size, runs, end in worlds:
+        store = EL_DIR / f"store-{name}"
+        store.unlink(missing_ok=True)
+        ranks = []
+        for r in range(size):
+            log = open(EL_DIR / f"log-{name}-{r}.txt", "w", encoding="utf-8")
+            args = ["--rank", str(r), "--world", str(size), "--init", f"file://{store}",
+                    "--device", str(dev), "--group-timeout", "120", "--runs", json.dumps(runs)]
+            ranks.append((subprocess.Popen(
+                [sys.executable, str(HERE / "chip_smoke.py"), "--elastic-rank", *args],
+                stdout=log, stderr=subprocess.STDOUT, cwd=str(HERE)), log))
+        procs[name] = (ranks, end)
+    deadline = time.monotonic() + EL_STAGE_TIMEOUT_S
+    try:
+        while time.monotonic() < deadline:
+            live = False
+            for ranks, end in procs.values():
+                if end is not None and ranks[end][0].poll() is not None:
+                    for p, _ in ranks:
+                        if p.poll() is None:
+                            p.kill()
+                live |= any(p.poll() is None for p, _ in ranks)
+            if not live:
+                break
+            time.sleep(0.2)
+    finally:
+        for ranks, _ in procs.values():
+            for p, log in ranks:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+                log.close()
+    out = {}
+    for name, (ranks, _) in procs.items():
+        out[name] = []
+        for r, (p, _) in enumerate(ranks):
+            text = (EL_DIR / f"log-{name}-{r}.txt").read_text(encoding="utf-8", errors="replace")
+            for line in text.splitlines():
+                if "(held)" in line or line.startswith(("DRILL-TIMEOUT", "chip_smoke: FAILED")):
+                    print(f"  [{name} rank {r}] {line}")
+            report = None
+            if "DRILL-OK" in text:
+                report = json.loads(text.split("DRILL-OK", 1)[1].strip().splitlines()[0])
+            out[name].append((p.returncode, text, report))
+    print(f"elastic {label}: {', '.join(f'{n} ({len(v)} ranks)' for n, v in out.items())} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def elastic_path(sky, dev, reset_counts, read_counts, add_counts, uncounted, smi,
+                 graph) -> set:
+    """Phase 3o: the elastic multi-process path on the card.  (a) world 1
+    on NCCL in this process: ``distributed_sketch_least_squares`` at
+    phase 3g's streaming LS shape (JLT, CWT) bitwise the single-process
+    ``streaming.sketch_least_squares``, and the distributed trainer at
+    phase 3f's BlockADMM shape bitwise ``BlockADMMSolver.train``; (b)-(d)
+    worlds of 2 ranks on the one card over gloo, spawned as
+    ``--elastic-rank`` processes: the same LS problem uninterrupted, a
+    rank SIGKILLed after its first commit and the world resumed, exact
+    data shrunk 2 -> 1 and grown 1 -> 2, a straggler past a 2 s deadline;
+    the trainer killed after an ADMM chunk and resumed; phase 3c's graph
+    in edge blocks; the world-2 trainer's W against world 1's.  Each rank
+    holds the kernels it launches against their plain versions
+    (:func:`elastic_holds`).  The path's launches are the distributed
+    calls' only: the single-process references run ``uncounted()``.
+    ``graph`` is (lo, hi, the in-core sketch on the host, its SJLT).
+    Returns the held signatures of every process, as ``(kernel,
+    signature text)``."""
+    import datetime
+    import shutil
+
+    import torch.distributed as dist
+
+    from libskylark_tpu_torch.ml.distributed import DistributedBlockADMMTrainer
+    from libskylark_tpu_torch.parallel import cross_host_psum
+    from libskylark_tpu_torch.resilient import FaultPlan, SimulatedPreemption
+    from libskylark_tpu_torch.streaming import ElasticParams, RowPartition, pinned_placer
+    from libskylark_tpu_torch.tools import elastic_drill
+
+    card = f"[{smi}]"
+    shutil.rmtree(EL_DIR, ignore_errors=True)
+    EL_DIR.mkdir(parents=True)
+    # The worlds of 2 stream CWT: a JLT pass draws ~0.3 s of Omega a batch
+    # (phase 3g), so JLT runs at world 1 only.
+    lsq = {"scenario": "lsq", "dtype": "float32", "nrows": EL_M, "ncols": EL_N,
+           "batch_rows": EL_BATCH, "s": EL_S, "sketch": "CWT", "planted": True,
+           "seed": SEED, "checkpoint_every": EL_EVERY}
+    exact = {**lsq, "exact": True, "planted": False}
+    train = {"scenario": "train", "dtype": "float32", "nrows": ADMM_M, "d": ADMM_D,
+             "batch_rows": EL_ADMM_BATCH, "maps": 2, "map_size": ADMM_S, "tag": "fast",
+             "partitions": ADMM_P, "loss": "hinge",
+             "maxiter": EL_ADMM_ITERS, "seed": SEED, "checkpoint_every": EL_EVERY}
+    lo, hi, SA_ref, S_g = graph
+    np.savez(EL_DIR / "edges.npz", lo=lo, hi=hi)
+    graph_spec = {"scenario": "graph", "edges": str(EL_DIR / "edges.npz"),
+                  "vertices": S_g.n, "graph_s": S_g.s, "sketch_seed": SEED,
+                  "batch_rows": GRAPH_BATCH}
+    held, held_here = set(), set()  # (kernel, text) of every process; this one's raw
+
+    def clock(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    # The least-squares reference: f64 normal equations of the streamed A
+    # (cond(A) ~ 1.04, so they are accurate), and its residual.
+    factory, _ = elastic_drill.lsq_problem(lsq, dev)
+    G = torch.zeros(EL_N, EL_N, dtype=torch.float64, device=dev)
+    c = torch.zeros(EL_N, dtype=torch.float64, device=dev)
+    for A_b, b_b in factory(0):
+        A64 = A_b.double()
+        G += A64.T @ A64
+        c += A64.T @ b_b.double()
+    x_ls = torch.linalg.solve(G, c)
+
+    def residual(x):
+        x = x.to(dev).double()
+        return math.sqrt(sum(float(torch.linalg.vector_norm(A_b.double() @ x - b_b.double()))
+                             ** 2 for A_b, b_b in factory(0)))
+
+    r_ls = residual(x_ls)
+
+    def ratio_check(label, x):
+        ratio, ctl = residual(x) / r_ls, residual(torch.zeros_like(x)) / r_ls
+        print(f"elastic {label}: residual / the f64 LS residual {ratio:.5f} (bound "
+              f"{LS_RATIO_BOUND}); control (x = 0) {ctl:.4g} {card}")
+        check(bool(torch.isfinite(x).all()) and tuple(x.shape) == (EL_N,),
+              f"elastic {label}: x not finite of shape ({EL_N},)")
+        check(ratio <= LS_RATIO_BOUND and ctl > LS_RATIO_BOUND,
+              f"elastic {label}: residual ratio {ratio}, control {ctl}")
+
+    # -- (a) world 1 on NCCL, in this process ---------------------------------
+    with __import__("socket").socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    backend = dist.get_backend()
+    probe = torch.ones(4, device=dev)
+    dist.all_reduce(probe)
+    print(f"elastic (a): process group backend {dist.get_backend()}, world "
+          f"{dist.get_world_size()}, an all_reduce on the card {probe.tolist()} {card}")
+    kernels = elastic_holds("elastic (a)", held_here)
+    reset_counts()
+    t_a = time.perf_counter()
+    xs = {}
+    for spec in ({**lsq, "sketch": "JLT"}, lsq, exact):
+        fac, S = elastic_drill.lsq_problem(spec, dev)
+        sp = sky.streaming.StreamParams(placer=pinned_placer(dev), prefetch=0)
+        # In turns, single-process first (the first call of a signature
+        # pays its hold and its plans' captures); JLT once (~6 s a pass).
+        secs_s, secs_d = [], []
+        for _ in range(1 if spec["sketch"] == "JLT" else 2):
+            with uncounted():
+                t, (x_s, _) = clock(lambda: sky.streaming.sketch_least_squares(
+                    fac, S, ncols=EL_N, dtype=torch.float32, params=sp))
+            secs_s.append(t)
+            t, res = clock(lambda: elastic_drill.run(spec, rank=0, device=dev))
+            secs_d.append(t)
+        same = torch.equal(res["x"], x_s.cpu())
+        name = f"{spec['sketch']}{' exact' if spec.get('exact') else ''}"
+        print(f"elastic (a) {name} {EL_M} x {EL_N} in {EL_M // EL_BATCH} batches, s = {EL_S}: "
+              f"distributed at world 1 on {backend} {secs_d!r} s, single-process stream "
+              f"{secs_s!r} s (in turns); x bitwise {same} {card}")
+        check(same, f"elastic (a) {name}: world 1 is not bitwise the single-process stream")
+        if not spec.get("exact"):
+            ratio_check(f"(a) {name} world 1", res["x"])
+        xs[name] = res["x"]
+    # The entry point users call, linalg.streaming_least_squares, with and
+    # without partition= (the policy off: one decision for both calls).
+    fac, _ = elastic_drill.lsq_problem(lsq, dev)
+    knob = os.environ.get("SKYLARK_POLICY")
+    os.environ["SKYLARK_POLICY"] = "0"
+    try:
+        lp = sky.linalg.LeastSquaresParams(sketch_type="CWT", sketch_size=EL_S)
+        x_p, _ = sky.linalg.streaming_least_squares(
+            fac, EL_M, EL_N, sky.SketchContext(seed=SEED), lp, stream_params=ElasticParams(
+                placer=pinned_placer(dev), prefetch=0), partition=RowPartition(EL_M, EL_BATCH, 1))
+        with uncounted():
+            x_0, _ = sky.linalg.streaming_least_squares(
+                fac, EL_M, EL_N, sky.SketchContext(seed=SEED), lp,
+                stream_params=sky.streaming.StreamParams(placer=pinned_placer(dev), prefetch=0))
+    finally:
+        if knob is None:
+            os.environ.pop("SKYLARK_POLICY")
+        else:
+            os.environ["SKYLARK_POLICY"] = knob
+    same = torch.equal(x_p, x_0)
+    print(f"elastic (a) linalg.streaming_least_squares CWT with partition= at world 1 bitwise "
+          f"without it: {same} {card}")
+    check(same, "elastic (a): streaming_least_squares(partition=) at world 1 is not bitwise")
+    # The grow drill's first world: world 1 on exact data, preempted after
+    # its second committed chunk.
+    fac, S = elastic_drill.lsq_problem(exact, dev)
+    root_g = EL_DIR / "grow"
+    try:
+        sky.streaming.distributed_sketch_least_squares(
+            fac, S, ncols=EL_N, partition=RowPartition(EL_M, EL_BATCH, 1), dtype=torch.float32,
+            params=ElasticParams(placer=pinned_placer(dev), prefetch=0,
+                                 checkpoint_dir=str(root_g), checkpoint_every=EL_EVERY),
+            fault_plan=FaultPlan(preempt_after_chunk=1))
+        fail("elastic (a): the grow drill's world 1 was not preempted")
+    except SimulatedPreemption:
+        pass
+    # The trainer at world 1: bitwise BlockADMMSolver.train, s/iter.
+    tfac, maps, admm, classes = elastic_drill.train_problem(train, dev)
+    X = torch.cat([Xb for Xb, _ in tfac(0)])
+    y = torch.cat([yb for _, yb in tfac(0)]).cpu().numpy()
+    with uncounted():
+        secs_ref, ref = clock(
+            lambda: sky.ml.BlockADMMSolver("hinge", "l2", maps, admm).train(X, y))
+    del X
+    part1 = RowPartition(ADMM_M, EL_ADMM_BATCH, 1)
+    ep = ElasticParams(placer=pinned_placer(dev), prefetch=0)
+
+    def trainer(iters):
+        admm.maxiter = iters
+        return DistributedBlockADMMTrainer("hinge", "l2", maps, admm, ep).train(
+            tfac, part1, classes=classes, dtype=torch.float32)
+
+    # (c)'s control: world 1 with the last partition's rows left out.
+    ctl_spec = {**train, "nrows": ADMM_M - ADMM_M // ADMM_P, "partitions": ADMM_P - 1}
+    cfac, cmaps, cadmm, _ = elastic_drill.train_problem(ctl_spec, dev)
+    with uncounted():
+        W_ctl = DistributedBlockADMMTrainer("hinge", "l2", cmaps, cadmm, ep).train(
+            cfac, RowPartition(ctl_spec["nrows"], EL_ADMM_BATCH, 1), classes=classes,
+            dtype=torch.float32)[0].W.cpu()
+
+    t1 = min(clock(lambda: trainer(1))[0] for _ in range(2))
+    runs = [clock(lambda: trainer(EL_ADMM_ITERS)) for _ in range(2)]
+    tN, (model, info) = min(runs[0][0], runs[1][0]), runs[-1][1]
+    same = torch.equal(model.W, ref.W) and model.history == ref.history
+    per_iter_1 = (tN - t1) / (EL_ADMM_ITERS - 1)
+    print(f"elastic (a) DistributedBlockADMMTrainer at world 1 on {backend}, {ADMM_M} x {ADMM_D}, two "
+          f"Fastfood maps of {ADMM_S}, P = {ADMM_P}, hinge, {EL_ADMM_ITERS} iterations: W and "
+          f"objective bitwise BlockADMMSolver.train {same}; s/iter {per_iter_1!r} ((t_"
+          f"{EL_ADMM_ITERS} - t_1)/{EL_ADMM_ITERS - 1}, each the min of 2); "
+          f"BlockADMMSolver.train {secs_ref!r} s in all {card}")
+    check(same, "elastic (a): the world-1 trainer is not bitwise BlockADMMSolver.train")
+    for mod, name, kernel in kernels:
+        setattr(mod, name, kernel)
+    read_counts("elastic (a)", t_a, ("scatter_rows", "rfut_rowwise"))
+
+    def ok_world(label, ranks, runs):
+        for r, (rc, text, rep) in enumerate(ranks):
+            check(rc == 0 and rep is not None,
+                  f"elastic {label} rank {r} exited {rc}:\n{text[-3000:]}")
+        reps = [rep for _, _, rep in ranks]
+        for i, name in enumerate(runs):
+            shas = {rep["runs"][i]["sha"] for rep in reps}
+            check(len(shas) == 1, f"elastic {label} {name}: the ranks' results differ")
+        return reps
+
+    def sha(reps, name):
+        return next(run["sha"] for run in reps[0]["runs"] if run["name"] == name)
+
+    rank_counts = dict.fromkeys(("rfut_rowwise", "rfut_rowwise_sampled", "gather_scaled_rows",
+                                 "scatter_rows", "segment_sum_flat"), 0)
+
+    def tally(reps):
+        for rep in reps:
+            for run in rep["runs"]:
+                for k, v in run["launches"].items():
+                    rank_counts[k] += v
+            held.update((name, text) for name, text in rep["held"])
+            print(f"  rank {rep['rank']}/{rep['world']}: backend {rep['backend']}, gloo host "
+                  f"copies {rep['host_copies']}, kernels held "
+                  f"{sorted({name for name, _ in rep['held']})}")
+
+    # -- (b)-(d) uninterrupted world of 2 over gloo ---------------------------
+    # The trainer at 1 iteration twice (the first pays the holds and the
+    # plans' captures) and at EL_ADMM_ITERS: s/iter from the warm runs.
+    names_b = ["lsq", "exact", "train1", "train1b", "train", "graph"]
+    runs_b = [{"name": "lsq", "spec": lsq, "out": str(EL_DIR / "out-lsq")},
+              {"name": "exact", "spec": exact},
+              {"name": "train1", "spec": {**train, "maxiter": 1}},
+              {"name": "train1b", "spec": {**train, "maxiter": 1}},
+              {"name": "train", "spec": train, "out": str(EL_DIR / "out-train")},
+              {"name": "graph", "spec": graph_spec, "out": str(EL_DIR / "out-graph")}]
+    stage = spawn_stage("(b)-(d) uninterrupted", [("w2", 2, runs_b, None)], dev)
+    reps = ok_world("(b)-(d) world 2", stage["w2"], names_b)
+    tally(reps)
+    for rep in reps:  # (launches count on the card only)
+        lc = {k: sum(run["launches"][k] for run in rep["runs"]) for k in rank_counts}
+        for name in ("scatter_rows", "rfut_rowwise", "segment_sum_flat"):
+            check(lc[name] > 0 or dev.type != "cuda",
+                  f"elastic: rank {rep['rank']} launched no {name}")
+    secs = {run["name"]: max(rep["runs"][i]["seconds"] for rep in reps)
+            for i, run in enumerate(runs_b)}
+    x_u = torch.load(EL_DIR / "out-lsq" / "x-0.pt")
+    ratio_check("(b) CWT world 2 over gloo", x_u)
+    print(f"elastic (b) CWT {EL_M} x {EL_N} at world 2 over gloo on one card: {secs['lsq']!r} s "
+          f"(slowest rank); exact CWT {secs['exact']!r} s {card}")
+    per_iter_2 = (secs["train"] - secs["train1b"]) / (EL_ADMM_ITERS - 1)
+    print(f"elastic (c) DistributedBlockADMMTrainer at world 2 over gloo on one card (two "
+          f"partitions a rank): s/iter {per_iter_2!r} ((t_{EL_ADMM_ITERS} - t_1)/"
+          f"{EL_ADMM_ITERS - 1}, slowest rank), against {per_iter_1!r} at world 1 on {backend} "
+          f"{card}")
+    # The merge: world 2's W against world 1's (the same problem and
+    # iterations; only the consensus sum's order and the per-rank batched
+    # GEMMs' blocking differ), relative in Frobenius norm.
+    W1, W2 = model.W.cpu().double(), torch.load(EL_DIR / "out-train" / "x-0.pt").double()
+    rel_w = float(torch.linalg.vector_norm(W2 - W1) / torch.linalg.vector_norm(W1))
+    rel_c = float(torch.linalg.vector_norm(W_ctl.double() - W1) / torch.linalg.vector_norm(W1))
+    tol_w = EL_W_ULPS * EL_ADMM_ITERS * 2.0 ** -24
+    print(f"elastic (c) world 2's W against world 1's: ||W2 - W1|| / ||W1|| {rel_w:.3g} (limit "
+          f"{tol_w:.3g}, {EL_W_ULPS} u an iteration); control (world 1 without the last "
+          f"partition's rows) {rel_c:.3g} {card}")
+    check(bool(torch.isfinite(W2).all()) and W2.shape == W1.shape,
+          f"elastic (c): world 2's W not finite of shape {tuple(W1.shape)}")
+    check(rel_w <= tol_w and rel_c > tol_w,
+          f"elastic (c): world 2's W {rel_w} from world 1's, control {rel_c} (limit {tol_w})")
+    SA = torch.load(EL_DIR / "out-graph" / "x-0.pt")
+    # One extra sum: the merged partials are rounded once more, so each
+    # entry is held to u·|SA| against the in-core sketch (dyadic sums:
+    # exact, so bitwise too); the control leaves the first edge block out.
+    err_g = (SA.double() - SA_ref.double()).abs()
+    bound_g = 2.0 ** -24 * SA_ref.double().abs()
+    r_g = float(torch.where(bound_g > 0, err_g / bound_g.clamp(min=1e-300),
+                            torch.where(err_g > 0, math.inf, 0.0)).max())
+    blk = slice(0, GRAPH_BATCH)
+    l_, h_ = torch.from_numpy(lo[blk]), torch.from_numpy(hi[blk])
+    first = torch.sparse_coo_tensor(torch.stack([torch.cat([l_, h_]), torch.cat([h_, l_])]),
+                                    torch.ones(2 * l_.numel()), (S_g.n, S_g.n),
+                                    check_invariants=False)
+    from libskylark_tpu_torch.graph import stream as gs
+
+    ctl = SA_ref.double() - gs.incore_adjacency_sketch(first, S_g).double()
+    err_c = (SA.double() - ctl).abs()
+    r_c = float(torch.where(bound_g > 0, err_c / bound_g.clamp(min=1e-300),
+                            torch.where(err_c > 0, math.inf, 0.0)).max())
+    same_g = torch.equal(SA, SA_ref)
+    print(f"elastic (d) streamed_adjacency_sketch of {lo.size} edges in blocks of {GRAPH_BATCH} "
+          f"at world 2 over gloo: {secs['graph']!r} s; vs the single-process sketch: bitwise "
+          f"{same_g}, max error / u|SA| {r_g:.3g} (must be <= 1); control (the first block left "
+          f"out) {r_c:.3g} {card}")
+    check(r_g <= 1.0 and r_c > 1.0, f"elastic (d): {r_g}, control {r_c}")
+    del SA, err_g, bound_g, err_c, ctl, first
+
+    # -- faults: kills and a straggler, four worlds at once -------------------
+    root_f, root_e, root_t = EL_DIR / "kill", EL_DIR / "shrink", EL_DIR / "train"
+    kill = {"kill_after_chunk": EL_KILL_CHUNK, "fault_rank": 1}
+    stage = spawn_stage("(b)-(c) faults", [
+        ("kill", 2, [{"name": "lsq", "spec": {**lsq, **kill}, "root": str(root_f)}], 1),
+        ("kill-exact", 2, [{"name": "exact", "spec": {**exact, **kill},
+                            "root": str(root_e)}], 1),
+        ("kill-train", 2, [{"name": "train", "spec": {**train, "fault_rank": 1,
+                                                      "train_kill_after_chunk": 1},
+                            "root": str(root_t)}], 1),
+        ("straggler", 2, [{"name": "lsq", "spec": {
+            **lsq, "collective_timeout": EL_DEADLINE_S, "slow_at_batch": 2,
+            "slow_seconds": EL_SLOW_S, "fault_rank": 1}, "root": str(EL_DIR / "straggler")}],
+         0)], dev)
+    for name in ("kill", "kill-exact", "kill-train"):
+        rc = stage[name][1][0]
+        check(rc == -9, f"elastic {name}: the victim exited {rc}, not by its SIGKILL:\n"
+                        f"{stage[name][1][1][-2000:]}")
+    rc0, text0, _ = stage["straggler"][0]
+    check(rc0 == 110 and "DRILL-TIMEOUT phase=psum stragglers=[1]" in text0,
+          f"elastic straggler: rank 0 exited {rc0}:\n{text0[-2000:]}")
+    print(f"elastic (b) straggler: rank 1 sleeps {EL_SLOW_S:g} s before a batch; rank 0 exits "
+          f"110 past the {EL_DEADLINE_S:g} s deadline naming rank 1 ("
+          f"{[l for l in text0.splitlines() if l.startswith('DRILL-TIMEOUT')][0]})")
+
+    # -- resumes: the killed worlds, and the grow; the shrink here ------------
+    resume = {"resume": True}
+    stage = spawn_stage("(b)-(c) resumes", [
+        ("resume", 2, [{"name": "lsq", "spec": {**lsq, **resume}, "root": str(root_f)},
+                       {"name": "grow", "spec": {**exact, **resume,
+                                                 "resume_policy": "repartition"},
+                        "root": str(root_g)}], None),
+        ("resume-train", 2, [{"name": "train", "spec": {**train, **resume},
+                              "root": str(root_t)}], None)], dev)
+    reps_r = ok_world("(b) resume", stage["resume"], ["lsq", "grow"])
+    reps_t = ok_world("(c) resume", stage["resume-train"], ["train"])
+    tally(reps_r + reps_t)
+    check(sha(reps_r, "lsq") == sha(reps, "lsq"),
+          "elastic (b): the killed-and-resumed world is not bitwise the uninterrupted one")
+    check(sha(reps_r, "grow") == sha(reps, "exact"),
+          "elastic (b): the grow 1 -> 2 is not bitwise the uninterrupted world of 2")
+    check(sha(reps_t, "train") == sha(reps, "train"),
+          "elastic (c): the trainer killed and resumed is not bitwise the uninterrupted world")
+    b0, b1 = RowPartition(EL_M, EL_BATCH, 2).batch_range(1)
+    folded = [rec["attrs"]["batch"] for rec in sky.streaming.read_progress(
+        sky.streaming.host_dir(root_f, 1) + "/progress.jsonl") if rec["name"] == "batch"]
+    check(folded == list(range(b0, b1)), f"elastic (b): rank 1 folded {folded}")
+    grow = reps_r[0]["runs"][1]["replay"]
+    print(f"elastic (b) kill: rank 1 SIGKILLed after its first commit ({EL_EVERY} batches), the "
+          f"world resumed: x bitwise the uninterrupted world; rank 1 folded each of its batches "
+          f"once ({b1 - b0}); grow 1 -> 2 bitwise the uninterrupted world of 2 (replay "
+          f"{grow}); trainer killed after ADMM chunk 1 and resumed: W bitwise {card}")
+    # The shrink: world 2 killed above, resumed as world 1 (this process).
+    fac, S = elastic_drill.lsq_problem(exact, dev)
+    reset_counts()
+    t_s = time.perf_counter()
+    x_shrink, sinfo = sky.streaming.distributed_sketch_least_squares(
+        fac, S, ncols=EL_N, partition=RowPartition(EL_M, EL_BATCH, 1), dtype=torch.float32,
+        params=ElasticParams(placer=pinned_placer(dev), prefetch=0, checkpoint_dir=str(root_e),
+                             checkpoint_every=EL_EVERY, resume=True,
+                             resume_policy="repartition"))
+    read_counts("elastic (b) shrink", t_s, ("scatter_rows",))
+    same = torch.equal(x_shrink.cpu(), xs["CWT exact"])
+    print(f"elastic (b) shrink 2 -> 1 on exact data: x bitwise the uninterrupted world 1 {same} "
+          f"(replay {sinfo['replay']})")
+    check(same and sinfo["replay"]["from_world"] == 2,
+          "elastic (b): the shrink 2 -> 1 is not bitwise the uninterrupted world 1")
+    dist.destroy_process_group()
+    add_counts("elastic (ranks)", rank_counts)
+    print(f"elastic: every rank's launches {rank_counts}; cross_host_psum host copies in this "
+          f"process {cross_host_psum.host_copies} {card}")
+    shutil.rmtree(EL_DIR, ignore_errors=True)
+    held.update((sig[0], str(sig[1:]).replace("torch.", "")) for sig in held_here)
+    return held
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
@@ -5580,6 +6107,28 @@ def main() -> None:
             print(f"{path} path: rfut_rowwise launches by NB {rfut_by_nb[path]}")
         return counts
 
+    @contextmanager
+    def uncounted():
+        """Launches inside are no path's: a single-process reference's,
+        or a control's, beside the path that is counted."""
+        saved = {name: w.launches for name, w in wrappers.items()}
+        by_nb = dict(wrappers["rfut_rowwise"].launches_by_nb)
+        try:
+            yield
+        finally:
+            for name, w in wrappers.items():
+                w.launches = saved[name]
+            wrappers["rfut_rowwise"].launches_by_nb = by_nb
+
+    def add_counts(path, counts):
+        """A path's launches counted in other processes (the elastic
+        ranks), each process's counters starting at 0."""
+        for name, count in counts.items():
+            launches[name] += count
+        path_launches[path] = dict(counts)
+        rfut_by_nb[path] = {}
+        print(f"{path} path: launches {counts}")
+
     def memory(phase):
         """The card's memory after a phase, with the plans of every phase
         so far kept (as one process keeps them): the plan cache's bytes
@@ -5830,6 +6379,15 @@ def main() -> None:
 
     memory("3n")
 
+    # -- 3o. the elastic multi-process path: worlds of 1 (NCCL) and 2 (gloo)
+    torch.cuda.empty_cache()
+    t_3o = time.perf_counter()
+    elastic_held = elastic_path(sky, dev, reset_counts, read_counts, add_counts, uncounted,
+                                smi, (lo, hi, SA_ref, S_g))
+    print(f"elastic: phase 3o {time.perf_counter() - t_3o:.1f} s [{smi}]")
+
+    memory("3o")
+
     # -- 4. times at main-path shapes ------------------------------------
     kernels = []
 
@@ -5837,10 +6395,10 @@ def main() -> None:
             path_count=None, err=None, shape=None, split=None):
         b_ms, by = bound(bytes_moved, ops)
         by_path = {p: c[name] for p, c in path_launches.items() if c[name]}
-        # Phases 3i's, 3j's, 3l's, 3m's and 3n's items, and their sums
-        # under "refine", "policy", "cli", "telemetry" and "serve", on
-        # every row.
-        for phase in ("refine", "policy", "cli", "telemetry", "serve"):
+        # Phases 3i's, 3j's, 3l's, 3m's, 3n's and 3o's items, and their
+        # sums under "refine", "policy", "cli", "telemetry", "serve" and
+        # "elastic", on every row.
+        for phase in ("refine", "policy", "cli", "telemetry", "serve", "elastic"):
             by_path[phase] = sum(c[name] for p, c in path_launches.items()
                                  if p.startswith(f"{phase} ("))
         kernels.append({
@@ -5866,6 +6424,8 @@ def main() -> None:
             # ... and those phase 3n held.
             "serve_held": sorted(str(sig[1:]).replace("torch.", "")
                                  for sig in serve_held if sig[0] == name),
+            # ... and those phase 3o held, in this process and in its ranks.
+            "elastic_held": sorted(text for kernel, text in elastic_held if kernel == name),
             "max_abs_err": errs[name] if err is None else err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
             "library_ms": library_ms, **({"shape": shape} if shape else {}), **(split or {}),
@@ -6033,4 +6593,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) > 2 and sys.argv[1] == "--elastic-rank":
+        sys.exit(elastic_rank_main(sys.argv[2:]))
+    else:
+        main()

@@ -46,12 +46,12 @@ requests into planned dispatches.
 """
 
 from ._device import set_default_device
-from . import (core, flagship, graph, guard, io, linalg, ml, plans, policy, resilient, serve,
-               sketch, solvers, streaming, telemetry, utils)
+from . import (core, flagship, graph, guard, io, linalg, ml, parallel, plans, policy,
+               resilient, serve, sketch, solvers, streaming, telemetry, utils)
 from .core.context import SketchContext
 
 __version__ = "0.1.0"
 
 __all__ = ["SketchContext", "sketch", "linalg", "solvers", "guard", "resilient", "graph",
            "ml", "flagship", "core", "utils", "streaming", "plans", "policy", "io",
-           "telemetry", "serve", "set_default_device"]
+           "telemetry", "serve", "parallel", "set_default_device"]

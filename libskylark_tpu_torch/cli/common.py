@@ -7,9 +7,11 @@ default dtype, and under ``--telemetry``/``--telemetry-dir`` the
 telemetry knob and ledger directory) for one run and put them back after
 it, and
 :func:`to_device`, the host→card copy of what the IO layer read (f32, or
-f64 under ``--x64``, as ``jnp.asarray`` gives).  Flags whose layer the
-port lacks raise :class:`~libskylark_tpu_torch.utils.UnsupportedError`
-naming the ROADMAP item that brings it.
+f64 under ``--x64``, as ``jnp.asarray`` gives).  :func:`distributed_scope`
+joins the ``torch.distributed`` world of a ``--distributed`` run.  Flags
+whose layer the port lacks raise
+:class:`~libskylark_tpu_torch.utils.UnsupportedError` naming the ROADMAP
+item that brings it.
 """
 
 from __future__ import annotations
@@ -31,6 +33,8 @@ __all__ = [
     "add_perf_args",
     "add_policy_args",
     "add_telemetry_args",
+    "add_distributed_args",
+    "distributed_scope",
     "float_dtype",
     "in_run_dtype",
     "load_classes",
@@ -51,7 +55,7 @@ __all__ = [
     "to_numpy",
 ]
 
-ITEM_MULTI_DEVICE = "ROADMAP Queue A item 9: multi-device"
+ITEM_SHARDED = "ROADMAP Queue A item 9b: explicit in-process sharded schedules"
 
 
 def add_device_args(p) -> None:
@@ -137,12 +141,61 @@ def to_numpy(x) -> np.ndarray:
 
 
 def refuse_deferred(args) -> None:
-    """Raise UnsupportedError for a flag of a layer the port lacks: the
-    multi-device flags wait for ROADMAP Queue A item 9."""
-    for flag in ("shard", "distributed", "resume_policy", "collective_timeout"):
-        if getattr(args, flag, None) not in (None, False):
-            raise UnsupportedError(
-                f"--{flag.replace('_', '-')} is not ported yet ({ITEM_MULTI_DEVICE})")
+    """Raise UnsupportedError for a flag of a layer the port lacks:
+    ``--shard`` waits for ROADMAP Queue A item 9b."""
+    if getattr(args, "shard", False):
+        raise UnsupportedError(f"--shard is not ported yet ({ITEM_SHARDED})")
+
+
+def add_distributed_args(p, *, what: str) -> None:
+    """``--distributed`` and its knobs (``skylark_linear``, ``skylark_ml``)."""
+    p.add_argument(
+        "--distributed", action="store_true",
+        help=f"{what} over a torch.distributed world: every rank runs this same command "
+             "(launch with torchrun, or set RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT); "
+             "each folds its own row range and one sum merges; --checkpoint-dir becomes "
+             "the shared root of per-rank state")
+    p.add_argument(
+        "--resume-policy", default="strict", choices=["strict", "repartition"],
+        help="with --distributed --resume: 'strict' demands the same world size as the "
+             "interrupted run (exit on mismatch, code 109); 'repartition' replans the "
+             "root's durable progress onto the new world")
+    p.add_argument(
+        "--collective-timeout", type=float, default=None, metavar="SECONDS",
+        help="with --distributed: deadline for cross-rank collectives (handshake, merge); "
+             "a hung or straggling peer raises CollectiveTimeoutError (code 110) naming the "
+             "stragglers instead of hanging (default: no deadline, or "
+             "SKYLARK_COLLECTIVE_TIMEOUT_S)")
+
+
+@contextmanager
+def distributed_scope(args):
+    """Join the ``torch.distributed`` world of a ``--distributed`` run
+    from the ``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR`` / ``MASTER_PORT``
+    environment (what ``torchrun`` sets), NCCL on the card ``LOCAL_RANK``
+    names (else the current one) and gloo on the CPU, and leave it at the
+    end.  A group the caller already initialized is used as it is.
+    With ``--collective-timeout`` the group's own timeout is four times
+    it (at least 60 s), so a rank blocked in a collective past its
+    deadline still exits."""
+    import datetime
+
+    import torch.distributed as dist
+
+    if not getattr(args, "distributed", False) or dist.is_initialized():
+        yield
+        return
+    backend = "nccl" if args.device == "cuda" else "gloo"
+    if args.device == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", torch.cuda.current_device())))
+    kw = {}
+    if args.collective_timeout:
+        kw["timeout"] = datetime.timedelta(seconds=max(60.0, 4 * args.collective_timeout))
+    dist.init_process_group(backend, **kw)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def add_perf_args(p) -> None:

@@ -7,9 +7,10 @@ package).
 Where the port departs from the JAX driver: ``--cond-est`` sketches A
 with CWT whether A is dense or sparse (the JAX driver takes FJLT for a
 dense A, and fails on a sparse one: its QR refuses a BCOO), and a sparse
-A's sketch comes out dense; the multi-device flags (``--shard``,
-``--distributed``, ``--resume-policy``, ``--collective-timeout``) raise
-``UnsupportedError`` naming their ROADMAP item.
+A's sketch comes out dense; ``--shard`` raises ``UnsupportedError``
+naming its ROADMAP item (9b).  ``--stream --distributed`` runs one rank
+of the elastic streaming pass over a ``torch.distributed`` world
+(``cli.common.distributed_scope``).
 """
 
 from __future__ import annotations
@@ -23,12 +24,14 @@ import torch
 
 from .common import (
     add_device_args,
+    add_distributed_args,
     add_perf_args,
     add_policy_args,
     add_telemetry_args,
     print_perf_report,
     print_policy_report,
     print_telemetry_report,
+    distributed_scope,
     refuse_deferred,
     run_scope,
     setup_perf,
@@ -72,17 +75,7 @@ def main(argv=None) -> int:
     p.add_argument("--resume", action="store_true",
                    help="resume a streamed pass from the newest valid "
                         "checkpoint in --checkpoint-dir")
-    p.add_argument("--distributed", action="store_true",
-                   help="with --stream: partition the stream over a "
-                        "multi-process world (not ported yet: raises)")
-    p.add_argument("--resume-policy", default=None,
-                   choices=["strict", "repartition"],
-                   help="with --distributed --resume (not ported yet: "
-                        "raises)")
-    p.add_argument("--collective-timeout", type=float, default=None,
-                   metavar="SECONDS",
-                   help="with --distributed: deadline for cross-host "
-                        "collectives (not ported yet: raises)")
+    add_distributed_args(p, what="with --stream: partition the stream")
     add_device_args(p)
     add_perf_args(p)
     add_policy_args(p)
@@ -91,7 +84,10 @@ def main(argv=None) -> int:
 
     refuse_deferred(args)
     setup_perf(args)
-    with run_scope(args) as dev:
+    if args.distributed and not args.stream:
+        print("error: --distributed rides the streaming path; add --stream", file=sys.stderr)
+        return 2
+    with run_scope(args) as dev, distributed_scope(args):
         setup_telemetry(args)
         setup_policy(args)
         if args.stream:
@@ -187,7 +183,7 @@ def _stream_main(args) -> int:
     from ..core.context import SketchContext
     from ..io import scan_libsvm_dims, stream_libsvm
     from ..linalg import streaming_least_squares
-    from ..streaming import StreamParams, skip_batches
+    from ..streaming import ElasticParams, RowPartition, StreamParams, skip_batches, world_info
     from .common import in_run_dtype, to_numpy
 
     nrows, ncols = scan_libsvm_dims(args.inputfile)
@@ -200,15 +196,32 @@ def _stream_main(args) -> int:
         it = in_run_dtype(it, args)
         return skip_batches(it, start) if start else it
 
-    sp = StreamParams(
-        checkpoint_dir=args.checkpoint_dir,
-        checkpoint_every=args.checkpoint_every,
-        resume=args.resume,
-    )
+    partition = None
+    if args.distributed:
+        # The elastic face carries the world knobs: the resume policy
+        # (strict or repartition) and the collectives' deadline.
+        sp = ElasticParams(
+            checkpoint_dir=args.checkpoint_dir,
+            checkpoint_every=args.checkpoint_every,
+            resume=args.resume,
+            resume_policy=args.resume_policy,
+            collective_timeout_s=args.collective_timeout,
+        )
+        rank, world = world_info()
+        partition = RowPartition(nrows=nrows, batch_rows=args.batch_rows, world_size=world)
+        b0, b1 = partition.batch_range(rank)
+        print(f"Distributed stream: rank {rank}/{world} owns batches [{b0}, {b1}) of "
+              f"{partition.num_batches} (resume policy: {args.resume_policy})")
+    else:
+        sp = StreamParams(
+            checkpoint_dir=args.checkpoint_dir,
+            checkpoint_every=args.checkpoint_every,
+            resume=args.resume,
+        )
     t0 = time.perf_counter()
     x, info = streaming_least_squares(
         batches, nrows, ncols, SketchContext(seed=args.seed),
-        sparse=args.sparse, stream_params=sp,
+        sparse=args.sparse, stream_params=sp, partition=partition,
     )
     x = to_numpy(x)
     dt = time.perf_counter() - t0

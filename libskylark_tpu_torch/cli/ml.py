@@ -4,9 +4,9 @@
 ≙ ``ml/skylark_ml.cpp:15-174`` + ``hilbert_options_t``
 (``ml/options.hpp:53-381``) + the GetSolver kernel×options → feature-map
 factory (``ml/hilbert.hpp:11-219``).  The model file is the JAX package's
-format, so either package predicts from it.  ``--distributed`` and its
-flags (``--resume-policy``, ``--collective-timeout``) raise
-``UnsupportedError`` naming their ROADMAP item.
+format, so either package predicts from it.  ``--distributed`` trains
+one rank of the elastic BlockADMM trainer over a ``torch.distributed``
+world (``ml.distributed``, ``cli.common.distributed_scope``).
 """
 
 from __future__ import annotations
@@ -16,16 +16,19 @@ import sys
 import time
 
 import numpy as np
+import torch
 
 from .common import (
     FILE_FORMATS,
     add_device_args,
+    add_distributed_args,
     add_perf_args,
     add_policy_args,
     add_telemetry_args,
     print_perf_report,
     print_policy_report,
     print_telemetry_report,
+    distributed_scope,
     refuse_deferred,
     run_scope,
     setup_perf,
@@ -78,20 +81,12 @@ def main(argv=None) -> int:
     p.add_argument("--resume", action="store_true",
                    help="resume training from the newest valid checkpoint "
                         "in --checkpoint-dir")
-    p.add_argument("--distributed", action="store_true",
-                   help="train over a multi-process world (not ported "
-                        "yet: raises)")
+    add_distributed_args(p, what="train (each rank streams its row partition of "
+                                 "--trainfile; one consensus sum per ADMM iteration; "
+                                 "--datapartitions must give every rank whole partitions)")
     p.add_argument("--batch-rows", type=int, default=256,
                    help="with --distributed: rows per streamed training "
                         "batch (partition granularity)")
-    p.add_argument("--resume-policy", default=None,
-                   choices=["strict", "repartition"],
-                   help="with --distributed --resume (not ported yet: "
-                        "raises)")
-    p.add_argument("--collective-timeout", type=float, default=None,
-                   metavar="SECONDS",
-                   help="with --distributed: deadline for cross-host "
-                        "collectives (not ported yet: raises)")
     add_device_args(p)
     add_perf_args(p)
     add_policy_args(p)
@@ -102,10 +97,52 @@ def main(argv=None) -> int:
     setup_perf(args)
     if args.trainfile is None and args.testfile is None:
         p.error("need --trainfile (train) or --testfile + --modelfile (predict)")
-    with run_scope(args):
+    with run_scope(args), distributed_scope(args):
         setup_telemetry(args)
         setup_policy(args)
         return _run(args)
+
+
+def _train_distributed(args, X, y, maps, params):
+    """One rank of the elastic multi-process trainer: every rank runs the
+    same command, streams its row partition, trains in lockstep (one
+    consensus sum per iteration) and holds the same model at the end."""
+    from ..ml.distributed import DistributedBlockADMMTrainer
+    from ..streaming import ElasticParams, RowPartition, world_info
+    from .common import float_dtype, to_numpy
+
+    if args.valfile:
+        print("warning: --valfile is ignored under --distributed (score the saved model "
+              "instead)", file=sys.stderr)
+    n = X.shape[0]
+    rank, world = world_info()
+    partition = RowPartition(nrows=n, batch_rows=args.batch_rows, world_size=world)
+    b0, b1 = partition.batch_range(rank)
+    print(f"Distributed train: rank {rank}/{world} owns batches [{b0}, {b1}) of "
+          f"{partition.num_batches} (resume policy: {args.resume_policy})")
+    Xh = torch.from_numpy(to_numpy(X)).to(float_dtype(args))
+    yh = np.asarray(to_numpy(y), np.float64)
+
+    def source(start):
+        for bi in range(start, partition.num_batches):
+            lo, hi = bi * args.batch_rows, min((bi + 1) * args.batch_rows, n)
+            yield Xh[lo:hi], yh[lo:hi]
+
+    trainer = DistributedBlockADMMTrainer(
+        args.lossfunction, args.regularizer, maps, params,
+        ElasticParams(checkpoint_dir=args.checkpoint_dir,
+                      checkpoint_every=args.checkpoint_every, resume=args.resume,
+                      resume_policy=args.resume_policy,
+                      collective_timeout_s=args.collective_timeout))
+    model, info = trainer.train(
+        source, partition, classes=None if args.regression else np.unique(yh),
+        regression=args.regression, dtype=float_dtype(args))
+    replays = sum(1 for a in info["recovery"].get("attempts", [])
+                  if a.get("action") == "replay")
+    print(f"Train report: iters={info['iters']} "
+          f"consensus_residual={info['consensus_residual']:.6e} "
+          f"precision={info['precision']} replays={replays}")
+    return model
 
 
 def _run(args) -> int:
@@ -154,9 +191,11 @@ def _run(args) -> int:
                 args.valfile, args.fileformat, args.sparse, n_features=d
             )
             Xv = to_device(Xv, args)
-        Xj = to_device(X, args)
+        Xj = X if args.distributed else to_device(X, args)
         t0 = time.perf_counter()
-        if args.checkpoint_dir:
+        if args.distributed:
+            model = _train_distributed(args, X, y, maps, solver.params)
+        elif args.checkpoint_dir:
             # Preemption-safe path: host rounds of --checkpoint-every ADMM
             # iterations, a rotated CRC-guarded checkpoint after each.
             # Per-iteration validation scoring is a train()-only feature.

@@ -19,10 +19,12 @@ kernel's or ``index_add_``'s) cannot change a bit.
 
 :func:`streamed_adjacency_sketch` runs the fold on the streaming
 engine (prefetch, checkpoint/resume), bitwise the in-core sketch, and
-:func:`streaming_ase` embeds a graph from that one pass.  The elastic
-route (``partition=``) and ``chained_adjacency_sketch`` need the
-multi-device layer (ROADMAP Queue A item 9) and raise
-``UnsupportedError`` naming it.
+:func:`streaming_ase` embeds a graph from that one pass.  With
+``partition=`` (an edge :class:`~..streaming.RowPartition`) every rank
+of a ``torch.distributed`` world folds its edge share and one sum
+merges the partials.  ``chained_adjacency_sketch`` rides the sharded
+schedules (ROADMAP Queue A item 9b) and raises ``UnsupportedError``
+naming it.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ import torch
 
 from .._device import resolve_device
 from ..sketch.hash import HashSketch, _segment_sum
-from ..utils.exceptions import InvalidParameters, UnsupportedError, deferred
+from ..utils.exceptions import InvalidParameters, deferred
 
 __all__ = [
     "graph_block_source",
@@ -44,8 +46,8 @@ __all__ = [
     "streaming_ase",
 ]
 
-_ITEM9 = "ROADMAP Queue A item 9: multi-device (elastic edge partitions, sharded schedules)"
-chained_adjacency_sketch = deferred("chained_adjacency_sketch", _ITEM9)
+_ITEM9B = "ROADMAP Queue A item 9b: explicit in-process sharded schedules"
+chained_adjacency_sketch = deferred("chained_adjacency_sketch", _ITEM9B)
 
 
 def graph_block_source(G, batch_edges: int = 65536, dtype=np.float64):
@@ -166,24 +168,49 @@ def streamed_adjacency_sketch(source, S, *, ncols: int, dtype=torch.float64, par
     ``{"rows", "cols", "vals"}`` blocks), on the resilient streaming
     engine: checkpoint/resume through ``params`` (a
     :class:`~libskylark_tpu_torch.streaming.StreamParams`, whose placer
-    stages the blocks and places the accumulator).  Bitwise
-    :func:`incore_adjacency_sketch` (module docstring).  ``partition=``
-    (elastic edge partitions) raises ``UnsupportedError`` (ROADMAP Queue A
-    item 9)."""
+    stages the blocks and places the accumulator).  With
+    ``partition=None`` it is bitwise :func:`incore_adjacency_sketch`
+    (module docstring).  With an edge
+    :class:`~libskylark_tpu_torch.streaming.RowPartition` (``nrows`` the
+    unique undirected edges, ``params`` an ``ElasticParams``) every rank
+    of a live ``torch.distributed`` world folds its edge share and the
+    partials merge with one sum; simulated ranks drive
+    ``elastic_run_stream`` over :func:`adjacency_sketch_fold` and merge
+    by hand."""
     from .. import guard
     from ..sketch.base import Dimension
     from ..streaming.engine import StreamParams, run_stream, stream_device
 
-    if partition is not None:
-        raise UnsupportedError(f"streamed_adjacency_sketch(partition=) is not ported yet "
-                               f"({_ITEM9})")
-    params = params or StreamParams()
     kind = "graph_streaming_sketch"
-    init_at, step = adjacency_sketch_fold(S, ncols, dtype, device=stream_device(params))
     report = guard.RecoveryReport(stage=kind)
-    acc, _ = run_stream(source, step, init_at(0), params, kind=kind,
-                        fault_plan=fault_plan, report=report)
-    out = S.finalize_slices(acc["sa"], Dimension.COLUMNWISE)
+    if partition is None:
+        params = params or StreamParams()
+        init_at, step = adjacency_sketch_fold(S, ncols, dtype, device=stream_device(params))
+        acc, _ = run_stream(source, step, init_at(0), params, kind=kind,
+                            fault_plan=fault_plan, report=report)
+        merged = acc["sa"]
+    else:
+        from ..parallel.collectives import cross_host_psum
+        from ..streaming.elastic import (ElasticParams, _make_watchdog, _require_real_world,
+                                         _resolve_world, elastic_run_stream)
+
+        _require_real_world(partition)
+        params = params or ElasticParams()
+        rank, world = _resolve_world(params)
+        partition.validate_world(rank, world)
+        e0, e1 = partition.row_range(rank)
+        kind = "graph_distributed_sketch"
+        init_at, step = adjacency_sketch_fold(S, ncols, dtype, device=stream_device(params))
+        acc, _ = elastic_run_stream(source, step, init_at(e0), partition, params, kind=kind,
+                                    fault_plan=fault_plan, report=report, epoch=epoch)
+        edges = int(acc["edge"])
+        if edges != e1:
+            raise ValueError(f"rank {rank} folded edges [{e0}, {edges}) but its partition "
+                             f"share is [{e0}, {e1}); the source and partition disagree")
+        watchdog = (_make_watchdog(params, params.checkpoint_dir, rank, world, epoch)
+                    if params.checkpoint_dir else None)
+        merged = cross_host_psum({"sa": acc["sa"]}, watchdog=watchdog)["sa"]
+    out = S.finalize_slices(merged, Dimension.COLUMNWISE)
     if guard.enabled():
         guard.check_finite(out, kind, report=report)
     return out
@@ -197,8 +224,9 @@ def streaming_ase(source, n: int, k: int, context, params=None, *, dtype=torch.f
     gives); the embedding ``X = V·√|λ|`` follows from
     :func:`ase_from_sketch`.  Subspace iteration would re-stream the
     edges, so ``num_iterations > 0`` is refused.  ``stream_params``
-    places and checkpoints the fold; ``partition=`` raises (ROADMAP
-    Queue A item 9)."""
+    places and checkpoints the fold (an ``ElasticParams`` with
+    ``partition=``, the elastic route of
+    :func:`streamed_adjacency_sketch`)."""
     from ..linalg.svd import SVDParams, _sketch_size
     from ..sketch.hash import SJLT
 

@@ -280,13 +280,14 @@ def streaming_least_squares(source, nrows: int, ncols: int, context: SketchConte
     faults by batch index.  Returns ``(x, info)`` with ``info`` keys
     ``rows``, ``batches``, ``seconds``, ``recovery`` and ``policy`` (the
     routing decision, kind ``"ls_stream"``); the run's rows per second
-    go into the store's ``throughput``.  ``partition=`` raises
-    ``UnsupportedError`` (ROADMAP Queue A item 9)."""
+    go into the store's ``throughput``.  ``partition`` (a
+    :class:`~libskylark_tpu_torch.streaming.RowPartition`) selects the
+    multi-process elastic path: every rank of the ``torch.distributed``
+    world calls this with the same arguments, each folds its own row
+    range, and the merged ``(x, info)`` is the same on every rank."""
     from .. import streaming
-    from ..streaming.drivers import _no_partition
     from ..streaming.engine import StreamParams, stream_device
 
-    _no_partition(partition)  # before the stream's device is resolved
     params = params or LeastSquaresParams()
     decision = policy.consult(
         "ls_stream", m=nrows, n=ncols, targets=targets, dtype="float32", sparse=sparse,

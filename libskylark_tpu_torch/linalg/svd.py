@@ -8,8 +8,8 @@ off, ``_device.py``), the counterpart of the JAX package's
 ``precision="highest"``; the small factorizations are torch's own.
 ``A`` may be a dense or a sparse COO tensor (only products with A are
 taken).  The single-device port has no sharding, so the JAX package's
-``fully_replicated`` constraints are no-ops here (multi-device is
-ROADMAP Queue A item 9).  ``streaming_approximate_svd`` is the
+``fully_replicated`` constraints are no-ops here (the sharded schedules
+are ROADMAP Queue A item 9b).  ``streaming_approximate_svd`` is the
 matrix-free form for A too large for the card: row panels regenerated
 (or re-streamed) per pass, only one panel and the small accumulators
 resident.
@@ -252,12 +252,12 @@ def streaming_approximate_svd(block_fn, shape: tuple[int, int], rank: int,
     (i+1)·B)`` of U; with ``materialize_u=True``, U itself (m, k).  Without
     ``params`` one power iteration runs (the f32 whitening needs it on a
     noisy spectrum).  ``mesh=`` (panels sharded over devices) raises
-    ``UnsupportedError`` (ROADMAP Queue A item 9).
+    ``UnsupportedError`` (ROADMAP Queue A item 9b).
     """
     if mesh is not None:
         raise UnsupportedError(
-            "streaming_approximate_svd(mesh=) is not ported yet (ROADMAP Queue A item 9: "
-            "multi-device)")
+            "streaming_approximate_svd(mesh=) is not ported yet (ROADMAP Queue A item 9b: "
+            "explicit in-process sharded schedules)")
     params = params or SVDParams(num_iterations=1)
     m, n = shape
     k, s = _sketch_size(rank, params, n, m)

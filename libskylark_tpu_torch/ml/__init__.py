@@ -3,12 +3,20 @@ the KRR/RLSC solver families, the BlockADMM kernel-machine trainer,
 the nonlinear estimators, label coding and model persistence.
 
 The streaming KRR solvers (``streaming_kernel_ridge``,
-``streaming_approximate_kernel_ridge``) ride the ``streaming`` layer.
-Not ported yet: ``ml/distributed.py`` (ROADMAP Queue A item 9).
+``streaming_approximate_kernel_ridge``) ride the ``streaming`` layer;
+``distributed`` is the elastic multi-process BlockADMM trainer over a
+``torch.distributed`` world.
 """
 
 from .admm import ADMMParams, BlockADMMSolver
 from .coding import decode_labels, dummy_coding
+from .distributed import (
+    DistributedBlockADMMTrainer,
+    prepare_rank_admm,
+    rank_chunked_solver,
+    stream_feature_blocks,
+    validate_train_partition,
+)
 from .distances import (
     euclidean_distance_matrix,
     expsemigroup_distance_matrix,
@@ -78,6 +86,11 @@ __all__ = [
     "SketchPCR",
     "ADMMParams",
     "BlockADMMSolver",
+    "DistributedBlockADMMTrainer",
+    "prepare_rank_admm",
+    "rank_chunked_solver",
+    "stream_feature_blocks",
+    "validate_train_partition",
     "FeatureMapModel",
     "KernelModel",
     "load_model",

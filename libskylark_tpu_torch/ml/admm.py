@@ -37,7 +37,9 @@ blocks are dense CUDA tensors and the loss's prox reads nothing back
 captures one iteration as a CUDA graph and replays it: the same kernels
 on the same buffers, bitwise the eager steps
 (``resilient.chunked.CUDA_GRAPHS = False`` runs them eagerly).  ``train``
-and ``chunked`` run the same step, so their models are bitwise equal.
+and ``chunked`` run the same step, so their models are bitwise equal;
+``ml.distributed`` runs it too (``_admm_step``), over a rank's
+partitions with the consensus summed over the ranks.
 The Gram products and factors run in at least f32 with TF32 off (the
 JAX package's ``precision="highest"``; an indefinite factor gives silent
 NaNs).
@@ -107,6 +109,123 @@ class ADMMParams(Params):
     scale_maps: bool = False  # ≙ ScaleFeatureMaps (sqrt(sj/d) per block)
 
 
+def _targets(loss, Y, classes, regression: bool, P: int, ni: int, dtype, dev):
+    """``(Yp, k, classes)``: the targets partitioned as (P, k, ni), or,
+    for the label-based losses, class indices (P, ni)."""
+    if regression:
+        T = as_tensor(Y, dev)
+        T = T[:, None] if T.ndim == 1 else T
+        k = T.shape[1]
+        return T.reshape(P, ni, k).transpose(1, 2).contiguous(), k, classes
+    T, classes = dummy_coding(Y, classes, dtype=dtype, device=dev)
+    k = T.shape[1]
+    if getattr(loss, "label_based", False):
+        # Hinge/logistic take class indices (≙ the reference's crammed
+        # losses consuming the raw label vector).
+        cls = np.searchsorted(np.asarray(classes), host_labels(Y))
+        return torch.as_tensor(cls, device=dev).to(dtype).reshape(P, ni), k, classes
+    return T.reshape(P, ni, k).transpose(1, 2).contiguous(), k, classes
+
+
+def _factor(Zs, timer):
+    """Cached (Z·Zᵀ + I)⁻¹ per (partition, block), from its Cholesky
+    factor (≙ Cache[j] = inv(Z·Zᵀ + I), BlockADMM.hpp:437-441: the
+    reference caches the inverse too).  Applying it is one batched
+    product; the JAX package's two triangular solves per step with k
+    right-hand sides are latency-bound on the card."""
+    with timer.phase("factor") as ph:
+        Cinvs = []
+        for Z in Zs:
+            G = _psd_gram(Z.transpose(1, 2), Z)
+            L = _cholesky(G + torch.eye(G.shape[-1], dtype=G.dtype, device=G.device))
+            Cinvs.append(torch.cholesky_inverse(L))
+        ph.result = Cinvs
+    return Cinvs
+
+
+def _admm_step(loss, reg, maps, p, Zs, Cinvs, Yp, k: int, P_total: int, merge=None):
+    """``(state0, step, graphed)`` of the ADMM iteration over this
+    process's partitions: ``Zs`` (P_local, ni, s_j), ``Cinvs`` their
+    cached inverses, ``Yp`` the partitioned targets.  The consensus needs
+    Σ over ALL ``P_total`` partitions of Wi (and the loss summed over
+    them): ``merge({"wi", "obj"})`` sums this process's parts over the
+    ranks of a distributed trainer (it runs eagerly, between the local
+    half and the consensus); None (one process) takes the local sums as
+    they are, and the step is the single-process trainer's, op for op,
+    captured as one CUDA graph where it can be."""
+    P = Zs[0].shape[0]
+    ni = Zs[0].shape[1]
+    dtype, dev = Zs[0].dtype, Zs[0].device
+    J = len(maps)
+    starts = np.cumsum([0] + [S.s for S in maps]).tolist()
+    D = starts[-1]
+    rho = _const(p.rho, dtype, dev)
+    lam = _const(p.lam, dtype, dev)
+    inv_rho, lam_rho = 1.0 / rho, lam / rho
+    split = math.gcd(ni, _SPLIT)
+
+    def zt_mul(Z, B):
+        return _zt_mul(Z, B, split)
+
+    def step(s):
+        mu_ij = s["mu_ij"] - s["Wbar"][None]
+        Obar = s["Obar"] - s["nu"]
+        O = loss.prox(Obar, inv_rho, Yp)
+        W = reg.prox(s["Wbar"] - s["mu"], lam_rho)
+
+        sum_o = torch.zeros_like(O)
+        wbar_out = torch.zeros_like(O)
+        dsum = (s["del_o"] / (J + 1.0) + s["nu"]).transpose(1, 2).contiguous()  # (P, ni, k)
+        Wi, mu_ij_new, ZtObar_new = [], [], []
+        for j in range(J):
+            lo, hi = starts[j], starts[j + 1]
+            Z, Wbar_j = Zs[j], s["Wbar"][lo:hi]
+            wbar_out = wbar_out + torch.bmm(Z, Wbar_j.expand(P, -1, -1)).transpose(1, 2)
+            rhs = Wbar_j[None] - mu_ij[:, lo:hi] + s["ZtObar"][:, lo:hi] + zt_mul(Z, dsum)
+            C = Cinvs[j]
+            Wij = torch.bmm(C, rhs.to(C.dtype)).to(dtype)  # (P, sj, k)
+            o = torch.bmm(Z, Wij)  # (P, ni, k)
+            Wi.append(Wij)
+            mu_ij_new.append(mu_ij[:, lo:hi] + Wij)
+            ZtObar_new.append(zt_mul(Z, o))
+            sum_o = sum_o + o.transpose(1, 2)
+
+        del_o = O - sum_o
+        Obar = O - del_o / (J + 1.0)
+        nu = s["nu"] + O - Obar
+        # Consensus: the sum over partitions (≙ the MPI reduce of Wi,
+        # BlockADMM.hpp:574-578), over every rank's partitions.
+        wi = torch.cat(Wi, dim=1).sum(dim=0)
+        obj_loss = loss.evaluate(wbar_out, Yp)
+        if merge is not None:
+            g = merge({"wi": wi, "obj": obj_loss})
+            wi, obj_loss = g["wi"], g["obj"]
+        Wbar = (wi + W) / (P_total + 1.0)
+        mu = s["mu"] + W - Wbar
+        obj = obj_loss + lam * reg.evaluate(Wbar)
+        return dict(
+            it=s["it"] + 1, Wbar=Wbar, W=W, mu=mu, O=O, Obar=Obar, nu=nu,
+            del_o=del_o, mu_ij=torch.cat(mu_ij_new, dim=1),
+            ZtObar=torch.cat(ZtObar_new, dim=1), obj=obj,
+            objs=s["objs"].index_copy(0, s["it"].reshape(1), obj.reshape(1)),
+        )
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    state = dict(
+        it=torch.zeros((), dtype=torch.int64, device=dev),
+        Wbar=zeros(D, k), W=zeros(D, k), mu=zeros(D, k),
+        O=zeros(P, k, ni), Obar=zeros(P, k, ni), nu=zeros(P, k, ni),
+        del_o=zeros(P, k, ni),
+        mu_ij=zeros(P, D, k), ZtObar=zeros(P, D, k),
+        obj=zeros(),
+        objs=zeros(max(int(p.maxiter), 1)),  # the objective trace
+    )
+    graphed = merge is None and loss.graphable and graphable(*Zs, *Cinvs, Yp)
+    return state, step, graphed
+
+
 class BlockADMMSolver:
     """Trainer over a list of feature maps (≙ the ctor taking per-block
     ``featureMaps``; pass maps built by ``kernel.create_rft`` as the
@@ -148,105 +267,16 @@ class BlockADMMSolver:
         ni = n // P
         dev, dtype = X.device, X.dtype
 
-        if regression:
-            T = as_tensor(Y, dev)
-            T = T[:, None] if T.ndim == 1 else T
-            k = T.shape[1]
-            Yp = T.reshape(P, ni, k).transpose(1, 2).contiguous()
-        else:
-            T, classes = dummy_coding(Y, classes, dtype=dtype, device=dev)
-            k = T.shape[1]
-            if getattr(self.loss, "label_based", False):
-                # Hinge/logistic take class indices (≙ the reference's
-                # crammed losses consuming the raw label vector).
-                cls = np.searchsorted(np.asarray(classes), host_labels(Y))
-                Yp = torch.as_tensor(cls, device=dev).to(dtype).reshape(P, ni)
-            else:
-                Yp = T.reshape(P, ni, k).transpose(1, 2).contiguous()
-
-        J = len(self.maps)
-        starts = np.cumsum([0] + [S.s for S in self.maps]).tolist()
-        D = starts[-1]
-
+        Yp, k, classes = _targets(self.loss, Y, classes, regression, P, ni, dtype, dev)
         # Phase timers ≙ the reference's ADMM SKYLARK_TIMER instrumentation
         # (transform/iteration/prediction, BlockADMM.hpp:357-365).
         timer = PhaseTimer()
         with timer.phase("transform") as ph:
             Zs = [self._apply_map(S, X, P) for S in self.maps]  # (P, ni, sj)
             ph.result = Zs
-        # Cached (Z·Zᵀ + I)⁻¹ per (partition, block), from its Cholesky
-        # factor (≙ Cache[j] = inv(Z·Zᵀ + I), BlockADMM.hpp:437-441: the
-        # reference caches the inverse too).  Applying it is one batched
-        # product; the JAX package's two triangular solves per step with
-        # k right-hand sides are latency-bound on the card.
-        with timer.phase("factor") as ph:
-            Cinvs = []
-            for Z in Zs:
-                G = _psd_gram(Z.transpose(1, 2), Z)
-                L = _cholesky(G + torch.eye(G.shape[-1], dtype=G.dtype, device=dev))
-                Cinvs.append(torch.cholesky_inverse(L))
-            ph.result = Cinvs
-
-        rho = _const(p.rho, dtype, dev)
-        lam = _const(p.lam, dtype, dev)
-        inv_rho, lam_rho = 1.0 / rho, lam / rho
-        loss, reg = self.loss, self.regularizer
-        split = math.gcd(ni, _SPLIT)
-
-        def zt_mul(Z, B):
-            return _zt_mul(Z, B, split)
-
-        def step(s):
-            mu_ij = s["mu_ij"] - s["Wbar"][None]
-            Obar = s["Obar"] - s["nu"]
-            O = loss.prox(Obar, inv_rho, Yp)
-            W = reg.prox(s["Wbar"] - s["mu"], lam_rho)
-
-            sum_o = torch.zeros_like(O)
-            wbar_out = torch.zeros_like(O)
-            dsum = (s["del_o"] / (J + 1.0) + s["nu"]).transpose(1, 2).contiguous()  # (P, ni, k)
-            Wi, mu_ij_new, ZtObar_new = [], [], []
-            for j in range(J):
-                lo, hi = starts[j], starts[j + 1]
-                Z, Wbar_j = Zs[j], s["Wbar"][lo:hi]
-                wbar_out = wbar_out + torch.bmm(Z, Wbar_j.expand(P, -1, -1)).transpose(1, 2)
-                rhs = Wbar_j[None] - mu_ij[:, lo:hi] + s["ZtObar"][:, lo:hi] + zt_mul(Z, dsum)
-                C = Cinvs[j]
-                Wij = torch.bmm(C, rhs.to(C.dtype)).to(dtype)  # (P, sj, k)
-                o = torch.bmm(Z, Wij)  # (P, ni, k)
-                Wi.append(Wij)
-                mu_ij_new.append(mu_ij[:, lo:hi] + Wij)
-                ZtObar_new.append(zt_mul(Z, o))
-                sum_o = sum_o + o.transpose(1, 2)
-
-            del_o = O - sum_o
-            Obar = O - del_o / (J + 1.0)
-            nu = s["nu"] + O - Obar
-            # Consensus: the sum over partitions (≙ the MPI reduce of Wi,
-            # BlockADMM.hpp:574-578).
-            Wbar = (torch.cat(Wi, dim=1).sum(dim=0) + W) / (P + 1.0)
-            mu = s["mu"] + W - Wbar
-            obj = loss.evaluate(wbar_out, Yp) + lam * reg.evaluate(Wbar)
-            return dict(
-                it=s["it"] + 1, Wbar=Wbar, W=W, mu=mu, O=O, Obar=Obar, nu=nu,
-                del_o=del_o, mu_ij=torch.cat(mu_ij_new, dim=1),
-                ZtObar=torch.cat(ZtObar_new, dim=1), obj=obj,
-                objs=s["objs"].index_copy(0, s["it"].reshape(1), obj.reshape(1)),
-            )
-
-        def zeros(*shape):
-            return torch.zeros(shape, dtype=dtype, device=dev)
-
-        state = dict(
-            it=torch.zeros((), dtype=torch.int64, device=dev),
-            Wbar=zeros(D, k), W=zeros(D, k), mu=zeros(D, k),
-            O=zeros(P, k, ni), Obar=zeros(P, k, ni), nu=zeros(P, k, ni),
-            del_o=zeros(P, k, ni),
-            mu_ij=zeros(P, D, k), ZtObar=zeros(P, D, k),
-            obj=zeros(),
-            objs=zeros(max(int(p.maxiter), 1)),  # the objective trace
-        )
-        graphed = loss.graphable and graphable(*Zs, *Cinvs, Yp)
+        Cinvs = _factor(Zs, timer)
+        state, step, graphed = _admm_step(self.loss, self.regularizer, self.maps, p, Zs, Cinvs,
+                                          Yp, k, P)
         return _PreparedRun(
             state0=state, step=step, graphed=graphed, timer=timer, d=d, classes=classes,
             device=dev,

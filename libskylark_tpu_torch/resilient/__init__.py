@@ -10,9 +10,9 @@
 - ``faults``: deterministic fault injection (preemption, corruption,
   transient IO, the guard's numerical faults) and ``with_retries``.
 
-The host and fleet fault plans of the elastic layer raise
-``UnsupportedError`` naming ROADMAP Queue A item 9; the serve journal's
-``faults.JournalFaultPlan`` is ported.
+The elastic layer's ``HostFaultPlan`` and the serve journal's
+``faults.JournalFaultPlan`` are ported; ``FleetFaultPlan`` raises
+``UnsupportedError`` naming ROADMAP Queue A item 9b.
 """
 
 from .chunked import ChunkedSolver

@@ -13,11 +13,11 @@ that the recovery paths run in the tests:
 
 The numerical faults of the guard layer (``nan_at``, ``bad_sketch_at``)
 are here too, and so is the serve journal's :class:`JournalFaultPlan`
-(a real SIGKILL inside the journal's commit window).  The host and
-fleet faults (``HostFaultPlan``, ``FleetFaultPlan``,
-``corrupt_manifest``, ``tear_ledger_tail``) belong to the elastic
-layer, which waits for ROADMAP Queue A item 9; their names raise
-``UnsupportedError`` naming the item.
+(a real SIGKILL inside the journal's commit window), and the elastic
+layer's host faults: :class:`HostFaultPlan` (rank death, stragglers, a
+hostile host, a stale-epoch writer), :func:`corrupt_manifest` and
+:func:`tear_ledger_tail`.  ``FleetFaultPlan`` (replicas on several
+cards) is ROADMAP Queue A item 9b; its name raises ``UnsupportedError``.
 """
 
 from __future__ import annotations
@@ -42,12 +42,8 @@ __all__ = [
     "with_retries",
 ]
 
-_ITEM9 = "ROADMAP Queue A item 9: multi-device (elastic streaming, host and fleet faults)"
-
-HostFaultPlan = deferred("HostFaultPlan", _ITEM9)
-FleetFaultPlan = deferred("FleetFaultPlan", _ITEM9)
-corrupt_manifest = deferred("corrupt_manifest", _ITEM9)
-tear_ledger_tail = deferred("tear_ledger_tail", _ITEM9)
+FleetFaultPlan = deferred("FleetFaultPlan", "ROADMAP Queue A item 9b: the router's "
+                                           "replicas on several cards")
 
 
 class SimulatedPreemption(RuntimeError):
@@ -69,6 +65,27 @@ def corrupt_checkpoint(path, nbytes: int = 64, offset: int | None = None):
         chunk = f.read(nbytes)
         f.seek(offset)
         f.write(bytes(b ^ 0xFF for b in chunk))
+
+
+def corrupt_manifest(host_directory) -> str:
+    """Flip every byte of a host's elastic ``manifest.json`` in place (a
+    corrupt-at-rest or hostile host): the repartition scanner must treat
+    the host as uncertifiable, drop its coverage and re-fold its batches.
+    Returns the manifest's path."""
+    path = os.path.join(str(host_directory), "manifest.json")
+    with open(path, "r+b") as f:
+        data = f.read()
+        f.seek(0)
+        f.write(bytes(b ^ 0xFF for b in data))
+    return path
+
+
+def tear_ledger_tail(ledger_path) -> None:
+    """Append a torn (half-written, unterminated) record to a host's
+    ``progress.jsonl``, what a SIGKILL inside ``write`` leaves:
+    ``read_progress`` must skip it and keep the intact prefix."""
+    with open(str(ledger_path), "a", encoding="utf-8") as f:
+        f.write('{"ts": 0.0, "seq": 99999, "kind": "elas')
 
 
 def with_retries(fn, retries: int = 3, backoff: float = 0.05, exceptions=(OSError,),
@@ -210,3 +227,86 @@ class JournalFaultPlan(FaultPlan):
 
     def die_after_fires(self, index: int) -> bool:
         return self._fire("die_after_journal", self.die_after_journal_before_publish, index)
+
+
+@dataclass
+class HostFaultPlan(FaultPlan):
+    """Host-level chaos schedule of the elastic streaming layer: the
+    failure modes of a machine, not of a computation.  The elastic engine
+    binds the plan to the rank's state on disk (:meth:`bind_host`) and
+    calls :meth:`before_batch` before folding each LOCAL batch:
+
+    - ``die_at_batch``: rank death, a real SIGKILL just before folding
+      local batch k (with ``torn_ledger=True`` a half-written ledger
+      record first, a kill inside ``write``);
+    - ``die_after_commit``: rank death right after chunk k's checkpoint
+      commits;
+    - ``slow_at_batch`` / ``slow_seconds``: a straggler, sleeping before
+      local batch k (its peers meet their collective deadline, 110);
+    - ``corrupt_manifest_at``: a hostile host, flipping its own
+      ``manifest.json`` before local batch k (a later repartition must
+      drop its coverage);
+    - ``bump_epoch_at``: a stale-epoch writer, advancing the root's epoch
+      marker before local batch k as if the rest of the world
+      repartitioned; the rank's next ledger record raises 111.
+
+    Every :class:`FaultPlan` knob composes with these.
+    """
+
+    die_at_batch: int | None = None
+    die_after_commit: int | None = None
+    torn_ledger: bool = False
+    slow_at_batch: int | None = None
+    slow_seconds: float = 0.0
+    corrupt_manifest_at: int | None = None
+    bump_epoch_at: int | None = None
+    host_dir: str | None = None
+    root: str | None = None
+    epoch: int = 0
+    sleep: object = time.sleep  # injectable for tests
+
+    def bind_host(self, *, hdir: str, root: str, epoch: int = 0) -> None:
+        """The rank's host directory, once the elastic engine knows it:
+        the file-targeting faults aim there."""
+        self.host_dir = str(hdir)
+        self.root = str(root)
+        self.epoch = int(epoch)
+
+    def _suicide(self) -> None:
+        import signal
+
+        os.kill(os.getpid(), signal.SIGKILL)
+
+    def _tear(self) -> None:
+        if self.torn_ledger and self.host_dir:
+            try:
+                tear_ledger_tail(os.path.join(self.host_dir, "progress.jsonl"))
+            except OSError:
+                pass
+
+    def before_batch(self, index: int) -> None:
+        if self._fire("slow_batch", self.slow_at_batch, index):
+            self.sleep(float(self.slow_seconds))
+        if self._fire("corrupt_manifest", self.corrupt_manifest_at, index) and self.host_dir:
+            try:
+                corrupt_manifest(self.host_dir)
+            except OSError:
+                pass
+        if self._fire("bump_epoch", self.bump_epoch_at, index) and self.root:
+            from ..streaming.elastic import RowPartition
+            from ..streaming.repartition import read_epoch, write_epoch
+
+            est = read_epoch(self.root)
+            cur = int(est["epoch"]) if est else int(self.epoch)
+            write_epoch(self.root, epoch=cur + 1,
+                        partition=RowPartition(nrows=1, batch_rows=1, world_size=1),
+                        kind=(est or {}).get("kind", "chaos"))
+        if self.die_at_batch is not None and index == self.die_at_batch:
+            self._tear()
+            self._suicide()
+
+    def after_commit(self, chunk: int) -> None:
+        if self.die_after_commit is not None and chunk == self.die_after_commit:
+            self._tear()
+            self._suicide()
+        super().after_commit(chunk)

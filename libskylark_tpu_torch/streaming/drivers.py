@@ -16,9 +16,10 @@ Each takes an iterable or a re-openable ``factory(start_batch) ->
 iterator`` (needed for resume; ``engine.as_block_factory``).  Batches
 are tensors or numpy arrays; the placer stages them on the card unless
 ``StreamParams(placer=pinned_placer("cpu"))`` says otherwise.  The two
-solvers close their run with ``telemetry.run_summary``.  The multi-host
-routes (``partition=``) raise ``UnsupportedError`` naming ROADMAP Queue
-A item 9.
+solvers close their run with ``telemetry.run_summary``.  ``partition=``
+(a :class:`~.elastic.RowPartition`) routes :func:`sketch` (columnwise)
+and :func:`sketch_least_squares` to the multi-process elastic path
+(:mod:`.elastic`).
 """
 
 from __future__ import annotations
@@ -30,20 +31,10 @@ import torch
 
 from .. import guard, plans, telemetry
 from ..sketch.base import Dimension
-from ..utils.exceptions import UnsupportedError
 from .engine import StreamParams, accumulate_slice, as_block_factory, run_stream, stream_device
 from .pipeline import BucketedBatch, Prefetcher, ready
 
 __all__ = ["sketch", "sketch_batches", "sketch_least_squares", "kernel_ridge"]
-
-_ITEM9 = "ROADMAP Queue A item 9: multi-device (elastic streaming over a RowPartition)"
-
-
-def _no_partition(partition) -> None:
-    if partition is not None:
-        raise UnsupportedError(f"partition= (distributed streaming) is not ported yet "
-                               f"({_ITEM9})")
-
 
 def _unwrap(block):
     """``(block, rows)``, transparent over ``bucketed_placer``'s batches."""
@@ -74,9 +65,24 @@ def sketch(source, S, dim: Dimension | str = Dimension.COLUMNWISE, *, ncols: int
     per-block sketches concatenate in stream order.  There is no
     fixed-shape state to checkpoint, so ``params.checkpoint_dir`` is
     refused; :func:`sketch_batches` keeps the output streamed too.
+
+    ``partition`` (a :class:`~.elastic.RowPartition`) routes to the
+    multi-process elastic path (COLUMNWISE only): each rank of the
+    ``torch.distributed`` world folds its own row range and one sum
+    merges (:func:`~.elastic.distributed_sketch`).
     """
     dim = Dimension.of(dim)
-    _no_partition(partition)
+    if partition is not None:
+        if dim is not Dimension.COLUMNWISE:
+            raise ValueError("distributed streaming is columnwise-only (rowwise output "
+                             "concatenates in stream order, which has no cross-rank merge)")
+        if ncols is None:
+            raise ValueError("columnwise streaming needs ncols (the width m of A) to size "
+                             "the (S, m) accumulator")
+        from .elastic import distributed_sketch
+
+        return distributed_sketch(source, S, ncols=int(ncols), partition=partition,
+                                  dtype=dtype, params=params, fault_plan=fault_plan)
     params = params or StreamParams()
     if dim is Dimension.ROWWISE:
         if params.checkpoint_dir:
@@ -150,10 +156,22 @@ def sketch_least_squares(source, S, *, ncols: int, targets: int = 1, alg: str = 
     ``"policy"`` when a ``policy_decision`` is given); ``recovery`` is the
     guard's report (chunk replays, the certificate, the small-solve
     fallback).
+
+    ``partition`` (a :class:`~.elastic.RowPartition`) routes to the
+    multi-process elastic path: each rank folds its own row range, one
+    sum merges the partials, guard verdicts are summed so every rank
+    takes the same rung, and ``(x, info)`` is the same on every rank
+    (:func:`~.elastic.distributed_sketch_least_squares`).
     """
     from ..linalg.least_squares import exact_least_squares
 
-    _no_partition(partition)
+    if partition is not None:
+        from .elastic import distributed_sketch_least_squares
+
+        return distributed_sketch_least_squares(
+            source, S, ncols=int(ncols), partition=partition, targets=targets, alg=alg,
+            dtype=dtype, params=params, fault_plan=fault_plan,
+            policy_decision=policy_decision)
     params = params or StreamParams()
     dt = _result_dtype(dtype)
     dev = stream_device(params)

@@ -34,7 +34,7 @@ groups; :func:`report` prints the counters through
 SLO budgets (:mod:`.slo`), the timeline ring (:mod:`.timeline`), the
 fleet folds (:mod:`.fleet`) and the Prometheus exposition
 (:mod:`.exposition`) are here for the serve plane; the multi-process
-reductions wait for ROADMAP Queue A item 9.
+reductions gather over the ``torch.distributed`` group.
 """
 
 from .config import enabled, ledger_dir

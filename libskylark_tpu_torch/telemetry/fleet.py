@@ -25,15 +25,14 @@ every rank's registry, and the ledger side folds whatever root it is
 pointed at.  In a single-process world (``torch.distributed`` not
 initialized, or a world of 1) the gather degenerates to the local
 snapshot, so ``telemetry.snapshot(fleet=True)`` is safe to call there;
-a larger world raises ``UnsupportedError`` until the port's
-multi-device layer (ROADMAP Queue A item 9) brings the allgather.
+a larger world all-gathers every rank's registry.
 
 The ledger fold reads the files the elastic layer writes
 (``host-*/progress.jsonl`` in the run-ledger schema, the root's
-``epoch.json``).  The port has no ``streaming/elastic.py`` or
-``streaming/repartition.py`` yet (item 9), so this module keeps private
-copies of their two readers, :func:`read_progress` and
-:func:`read_epoch`; item 9 imports them from here.
+``epoch.json``).  The two readers, :func:`read_progress` and
+:func:`read_epoch`, live here once: ``streaming.elastic`` and
+``streaming.repartition`` import them from this module (the telemetry
+package is imported before the streaming one).
 """
 
 from __future__ import annotations
@@ -43,7 +42,6 @@ import json
 import os
 import re
 
-from ..utils.exceptions import UnsupportedError
 from .report import snapshot as _local_snapshot
 
 __all__ = ["merge_snapshots", "fold_ledgers", "fleet_snapshot"]
@@ -261,18 +259,32 @@ def fold_ledgers(root, *, timeline_limit: int = 256) -> dict:
 
 
 def _gather_registries(local: dict) -> list[dict]:
-    """Every process's registry: ``[local]`` in a single-process world
-    (``torch.distributed`` not initialized, or a world of 1).  The
-    cross-process allgather, under ``timer_report``'s CRC32
-    name-signature discipline, waits for ROADMAP Queue A item 9."""
-    import torch.distributed as dist
+    """Every process's registry, in rank order: ``[local]`` in a
+    single-process world, else an ``all_gather_object`` of the counter
+    and histogram blocks over the ``torch.distributed`` group.  Every
+    rank must carry the same counter and histogram names (the collective
+    contract of ``utils.timer.timer_report(distributed=True)``); gauges
+    and plans are process-local context and ride along for rank 0 only.
+    """
+    from ..parallel.collectives import gather_objects
 
-    if not dist.is_available() or not dist.is_initialized() or dist.get_world_size() == 1:
+    mine = {"counters": dict(local["counters"]), "histograms": {
+        n: {f: h[f] for f in ("count", "sum", "min", "max")}
+        for n, h in local["histograms"].items()}}
+    snaps = gather_objects(mine)
+    if len(snaps) == 1:
         return [local]
-    raise UnsupportedError(
-        "telemetry.snapshot(fleet=True) across a torch.distributed world of "
-        f"{dist.get_world_size()} is not ported yet (ROADMAP Queue A item 9: "
-        "multi-device)")
+    names = [(sorted(s["counters"]), sorted(s["histograms"])) for s in snaps]
+    if any(n != names[0] for n in names):
+        raise RuntimeError(
+            "telemetry.snapshot(fleet=True): processes carry different counter-name sets "
+            f"(this rank has {len(local['counters'])} counters); every rank must fold the "
+            "same metrics — the same collective contract as "
+            "utils.timer.timer_report(distributed=True)")
+    return [{"counters": {k: float(v) for k, v in s["counters"].items()},
+             "histograms": s["histograms"],
+             "gauges": local["gauges"] if p == 0 else {},
+             "plans": local["plans"] if p == 0 else {}} for p, s in enumerate(snaps)]
 
 
 def fleet_snapshot(root=None) -> dict:

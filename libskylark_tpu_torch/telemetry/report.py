@@ -9,9 +9,9 @@ policy group covers decisions made, escalations, and profile
 hits/misses — ``docs/autotuning.md``).
 
 ``report()`` is the counter table, and deliberately REUSES
-``utils.timer.timer_report``: its multi-process reduction
-(``distributed=True``) raises ``UnsupportedError`` until the port's
-multi-device layer (ROADMAP Queue A item 9) brings the gather.
+``utils.timer.timer_report``: with ``distributed=True`` every rank of the
+``torch.distributed`` group must call it, and the table is min / max /
+avg over the ranks.
 """
 
 from __future__ import annotations
@@ -38,8 +38,8 @@ def snapshot(fleet: bool = False, root=None) -> dict:
     checkpoint root — the epoch-fenced fold of its
     ``host-*/progress.jsonl`` ledgers under ``"hosts"``.  A
     single-process world degenerates to the local snapshot's numbers;
-    a larger ``torch.distributed`` world raises until ROADMAP Queue A
-    item 9 (see ``telemetry/fleet.py``).
+    in a larger ``torch.distributed`` world every rank must call it
+    (see ``telemetry/fleet.py``).
     """
     if fleet:
         from .fleet import fleet_snapshot
@@ -220,7 +220,8 @@ def report(distributed: bool = False) -> str:
     """Counter table (gauges as ``gauge.<name>``) through
     :func:`~libskylark_tpu_torch.utils.timer.timer_report`: telemetry
     counters ride where phase totals normally do.  ``distributed=True``
-    raises ``UnsupportedError`` (ROADMAP Queue A item 9)."""
+    is a collective: every rank of the group calls it with the same
+    counter names, and the table is min / max / avg over the ranks."""
     from ..utils.timer import timer_report
 
     snap = REGISTRY.snapshot()

@@ -6,6 +6,7 @@ from .exceptions import (
     AdmissionError,
     AllocationError,
     CheckpointError,
+    CollectiveTimeoutError,
     ConvergenceError,
     DeadlineExceededError,
     IOError_,
@@ -29,7 +30,8 @@ from .timer import PhaseTimer, aggregate_report, timer_report
 __all__ = ["profiling", "SkylarkError", "AllocationError", "InvalidParameters", "SketchError",
            "UnsupportedError", "IOError_",
            "ConvergenceError", "CheckpointError", "StaleEpochError",
-           "NumericalHealthError", "RefinementError", "WorldMismatchError", "AdmissionError",
+           "NumericalHealthError", "RefinementError", "WorldMismatchError", "CollectiveTimeoutError",
+           "AdmissionError",
            "DeadlineExceededError", "ReplicaLostError", "RegistryEpochError",
            "QuotaExceededError", "JournalError", "deferred", "save_solver_state", "load_solver_state",
            "CheckpointStore", "coo_from_bcoo_arrays", "is_sparse",

@@ -92,6 +92,25 @@ class WorldMismatchError(SkylarkError):
         self.expected = expected
         self.got = got
 
+class CollectiveTimeoutError(SkylarkError):
+    """A deadline-bounded collective (the elastic handshake, the
+    cross-host psum) did not complete within its deadline: at least one
+    peer never arrived (dead, hung, or stuck in device work).  Raised
+    instead of hanging the world, so an orchestrator can kill the job and
+    resume with ``resume_policy="repartition"``.  ``phase`` names the
+    collective; ``deadline_s`` is the budget that expired; ``stragglers``
+    lists the ranks whose heartbeats never reached the phase (empty when
+    no heartbeat directory was configured)."""
+
+    code = 110
+
+    def __init__(self, msg, phase=None, deadline_s=None, stragglers=None):
+        super().__init__(msg)
+        self.phase = phase
+        self.deadline_s = deadline_s
+        self.stragglers = stragglers
+
+
 class StaleEpochError(SkylarkError):
     """A checkpoint slot (or a peer) carries another elastic epoch than
     this process runs at: its state belongs to a superseded partition.

@@ -5,10 +5,9 @@
 queues CUDA work and returns, so a phase that assigns its handle's
 ``result`` waits at phase exit for the card that holds it
 (``torch.cuda.synchronize(device)``, the reference's barrier); a result
-on the CPU is already computed.  The cross-process min/max/avg report
-(``timer_report(..., distributed=True)``) waits for the port's
-multi-device layer (ROADMAP Queue A item 9); :func:`aggregate_report`
-formats gathered totals already.
+on the CPU is already computed.  ``timer_report(..., distributed=True)``
+gathers every rank's totals over the ``torch.distributed`` group and
+reports min / max / avg over the ranks (:func:`aggregate_report`).
 """
 
 from __future__ import annotations
@@ -17,9 +16,8 @@ import time
 from collections import defaultdict
 from contextlib import contextmanager
 
+import numpy as np
 import torch
-
-from .exceptions import UnsupportedError
 
 __all__ = ["PhaseTimer", "timer_report", "aggregate_report"]
 
@@ -81,17 +79,40 @@ class PhaseTimer:
 
 
 def timer_report(totals, counts=None, distributed: bool = False) -> str:
-    """Local total/calls/avg table (≙ timer.hpp PRINT on one rank)."""
-    if distributed:
-        raise UnsupportedError(
-            "timer_report(distributed=True) is not ported yet (ROADMAP Queue A "
-            "item 9: multi-device)")
-    lines = [f"{'phase':<24}{'total(s)':>12}{'calls':>8}{'avg(s)':>12}"]
-    for name in sorted(totals):
-        total = totals[name]
-        n = (counts or {}).get(name, 1) or 1
-        lines.append(f"{name:<24}{total:>12.4f}{n:>8}{total / n:>12.4f}")
-    return "\n".join(lines)
+    """Phase-timer report.
+
+    Default: the local total/calls/avg table (≙ timer.hpp PRINT on one
+    rank).  With ``distributed=True`` EVERY rank of the
+    ``torch.distributed`` group must call it with the SAME phase names
+    (the reference's PRINT has the same collective contract): the totals
+    are all-gathered and reported as min / max / avg over the ranks; a
+    rank with another set of names raises ``RuntimeError``.  Without a
+    group (or at world = 1) min = max = avg = the local totals.
+    """
+    if not distributed:
+        lines = [f"{'phase':<24}{'total(s)':>12}{'calls':>8}{'avg(s)':>12}"]
+        for name in sorted(totals):
+            total = totals[name]
+            n = (counts or {}).get(name, 1) or 1
+            lines.append(f"{name:<24}{total:>12.4f}{n:>8}{total / n:>12.4f}")
+        return "\n".join(lines)
+
+    from ..parallel.collectives import gather_objects
+
+    names = sorted(totals)
+    mine = (names, [float(totals[n]) for n in names],
+            [int((counts or {}).get(n, 1) or 1) for n in names])
+    gathered = gather_objects(mine)
+    # Columns align by position, so every rank must bring the same names.
+    if any(g[0] != names for g in gathered):
+        raise RuntimeError(
+            "timer_report(distributed=True): processes recorded different phase-name sets "
+            f"(this rank has {names}); every rank must time the same phases — the "
+            "reference's SKYLARK_TIMER_PRINT has the same world-collective contract "
+            "(utility/timer.hpp:44-66)")
+    stacked = np.asarray([g[1] for g in gathered], np.float64).reshape(len(gathered), -1)
+    counts2d = np.asarray([g[2] for g in gathered], np.int64).reshape(len(gathered), -1)
+    return aggregate_report(names, stacked, counts2d)
 
 
 def aggregate_report(names, stacked, counts2d=None) -> str:

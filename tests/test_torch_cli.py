@@ -18,8 +18,9 @@ numpy in both and equal; ``serve`` over stdio answers the same frames
 (least squares at 1e-9, the same error envelopes), and ``top --once``
 renders the same frame, timestamp aside.  Also: a model saved by one package predicts
 the same in the other, ``--stream`` equals the whole-file solve with the
-stream's own sketch, each deferred flag raises ``UnsupportedError``
-naming its ROADMAP item, the telemetry flags print and ledger what the
+stream's own sketch, ``--shard`` raises ``UnsupportedError`` naming its
+ROADMAP item (9b) and the elastic flags run one rank of a world of 1, the
+telemetry flags print and ledger what the
 JAX drivers do and hold for the run only, and a run without ``--device
 cpu`` raises here,
 where there is no card.  ``tests/test_cli_ml.py`` is mirrored case for
@@ -445,13 +446,33 @@ def test_convert2hdf5_matches_jax(blob_files, capsys, sparse):
     ("ml", ["--resume-policy", "strict"], "item 9"),
     ("ml", ["--collective-timeout", "1"], "item 9"),
 ])
-def test_deferred_flags_raise_naming_their_item(blob_files, name, argv, item):
+def test_deferred_flags_raise_naming_their_item(blob_files, name, argv, item, monkeypatch):
     root = blob_files
     files = {"linear": [str(root / "train")], "svd": [str(root / "train")],
              "krr": ["--trainfile", str(root / "train")],
              "ml": ["--trainfile", str(root / "train")]}[name]
-    with pytest.raises(UnsupportedError, match=f"ROADMAP Queue A {item}"):
-        tmain(name)(files + argv + CPU)
+    if "--shard" in argv:  # the sharded schedules: ROADMAP Queue A item 9b
+        with pytest.raises(UnsupportedError, match=f"ROADMAP Queue A {item}b"):
+            tmain(name)(files + argv + CPU)
+        return
+    # The elastic flags are ported: --distributed joins the world of the
+    # RANK / WORLD_SIZE / MASTER_ADDR / MASTER_PORT environment (one
+    # process here), the knobs without it are accepted and unused, as in
+    # the JAX drivers.
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    for key, value in {"RANK": "0", "WORLD_SIZE": "1", "MASTER_ADDR": "127.0.0.1",
+                       "MASTER_PORT": str(port)}.items():
+        monkeypatch.setenv(key, value)
+    out = ["--solution", str(root / "x.npy")] if name == "linear" else \
+        ["--modelfile", str(root / "m.json"), "-f", "16", "-n", "2", "-i", "2"]
+    assert tmain(name)(files + argv + out + CPU) == 0
+    import torch.distributed as dist
+
+    assert not dist.is_initialized()  # the driver left the world it joined
 
 
 def _ledger_events(directory):

@@ -141,9 +141,12 @@ def test_streaming_ase_exact_on_a_low_rank_graph():
 def test_error_paths(rng):
     _, Gt = _graphs(rng)
     _, St = _pair("CWT", Gt.n, 8)
-    with pytest.raises(UnsupportedError, match="item 9"):
-        tstream.streamed_adjacency_sketch([], St, ncols=Gt.n, partition=object())
-    with pytest.raises(UnsupportedError, match="item 9"):
+    # The elastic route is ported (tests/test_torch_elastic.py): a world of
+    # 2 in one process, with no process group, is refused.
+    with pytest.raises(InvalidParameters, match="live torch.distributed world"):
+        tstream.streamed_adjacency_sketch([], St, ncols=Gt.n,
+                                          partition=T.streaming.RowPartition(10, 5, 2))
+    with pytest.raises(UnsupportedError, match="item 9b"):
         tstream.chained_adjacency_sketch(Gt, St, St)
     with pytest.raises(InvalidParameters, match="one-pass"):
         tstream.streaming_ase([], Gt.n, 2, T.SketchContext(),

@@ -316,8 +316,10 @@ def test_exports():
     # The prox library is ported (tests/test_torch_prox.py).
     assert T.solvers.get_loss("hinge").name == "hinge"
     assert T.solvers.get_regularizer("l1").name == "l1"
-    # The runner is ported (tests/test_torch_resilient.py); the host
-    # faults of the elastic layer are what is left.
+    # The runner is ported (tests/test_torch_resilient.py), and so are
+    # the host faults of the elastic layer (tests/test_torch_elastic.py);
+    # the fleet's replicas on several cards are what is left (item 9b).
     assert T.resilient.ResilientRunner.__module__.endswith("resilient.runner")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        T.resilient.HostFaultPlan()
+    assert T.resilient.HostFaultPlan(slow_at_batch=1).slow_at_batch == 1
+    with pytest.raises(NotImplementedError, match="item 9b"):
+        T.resilient.FleetFaultPlan()

@@ -78,7 +78,7 @@ def test_supported_sketch_transforms_is_the_jax_list_less_the_unported():
     "UnsupportedError", "IOError_", "ConvergenceError", "CheckpointError",
     "NumericalHealthError", "StaleEpochError", "RefinementError", "WorldMismatchError",
     "AdmissionError", "DeadlineExceededError", "ReplicaLostError", "RegistryEpochError",
-    "QuotaExceededError", "JournalError",
+    "QuotaExceededError", "JournalError", "CollectiveTimeoutError",
 ])
 def test_error_codes_match_jax(name):
     ported, reference = getattr(T.utils, name), getattr(JE, name)
@@ -86,6 +86,29 @@ def test_error_codes_match_jax(name):
     assert ported.code == reference.code
     assert issubclass(ported, T.utils.SkylarkError)
     assert [c.__name__ for c in ported.__mro__] == [c.__name__ for c in reference.__mro__]
+
+
+def test_parallel_exports_the_jax_names():
+    import libskylark_tpu.parallel as jparallel
+
+    assert T.parallel.__all__ == jparallel.__all__ and "parallel" in T.__all__
+    for name in ("cross_host_psum", "CollectiveWatchdog"):
+        assert getattr(T.parallel, name).__module__.endswith("parallel.collectives")
+    assert T.parallel.HEARTBEAT_DIR == jparallel.HEARTBEAT_DIR
+    assert (T.parallel.ROWS, T.parallel.COLS) == (jparallel.ROWS, jparallel.COLS)
+    with pytest.raises(T.utils.UnsupportedError, match="item 9b"):
+        T.parallel.rowwise_sharded(None, None, None)
+
+
+@pytest.mark.parametrize("module", ["streaming", "ml"])
+def test_elastic_layer_exports_the_jax_names(module):
+    import importlib
+
+    ported = importlib.import_module(f"libskylark_tpu_torch.{module}")
+    reference = importlib.import_module(f"libskylark_tpu.{module}")
+    assert set(ported.__all__) == set(reference.__all__)
+    assert all("not ported" not in (getattr(ported, n).__doc__ or "") for n in ported.__all__
+               if callable(getattr(ported, n)))
 
 
 def test_plans_exports_the_jax_names():

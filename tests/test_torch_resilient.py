@@ -278,9 +278,25 @@ def test_fault_plan_block_faults_are_one_shot():
 
 @pytest.mark.parametrize("name", ["HostFaultPlan", "FleetFaultPlan", "corrupt_manifest",
                                   "tear_ledger_tail"])
-def test_host_faults_name_their_item(name):
-    with pytest.raises(UnsupportedError, match="item 9"):
-        getattr(tres, name)()
+def test_host_faults_name_their_item(name, tmp_path):
+    if name == "FleetFaultPlan":  # the router's replicas on several cards
+        with pytest.raises(UnsupportedError, match="item 9b"):
+            getattr(tres, name)()
+        return
+    # The host faults are ported (tests/test_torch_elastic.py).
+    (tmp_path / "manifest.json").write_text('{"kind": "x"}')
+    if name == "HostFaultPlan":
+        plan = tres.HostFaultPlan(corrupt_manifest_at=0)
+        plan.bind_host(hdir=str(tmp_path), root=str(tmp_path))
+        plan.before_batch(0)
+    elif name == "corrupt_manifest":
+        tres.corrupt_manifest(tmp_path)
+    else:
+        tres.tear_ledger_tail(tmp_path / "manifest.json")
+        assert (tmp_path / "manifest.json").read_text().endswith('"kind": "elas')
+        return
+    assert (tmp_path / "manifest.json").read_bytes() == bytes(
+        b ^ 0xFF for b in b'{"kind": "x"}')
 
 
 # ---------------------------------------------------------------------------

@@ -25,7 +25,6 @@ from libskylark_tpu_torch import telemetry
 from libskylark_tpu_torch.telemetry import fleet as tfleet
 from libskylark_tpu_torch.telemetry.trace import FlightRecorder, is_violating
 from libskylark_tpu_torch.utils import exceptions as ex
-from libskylark_tpu_torch.utils.exceptions import UnsupportedError
 
 pytestmark = pytest.mark.trace
 
@@ -333,11 +332,16 @@ def test_fleet_snapshot_single_process_and_larger_worlds(monkeypatch, tmp_path):
     assert "hosts" not in fleet
     monkeypatch.setenv("SKYLARK_TELEMETRY_FLEET_ROOT", str(tmp_path))
     assert telemetry.snapshot(fleet=True)["hosts"]["ranks"] == {}
-    import torch.distributed as dist
+    # A world of 2 (the gather stood in for: real worlds are in
+    # tests/test_torch_distributed_world.py): counters sum over the ranks.
+    from libskylark_tpu_torch.parallel import collectives
 
-    monkeypatch.setattr(dist, "is_initialized", lambda: True)
-    monkeypatch.setattr(dist, "get_world_size", lambda: 2)
-    with pytest.raises(UnsupportedError, match="ROADMAP Queue A item 9"):
+    monkeypatch.setattr(collectives, "gather_objects", lambda obj: [obj, obj])
+    fleet2 = telemetry.snapshot(fleet=True)
+    assert fleet2["world"] == 2 and fleet2["counters"]["serve.requests"] == 14
+    monkeypatch.setattr(collectives, "gather_objects",
+                        lambda obj: [obj, {**obj, "counters": {"other": 1}}])
+    with pytest.raises(RuntimeError, match="different counter-name sets"):
         telemetry.snapshot(fleet=True)
 
 
