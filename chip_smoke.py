@@ -136,7 +136,18 @@ paths:
   past a 2 s collective deadline (exit 110 naming it), the trainer
   killed after an ADMM chunk and resumed (bitwise), and the third
   path's graph in edge blocks against its in-core sketch; every rank
-  holds the kernels it launches against their plain versions.
+  holds the kernels it launches against their plain versions;
+- the explicit sharded schedules (``mesh_path``) on meshes of 1, 2 and 4
+  slots of the one card and a (2, 2) grid: FJLT rowwise at 131072 x
+  4096, CWT and FJLT on a 2^20 x 32 block, JLT columnwise at 2^20 x 512,
+  the sparse schedules (dense and sparse output, the capacity at
+  ``suggest_sparse_out_capacity``'s count and one less) on the 10^6 x
+  10^5 COO, the chained adjacency sketch of the third path's graph in
+  core against the streamed chain, and the streaming randomized SVD of
+  a rank-100 2^20 x 1024 matrix with its panels split over the slots;
+  a mesh of one bitwise the unsharded call, more slots bitwise or
+  within an f32 bound, each beside a control.  Slots on one card run in
+  turn: the seconds are a schedule's overhead, never a speed-up.
 
 It exits non-zero, printing no result, without a CUDA device or without
 the package beside it.  It imports nothing of JAX.
@@ -144,6 +155,7 @@ the package beside it.  It imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -418,6 +430,21 @@ EL_DEADLINE_S, EL_SLOW_S = 2.0, 60.0
 EL_ADMM_ITERS, EL_ADMM_BATCH = 41, 65_536   # s/iter = (t_41 - t_1) / 40
 EL_STAGE_TIMEOUT_S = 420           # each spawned stage of worlds
 EL_W_ULPS = 16                     # world 2's W from world 1's: u an iteration, relative
+# Phase 3p: the explicit sharded schedules on meshes of 1, 2 and 4 slots
+# of the one card (and a (2, 2) grid): FJLT rowwise at phase 3a's shape,
+# CWT and FJLT on a 2^20 x 32 right-hand-side block, JLT columnwise at the
+# LS cell's 2^20 x 512 -> 2048, the sparse schedules on phase 3b's COO
+# (rowwise on 2^18 rows: the unsharded dense output's limit), the chained
+# graph sketch (S1 = CWT(n -> 64): the streamed chain's dense S1·A is
+# 64 x 3,997,962 f32, ~1 GiB), and phase 3g's streaming SVD shape in f32.
+# A reordered f32 sum is held within MESH_TOL of the largest entry (the
+# kernels' f32 tolerance against their plain versions).
+MESH_RW_M, MESH_RW_N, MESH_RW_S, MESH_RW_S2 = 131_072, 4096, 1024, 1000
+MESH_B_N, MESH_B_K, MESH_B_S = 1 << 20, 32, 2048
+MESH_JLT_N, MESH_JLT_M, MESH_JLT_S = 1 << 20, 512, 2048
+MESH_RW_ROWS = 1 << 18
+MESH_CHAIN_S1, MESH_CHAIN_S2 = 64, 32
+MESH_TOL = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -5778,6 +5805,376 @@ def elastic_path(sky, dev, reset_counts, read_counts, add_counts, uncounted, smi
     return held
 
 
+def mesh_path(sky, dev, reset_counts, read_counts, uncounted, smi, edges) -> set:
+    """Phase 3p: the explicit sharded schedules (``parallel``) on meshes of
+    1, 2 and 4 slots of the one card, and a (2, 2) grid: (a) the dense
+    schedules at full width (FJLT rowwise at 131072 x 4096, CWT and FJLT
+    on a 2^20 x 32 right-hand-side block, JLT columnwise at 2^20 x 512);
+    (b) the sparse schedules on phase 3b's 10^6 x 10^5 COO with 10^7
+    nonzeros (CWT, SJLT with nnz = 4), dense and sparse output, and the
+    sparse-out capacity at ``suggest_sparse_out_capacity``'s count and one
+    less; (c) ``chained_adjacency_sketch`` of phase 3c's graph in core on 1
+    and 4 slots against the streamed chain; (d) ``streaming_approximate_svd``
+    of a rank-100 2^20 x 1024 f32 matrix on 1 and 4 slots against
+    ``mesh=None``.  A mesh of one is held bitwise against the unsharded
+    apply; more slots bitwise where no reduction crosses slots and both
+    sides take the same route, else within ``MESH_TOL`` of the largest
+    entry (a psum reorders f32 sums), and bitwise on integer-valued data;
+    each beside a control that misses.  The unsharded references run
+    ``uncounted()``, so a ``mesh (x)`` count is the schedules' own.  Slots
+    on one card run one after another: the seconds printed are a
+    schedule's overhead, not a speed-up.  Returns the held signatures."""
+    from libskylark_tpu_torch import parallel as P
+    from libskylark_tpu_torch.graph import SimpleGraph
+    from libskylark_tpu_torch.graph import stream as gs
+    from libskylark_tpu_torch.parallel import collectives as C
+    from libskylark_tpu_torch.parallel import mesh as M
+    from libskylark_tpu_torch.sketch import kernels_fut as kf
+    from libskylark_tpu_torch.sketch import kernels_scatter as ks
+    from libskylark_tpu_torch.sketch import kernels_window as kw
+
+    f32 = torch.float32
+    card = f"[{smi}]"
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    held = set()
+
+    def segsum_held(out, vals, keys, segs):
+        ref = ks.segment_sum_flat_plain(vals, keys, segs)
+        _, r = max_err(out, ref)
+        i = int(vals.abs().argmax())
+        ctl = ks.segment_sum_flat_plain(torch.cat([vals[:i], vals[i + 1:]]),
+                                        torch.cat([keys[:i], keys[i + 1:]]), segs)
+        _, c = max_err(out, ctl)
+        print(f"mesh (held) segment_sum_flat {vals.shape[0]} -> {segs} {vals.dtype}: vs its "
+              f"plain version rel {r:.3g} (tol 1e-5); control (the plain version without entry "
+              f"{i}) {c:.3g}")
+        check(r <= 1e-5 and c > 1e-5, f"mesh segment_sum_flat {vals.shape[0]}: {r}, control {c}")
+
+    kernels = hold_kernels("mesh", kf, kw, ("rfut_rowwise", "rfut_rowwise_sampled",
+                                            "gather_scaled_rows", "scatter_rows"), held)
+    kernels.append((ks, "segment_sum_flat", hold(ks, "segment_sum_flat", segsum_held, held)))
+    one = P.default_mesh()  # the visible cards: one card, a 1 x 1 mesh
+    check(one.size == 1 and one.shape == {P.ROWS: 1, P.COLS: 1},
+          f"default_mesh() on one card is {one.shape}")
+    meshes = {1: one, **{p: P.make_mesh((p,), (P.ROWS,), devices=[dev] * p) for p in (2, 4)}}
+    grid = P.make_mesh((2, 2), ("r", "c"), devices=[dev] * 4)
+    times = {}
+
+    def run(name, slots, fn):
+        """``fn()``, its synchronized host seconds under ``times[name]``;
+        ``slots`` None is the unsharded reference, run uncounted.  A call
+        under 2 s is timed again, warm and uncounted: the first holds its
+        kernels' signatures against their plain versions."""
+        def once():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = fn()
+            torch.cuda.synchronize()
+            return got, time.perf_counter() - t0
+
+        with uncounted() if slots is None else contextlib.nullcontext():
+            out, secs = once()
+        if secs < 2.0:
+            with uncounted():
+                secs = once()[1]
+        times.setdefault(name, {})["unsharded" if slots is None else slots] = secs
+        return out
+
+    def rel(a, b):
+        return float((a.double() - b.double()).abs().max() / b.double().abs().max())
+
+    def held_to(name, got, ref, bitwise, ctl=None):
+        """``got`` bitwise ``ref`` or within MESH_TOL, beside a control."""
+        same = torch.equal(got, ref)
+        r = rel(got, ref)
+        c = None if ctl is None else rel(ctl, ref)
+        print(f"mesh {name}: bitwise {same}, max |diff| / max |ref| {r:.3g} "
+              f"({'must be bitwise' if bitwise else f'bound {MESH_TOL:g}'})"
+              + ("" if c is None else f"; control {c:.3g}") + f" {card}")
+        check(same if bitwise else r <= MESH_TOL, f"mesh {name}: bitwise {same}, rel {r}")
+        if ctl is not None:
+            check(c > (0.0 if bitwise else MESH_TOL), f"mesh {name}: the control passes ({c})")
+
+    def swapped(out):
+        """The control of a slot-pure schedule: slots 0 and 1 swapped."""
+        t = list(out.shards)
+        t[0], t[1] = t[1], t[0]
+        return M.fully_replicated(M.Sharded(out.mesh, out.spec, out.shape, t))
+
+    try:
+        # (a) the dense schedules at full width.
+        reset_counts()
+        t0 = time.perf_counter()
+        A = torch.randn(MESH_RW_M, MESH_RW_N, generator=g, device=dev)
+        # S = 1024 takes the sampled kernel; 1000 (not a multiple of 128)
+        # rfut_rowwise and the sampling in torch.
+        for s in (MESH_RW_S, MESH_RW_S2):
+            S = sky.sketch.FJLT(MESH_RW_N, s, sky.SketchContext(seed=SEED))
+            name = f"rowwise_sharded FJLT {MESH_RW_M} x {MESH_RW_N} -> {s}"
+            ref = run(name, None, lambda: S.apply(A, "rowwise"))
+            for p, mesh in meshes.items():
+                out = run(name, p, lambda: P.rowwise_sharded(S, A, mesh))
+                held_to(f"{name}, {p} slot(s)", M.fully_replicated(out), ref, True,
+                        swapped(out) if p > 1 else None)
+        del A, ref, out
+        B = torch.randn(MESH_B_N, MESH_B_K, generator=g, device=dev)
+        for stype in ("CWT", "FJLT"):
+            S = sky.sketch.create_sketch(stype, MESH_B_N, MESH_B_S, sky.SketchContext(seed=SEED))
+            name = f"columnwise_batch_sharded {stype} {MESH_B_N} x {MESH_B_K} -> {MESH_B_S}"
+            ref = run(name, None, lambda: S.apply(B))
+            for p, mesh in meshes.items():
+                out = run(name, p, lambda: P.columnwise_batch_sharded(S, B, mesh))
+                # The row scatter is column-pure; the FJLT's WHT at NB = 2^20
+                # is a chain of GEMMs whose algorithm follows the width.
+                held_to(f"{name}, {p} slot(s) of {MESH_B_K // p} columns",
+                        M.fully_replicated(out), ref, p == 1 or stype == "CWT",
+                        swapped(out) if p > 1 else None)
+        del B, ref, out
+        A = torch.randn(MESH_JLT_N, MESH_JLT_M, generator=g, device=dev)
+        S = sky.sketch.JLT(MESH_JLT_N, MESH_JLT_S, sky.SketchContext(seed=SEED))
+        name = f"columnwise_sharded JLT {MESH_JLT_N} x {MESH_JLT_M} -> {MESH_JLT_S}"
+        ref = run(name, None, lambda: S.apply(A))
+        for p, mesh in meshes.items():
+            out = run(name, p, lambda: P.columnwise_sharded(S, A, mesh))
+            ctl = None
+            if p == 2:  # slot 1's Omega window shifted back by one block
+                half = MESH_JLT_N // 2
+                with uncounted():
+                    ctl = C._window_product(S, A[:half], 0) + C._window_product(S, A[half:], 0)
+            held_to(f"{name}, {p} slot(s)", out, ref, p == 1, ctl)
+        del A, ref, out, ctl
+        torch.cuda.empty_cache()
+        read_counts("mesh (a)", t0, ("rfut_rowwise", "rfut_rowwise_sampled",
+                                     "gather_scaled_rows", "scatter_rows"))
+
+        # (b) the sparse schedules on phase 3b's shape; integer-valued data
+        # (nonzero integers: a zero entry is padding to the sparse-out
+        # exchange, which drops it) makes every reordered sum exact.
+        reset_counts()
+        t0 = time.perf_counter()
+        rows = torch.randint(0, SP_ROWS, (SP_NNZ,), generator=g, device=dev)
+        cols = torch.randint(0, SP_COLS, (SP_NNZ,), generator=g, device=dev)
+        data = torch.randn(SP_NNZ, generator=g, device=dev)
+        ints = torch.where(data < 0, -1.0, 1.0) * (1.0 + torch.floor(data.abs() * 4))
+        idx = torch.stack([rows, cols])
+        A = torch.sparse_coo_tensor(idx, data, (SP_ROWS, SP_COLS), check_invariants=False)
+        Ai = torch.sparse_coo_tensor(idx, ints, (SP_ROWS, SP_COLS), check_invariants=False)
+        for stype, kw_ in (("CWT", {}), ("SJLT", {"nnz": 4})):
+            S = sky.sketch.create_sketch(stype, SP_ROWS, SP_S, sky.SketchContext(seed=SEED),
+                                         **kw_)
+            name = f"columnwise_sharded_sparse {stype} {SP_ROWS} x {SP_COLS}, {SP_NNZ} nnz -> {SP_S}"
+            ref = run(name, None, lambda: S.apply(A, dense_output=True))
+            for p, mesh in meshes.items():
+                out = run(name, p, lambda: P.columnwise_sharded_sparse(S, A, mesh))
+                ctl = None
+                if p == 4:  # slot 1's counter windows shifted by one block
+                    blk = SP_ROWS // 4
+                    with uncounted():
+                        slots = C._shard_coo_rows(A, mesh, blk, "control")
+                        parts = [C._hash_dense_block(S, d, lr, cc, SP_COLS,
+                                                     (k + (k == 1)) * blk, blk)
+                                 for k, (d, lr, cc) in enumerate(slots)]
+                        ctl = M.psum(parts, dev)
+                    del slots, parts
+                held_to(f"{name}, {p} slot(s)", out, ref, p == 1, ctl)
+            scat = run(name, "4, scatter", lambda: P.columnwise_sharded_sparse(
+                S, A, meshes[4], scatter=True))
+            check(torch.equal(M.fully_replicated(scat), out),
+                  f"mesh {name}: psum_scatter is not bitwise the psum's blocks")
+            out2d = run(name, "(2, 2) grid", lambda: P.columnwise_sharded_sparse_2d(S, A, grid))
+            held_to(f"columnwise_sharded_sparse_2d {stype} on a (2, 2) grid",
+                    M.fully_replicated(out2d), ref, False)
+            del ref, out, ctl, scat, out2d
+            ref_i = run(f"{name}, integer data", None, lambda: S.apply(Ai, dense_output=True))
+            held_to(f"{name}, integer data, 4 slots",
+                    P.columnwise_sharded_sparse(S, Ai, meshes[4]), ref_i, True)
+            held_to(f"columnwise_sharded_sparse_2d {stype}, integer data, (2, 2) grid",
+                    M.fully_replicated(P.columnwise_sharded_sparse_2d(S, Ai, grid)), ref_i, True)
+            # The sparse output: to_bcoo() against the unsharded sparse apply.
+            sp_ref = run(f"columnwise_sharded_sparse_out {stype}", None, lambda: S.apply(Ai))
+            for p in (1, 4):
+                got = run(f"columnwise_sharded_sparse_out {stype}", p,
+                          lambda: P.columnwise_sharded_sparse_out(S, Ai, meshes[p]).to_bcoo())
+                same = (torch.equal(got._indices(), sp_ref._indices())
+                        and torch.equal(got._values(), sp_ref._values()))
+                print(f"mesh columnwise_sharded_sparse_out {stype}, integer data, {p} slot(s), "
+                      f"default capacity: to_bcoo() {got._nnz()} entries, bitwise the unsharded "
+                      f"sparse apply ({sp_ref._nnz()} entries) {same} {card}")
+                check(same, f"mesh sparse_out {stype} {p} slots: to_bcoo differs")
+            del ref_i, sp_ref, got
+        # Capacity: suggest_sparse_out_capacity's count drops nothing; one
+        # less drops exactly the entries past it in each (source,
+        # destination) run of a stable sort on destination.
+        S = sky.sketch.CWT(SP_ROWS, SP_S, sky.SketchContext(seed=SEED))
+        p, mesh = 4, meshes[4]
+        need = P.suggest_sparse_out_capacity(S, Ai, mesh)
+        full = P.columnwise_sharded_sparse_out(S, Ai, mesh).todense()
+        check(torch.equal(P.columnwise_sharded_sparse_out(S, Ai, mesh, capacity=need).todense(),
+                          full), f"mesh sparse_out at capacity {need} is not the default's")
+        tight = P.columnwise_sharded_sparse_out(S, Ai, mesh, capacity=need - 1)
+        blk, out_blk = SP_ROWS // p, SP_S // p
+        bkt, val = S.buckets(device=dev).long(), S.values(device=dev)
+        want = torch.zeros(SP_S, SP_COLS, device=dev)
+        drops = 0
+        for src in range(p):
+            sel = (rows // blk == src).nonzero()[:, 0]  # the source's entries in input order
+            dest = bkt[rows[sel]] // out_blk
+            rank = torch.zeros_like(dest)
+            for d in range(p):
+                on = dest == d
+                rank[on] = torch.arange(int(on.sum()), device=dev)
+            keep = rank < need - 1
+            drops += int((~keep).sum())
+            want.index_put_((bkt[rows[sel[keep]]], cols[sel[keep]]),
+                            ints[sel[keep]] * val[rows[sel[keep]]],
+                            accumulate=True)
+        kept = int((M.fully_replicated(tight.data) != 0).sum())
+        got_t = tight.todense()
+        print(f"mesh sparse_out capacity on 4 slots: suggest_sparse_out_capacity's {need} drops "
+              f"none (bitwise the default capacity); {need - 1} keeps {kept} of {SP_NNZ} "
+              f"entries, {SP_NNZ - kept} dropped (expected {drops}), bitwise the plain-torch "
+              f"expectation {torch.equal(got_t, want)} {card}")
+        check(drops > 0 and SP_NNZ - kept == drops and torch.equal(got_t, want),
+              f"mesh sparse_out at capacity {need - 1}: {SP_NNZ - kept} dropped, expected {drops}")
+        del full, tight, want, got_t, bkt, val
+        # Rowwise: 2^18 rows (the unsharded dense output's limit), the
+        # same entries folded onto them.
+        ridx = torch.stack([rows % MESH_RW_ROWS, cols])
+        Ar = torch.sparse_coo_tensor(ridx, data, (MESH_RW_ROWS, SP_COLS), check_invariants=False)
+        Ari = torch.sparse_coo_tensor(ridx, ints, (MESH_RW_ROWS, SP_COLS), check_invariants=False)
+        S = sky.sketch.CWT(SP_COLS, SP_S, sky.SketchContext(seed=SEED))
+        name = f"rowwise_sharded_sparse CWT {MESH_RW_ROWS} x {SP_COLS}, {SP_NNZ} nnz -> {SP_S}"
+        ref = run(name, None, lambda: S.apply(Ar, "rowwise", dense_output=True))
+        for p, mesh in meshes.items():
+            out = run(name, p, lambda: P.rowwise_sharded_sparse(S, Ar, mesh))
+            held_to(f"{name}, {p} slot(s)", M.fully_replicated(out), ref, p == 1,
+                    swapped(out) if p > 1 else None)
+        ref = run(f"{name}, integer data", None,
+                  lambda: S.apply(Ari, "rowwise", dense_output=True))
+        held_to(f"{name}, integer data, 4 slots",
+                M.fully_replicated(P.rowwise_sharded_sparse(S, Ari, meshes[4])), ref, True)
+        sp_ref = run("rowwise_sharded_sparse_out CWT", None, lambda: S.apply(Ari, "rowwise"))
+        got = run("rowwise_sharded_sparse_out CWT", 4,
+                  lambda: P.rowwise_sharded_sparse_out(S, Ari, meshes[4]).to_bcoo())
+        same = (torch.equal(got._indices(), sp_ref._indices())
+                and torch.equal(got._values(), sp_ref._values()))
+        print(f"mesh rowwise_sharded_sparse_out CWT, integer data, 4 slots: to_bcoo() bitwise the "
+              f"unsharded sparse apply {same} {card}")
+        check(same, "mesh rowwise_sharded_sparse_out: to_bcoo differs")
+        del A, Ai, Ar, Ari, ref, out, rows, cols, data, ints, idx, ridx, sp_ref, got
+        torch.cuda.empty_cache()
+        read_counts("mesh (b)", t0, ("segment_sum_flat",))
+
+        # (c) the chained sketch of phase 3c's graph: in core (sparse out,
+        # then the dense hop) on 1 and 4 slots against the streamed chain.
+        reset_counts()
+        t0 = time.perf_counter()
+        # Two isolated vertices pad n to a multiple of 4 slots (the row
+        # blocks must divide it), on both sides of the comparison.
+        lo, hi = edges
+        n_v = -(-LJ_VERTICES // 4) * 4
+        lo_t, hi_t = torch.from_numpy(lo).to(dev), torch.from_numpy(hi).to(dev)
+        code = torch.sort(torch.cat([lo_t * n_v + hi_t, hi_t * n_v + lo_t])).values
+        G = object.__new__(SimpleGraph)  # CSR straight from the edges: ids are 0..n-1
+        G.n, G.vertices, G.index = n_v, range(n_v), None
+        G.indptr = np.concatenate([[0], torch.cumsum(torch.bincount(code // n_v, minlength=n_v),
+                                                      0).cpu().numpy()])
+        G.indices = (code % n_v).cpu().numpy()
+        del lo_t, hi_t, code
+        S1 = sky.sketch.CWT(n_v, MESH_CHAIN_S1, sky.SketchContext(seed=SEED))
+        S2 = sky.sketch.CWT(MESH_CHAIN_S1, MESH_CHAIN_S2, sky.SketchContext(seed=SEED + 1))
+        name = f"chained_adjacency_sketch CWT {n_v} -> {MESH_CHAIN_S1} -> {MESH_CHAIN_S2} f32"
+        streamed = run(name, "streamed", lambda: gs.chained_adjacency_sketch(
+            G, S1, S2, streamed=True, batch_edges=GRAPH_BATCH, dtype=f32, device=dev))
+        for p in (1, 4):
+            incore = run(name, p, lambda: gs.chained_adjacency_sketch(
+                G, S1, S2, mesh=None if p == 1 else meshes[4], dtype=f32, device=dev))
+            ctl = None
+            if p == 4:  # slot 1's counter window of the second hop shifted by one block
+                with uncounted():
+                    mid = P.columnwise_sharded_sparse_out(S1, G.adjacency_coo(f32, dev), meshes[4])
+                    rb = mid.row_block
+                    parts = [C._hash_dense_block(S2, d, lr, cc, n_v, (k + (k == 1)) * rb, rb)
+                             for k, (d, lr, cc) in enumerate(mid._slot_entries())]
+                    ctl = M.psum(parts, dev)
+                del mid, parts
+            held_to(f"{name}, in core on {p} slot(s) vs streamed", incore, streamed, True, ctl)
+        del G, streamed, incore, ctl
+        torch.cuda.empty_cache()
+        read_counts("mesh (c)", t0, ("segment_sum_flat",))
+
+        # (d) the streaming randomized SVD with its panels split over the slots.
+        reset_counts()
+        t0 = time.perf_counter()
+        block = sky.linalg.synthetic_lowrank_blocks(sky.SketchContext(seed=SEED), SSVD_M, SSVD_N,
+                                                    SSVD_R, noise=SSVD_NOISE, dtype=f32, device=dev)
+        name = f"streaming_approximate_svd {SSVD_M} x {SSVD_N} f32, rank {SSVD_R}"
+        res = {}
+        for p, mesh in ((None, None), (1, one), (4, meshes[4])):
+            res[p] = run(name, "mesh=None" if p is None else p,
+                         lambda: sky.linalg.streaming_approximate_svd(
+                             block, (SSVD_M, SSVD_N), SSVD_R, sky.SketchContext(seed=SEED + 1),
+                             block_rows=SSVD_BR, mesh=mesh))
+        (u0, s0, V0), (u1, s1, V1), (u4, s4, V4) = res[None], res[1], res[4]
+        same = torch.equal(s1, s0) and torch.equal(V1, V0) and torch.equal(u1(0), u0(0))
+        sv = float(((s4.double() - s0.double()).abs() / s0.double()).max())
+        sv_ctl = float(((s4[1:].double() - s0[:-1].double()).abs() / s0[:-1].double()).max())
+        # The rank-100 subspace: sin of the largest principal angle between
+        # the two V's.  Single vectors are not held here: with equal weights
+        # adjacent sigma lie ~1 % apart, and a vector turns within such a
+        # pair by (the perturbation) / (the gap).  The control swaps V0's
+        # last column for a unit vector orthogonal to V0.
+        def sin_angle(V, W):  # ||W - V V^T W||_2, in f64
+            V, W = V.double(), W.double()
+            return float(torch.linalg.matrix_norm(W - V @ (V.T @ W), 2))
+        sub = sin_angle(V4, V0)
+        w = torch.randn(SSVD_N, generator=g, device=dev, dtype=torch.float64)
+        w -= V0.double() @ (V0.double().T @ w)
+        V0c = torch.cat([V0.double()[:, :-1], (w / w.norm())[:, None]], 1)
+        sub_ctl = sin_angle(V4, V0c)
+        diag = float((V4.T @ V0).abs().diagonal().min())
+        print(f"mesh {name}: 1 slot bitwise mesh=None (s, V, u_block(0)) {same}; 4 slots: sigma "
+              f"max rel {sv:.3g} (bound 1e-4; control, sigma one index over, {sv_ctl:.3g}), "
+              f"subspace sin angle {sub:.3g} (bound 1e-3; control {sub_ctl:.3g}); min |v4_j . "
+              f"v0_j| {diag:.4f} (observed: near-degenerate pairs turn) {card}")
+        check(same, f"mesh {name}: one slot is not bitwise mesh=None")
+        check(sv <= 1e-4 and sv_ctl > 1e-4 and sub <= 1e-3 and sub_ctl > 1e-3,
+              f"mesh {name}: sigma {sv} (control {sv_ctl}), subspace {sub} (control {sub_ctl})")
+        # The JAX multichip test's own problem (tests/test_multichip.py:79-106:
+        # 4096 x 64, rank 5, well separated sigma), held as it holds it.
+        small = sky.linalg.synthetic_lowrank_blocks(sky.SketchContext(seed=41), 4096, 64, 5,
+                                                    noise=0.01, dtype=f32, device=dev)
+        got = [sky.linalg.streaming_approximate_svd(
+            small, (4096, 64), 5, sky.SketchContext(seed=41),
+            sky.linalg.SVDParams(num_iterations=1), block_rows=1024, mesh=mesh)
+            for mesh in (None, meshes[4])]
+        (_, t0s, t0V), (_, t4s, t4V) = got
+        sv5 = float(((t4s.double() - t0s.double()).abs() / t0s.double()).max())
+        vv5 = float(((t4V.T @ t0V).abs().double()
+                     - torch.eye(5, device=dev, dtype=torch.float64)).abs().max())
+        vv5_ctl = float(((t4V.T @ t0V.roll(1, 1)).abs().double()
+                         - torch.eye(5, device=dev, dtype=torch.float64)).abs().max())
+        print(f"mesh streaming_approximate_svd 4096 x 64 f32, rank 5 (the JAX multichip test's): "
+              f"4 slots vs mesh=None sigma max rel {sv5:.3g} (bound 1e-4), max | |V4^T V0| - I | "
+              f"{vv5:.3g} (bound 1e-3; control, V0's columns rolled by one, {vv5_ctl:.3g}) {card}")
+        check(sv5 <= 1e-4 and vv5 <= 1e-3 and vv5_ctl > 1e-3,
+              f"mesh rank-5 SVD: sigma {sv5}, V {vv5} (control {vv5_ctl})")
+        del res, u0, u1, u4, block, small, got
+        torch.cuda.empty_cache()
+        read_counts("mesh (d)", t0, ())
+    finally:
+        for mod, name_, kernel in kernels:
+            setattr(mod, name_, kernel)
+
+    # (e) seconds, eager and synchronized, of each schedule beside its
+    # unsharded call: slots on one card run in turn, so this is overhead.
+    for name, by in times.items():
+        cells = ", ".join(f"{k if isinstance(k, str) else f'{k} slot(s)'} {v:.4f} s"
+                          for k, v in by.items())
+        print(f"mesh time {name}: {cells} (slots share one card: overhead, not speed-up) {card}")
+    return held
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
@@ -6388,6 +6785,14 @@ def main() -> None:
 
     memory("3o")
 
+    # -- 3p. the explicit sharded schedules on virtual meshes of the one card
+    torch.cuda.empty_cache()
+    t_3p = time.perf_counter()
+    mesh_held = mesh_path(sky, dev, reset_counts, read_counts, uncounted, smi, (lo, hi))
+    print(f"mesh: phase 3p {time.perf_counter() - t_3p:.1f} s [{smi}]")
+
+    memory("3p")
+
     # -- 4. times at main-path shapes ------------------------------------
     kernels = []
 
@@ -6395,10 +6800,10 @@ def main() -> None:
             path_count=None, err=None, shape=None, split=None):
         b_ms, by = bound(bytes_moved, ops)
         by_path = {p: c[name] for p, c in path_launches.items() if c[name]}
-        # Phases 3i's, 3j's, 3l's, 3m's, 3n's and 3o's items, and their
-        # sums under "refine", "policy", "cli", "telemetry", "serve" and
-        # "elastic", on every row.
-        for phase in ("refine", "policy", "cli", "telemetry", "serve", "elastic"):
+        # Phases 3i's, 3j's, 3l's, 3m's, 3n's, 3o's and 3p's items, and
+        # their sums under "refine", "policy", "cli", "telemetry", "serve",
+        # "elastic" and "mesh", on every row.
+        for phase in ("refine", "policy", "cli", "telemetry", "serve", "elastic", "mesh"):
             by_path[phase] = sum(c[name] for p, c in path_launches.items()
                                  if p.startswith(f"{phase} ("))
         kernels.append({
@@ -6426,6 +6831,9 @@ def main() -> None:
                                  for sig in serve_held if sig[0] == name),
             # ... and those phase 3o held, in this process and in its ranks.
             "elastic_held": sorted(text for kernel, text in elastic_held if kernel == name),
+            # ... and those phase 3p held.
+            "mesh_held": sorted(str(sig[1:]).replace("torch.", "")
+                                for sig in mesh_held if sig[0] == name),
             "max_abs_err": errs[name] if err is None else err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
             "library_ms": library_ms, **({"shape": shape} if shape else {}), **(split or {}),

@@ -55,7 +55,7 @@ __all__ = [
     "to_numpy",
 ]
 
-ITEM_SHARDED = "ROADMAP Queue A item 9b: explicit in-process sharded schedules"
+ITEM_SHARDED = "ROADMAP Queue A item 9c: sharded-input routes through the solvers"
 
 
 def add_device_args(p) -> None:
@@ -142,7 +142,7 @@ def to_numpy(x) -> np.ndarray:
 
 def refuse_deferred(args) -> None:
     """Raise UnsupportedError for a flag of a layer the port lacks:
-    ``--shard`` waits for ROADMAP Queue A item 9b."""
+    ``--shard`` waits for ROADMAP Queue A item 9c."""
     if getattr(args, "shard", False):
         raise UnsupportedError(f"--shard is not ported yet ({ITEM_SHARDED})")
 

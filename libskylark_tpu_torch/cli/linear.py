@@ -8,7 +8,7 @@ Where the port departs from the JAX driver: ``--cond-est`` sketches A
 with CWT whether A is dense or sparse (the JAX driver takes FJLT for a
 dense A, and fails on a sparse one: its QR refuses a BCOO), and a sparse
 A's sketch comes out dense; ``--shard`` raises ``UnsupportedError``
-naming its ROADMAP item (9b).  ``--stream --distributed`` runs one rank
+naming its ROADMAP item (9c).  ``--stream --distributed`` runs one rank
 of the elastic streaming pass over a ``torch.distributed`` world
 (``cli.common.distributed_scope``).
 """

@@ -22,9 +22,11 @@ engine (prefetch, checkpoint/resume), bitwise the in-core sketch, and
 :func:`streaming_ase` embeds a graph from that one pass.  With
 ``partition=`` (an edge :class:`~..streaming.RowPartition`) every rank
 of a ``torch.distributed`` world folds its edge share and one sum
-merges the partials.  ``chained_adjacency_sketch`` rides the sharded
-schedules (ROADMAP Queue A item 9b) and raises ``UnsupportedError``
-naming it.
+merges the partials.  :func:`chained_adjacency_sketch` computes ``S₂·(S₁·A)``
+in core through the sharded sparse-out schedule
+(``parallel.columnwise_sharded_sparse_out``, then
+``ShardedBCOO.sketch_columnwise``) or streamed, the same bits either
+way by the argument above.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ import torch
 
 from .._device import resolve_device
 from ..sketch.hash import HashSketch, _segment_sum
-from ..utils.exceptions import InvalidParameters, deferred
+from ..utils.exceptions import InvalidParameters
 
 __all__ = [
     "graph_block_source",
@@ -45,9 +47,6 @@ __all__ = [
     "ase_from_sketch",
     "streaming_ase",
 ]
-
-_ITEM9B = "ROADMAP Queue A item 9b: explicit in-process sharded schedules"
-chained_adjacency_sketch = deferred("chained_adjacency_sketch", _ITEM9B)
 
 
 def graph_block_source(G, batch_edges: int = 65536, dtype=np.float64):
@@ -214,6 +213,52 @@ def streamed_adjacency_sketch(source, S, *, ncols: int, dtype=torch.float64, par
     if guard.enabled():
         guard.check_finite(out, kind, report=report)
     return out
+
+
+def chained_adjacency_sketch(G, S1, S2, *, mesh=None, streamed: bool = False,
+                             batch_edges: int = 65536, dtype=None, device=None):
+    """``S₂·(S₁·A)`` of a graph's adjacency without a densified
+    intermediate in core.
+
+    In core (default): the COO adjacency rides
+    :func:`~libskylark_tpu_torch.parallel.columnwise_sharded_sparse_out`,
+    so ``S₁·A`` lands ROW-BLOCK-SHARDED over ``mesh``'s slots, and
+    :meth:`~libskylark_tpu_torch.parallel.ShardedBCOO.sketch_columnwise`
+    hashes it in place (one psum, no gather); the result is one tensor on
+    slot 0's device.  ``mesh=None`` is a 1-D mesh over the visible cards
+    (over ``device`` where one is given).  ``streamed=True`` folds
+    ``S₁·A`` from edge blocks first (:func:`streamed_adjacency_sketch`,
+    placed on ``device``), then applies ``S₂``: the same bits, by the
+    exactness argument of the module docstring.  ``dtype`` is torch's
+    default dtype when None, for both routes (the JAX package's None is
+    its default float in core and f64 streamed, one dtype under x64).
+    Requires ``S2.n == S1.s``."""
+    from ..parallel.collectives import columnwise_sharded_sparse_out
+    from ..parallel.mesh import ROWS, make_mesh
+    from .graph import SimpleGraph
+
+    if S2.n != S1.s:
+        raise InvalidParameters(
+            f"chained sketch needs S2.n == S1.s, got S2.n={S2.n}, S1.s={S1.s}")
+    dtype = dtype or torch.get_default_dtype()
+    if streamed:
+        from ..streaming.engine import StreamParams
+        from ..streaming.pipeline import pinned_placer
+
+        params = StreamParams(placer=pinned_placer(resolve_device(device)))
+        SA1 = streamed_adjacency_sketch(graph_block_source(G, batch_edges=batch_edges), S1,
+                                        ncols=G.n, dtype=dtype, params=params)
+        return S2.apply(SA1, "columnwise")
+    if not isinstance(G, SimpleGraph):
+        raise InvalidParameters("chained_adjacency_sketch needs a SimpleGraph")
+    if mesh is None:
+        if device is None:
+            mesh = make_mesh((torch.cuda.device_count() or 1,), (ROWS,))
+        else:
+            mesh = make_mesh((1,), (ROWS,), devices=device)
+    A = G.adjacency_coo(dtype, mesh.device(0))
+    sharded = columnwise_sharded_sparse_out(S1, A, mesh)
+    return sharded.sketch_columnwise(S2, dense_output=True)
 
 
 def streaming_ase(source, n: int, k: int, context, params=None, *, dtype=torch.float64,

@@ -7,12 +7,12 @@ The tall products are ``torch.matmul`` in full f32 on the card (TF32 is
 off, ``_device.py``), the counterpart of the JAX package's
 ``precision="highest"``; the small factorizations are torch's own.
 ``A`` may be a dense or a sparse COO tensor (only products with A are
-taken).  The single-device port has no sharding, so the JAX package's
-``fully_replicated`` constraints are no-ops here (the sharded schedules
-are ROADMAP Queue A item 9b).  ``streaming_approximate_svd`` is the
+taken).  Torch has no sharding propagation, so the JAX package's
+``fully_replicated`` constraints are no-ops here (sharded-input routes
+are ROADMAP Queue A item 9c).  ``streaming_approximate_svd`` is the
 matrix-free form for A too large for the card: row panels regenerated
 (or re-streamed) per pass, only one panel and the small accumulators
-resident.
+resident; with ``mesh=`` each panel is split over a mesh's slots.
 """
 
 from __future__ import annotations
@@ -30,7 +30,6 @@ from ..core.random import sample_window
 from ..resilient.chunked import ChunkedSolver
 from ..sketch.base import Dimension
 from ..sketch.dense import JLT
-from ..utils.exceptions import UnsupportedError
 from ..utils.sparse import is_sparse, linear_ops
 
 __all__ = [
@@ -251,13 +250,25 @@ def streaming_approximate_svd(block_fn, shape: tuple[int, int], rank: int,
     Returns ``(u_block, s, V)``, ``u_block(i)`` giving rows ``[i·B,
     (i+1)·B)`` of U; with ``materialize_u=True``, U itself (m, k).  Without
     ``params`` one power iteration runs (the f32 whitening needs it on a
-    noisy spectrum).  ``mesh=`` (panels sharded over devices) raises
-    ``UnsupportedError`` (ROADMAP Queue A item 9b).
+    noisy spectrum).
+
+    ``mesh`` (a :class:`~libskylark_tpu_torch.parallel.mesh.Mesh`) splits
+    every panel into the mesh's row blocks
+    (:func:`~libskylark_tpu_torch.parallel.constrain_rows`, ≙ the
+    ``[VC,*]`` long-dimension distribution): the panel products A_b·Ω are
+    local to each slot, and each accumulator contraction (Aᵀ(AΩ), YᵀY,
+    YᵀA) sums the slots' partial products with the mesh's ``psum`` in
+    slot order on the first panel's device, the psum GSPMD inserts in the
+    JAX package.  ``u_block`` recomputes Y the same way, so the factor and
+    ``u_block`` keep the same bits, and a mesh of one is bitwise
+    ``mesh=None``.  Explicit meshes are rejected, as the JAX package
+    rejects them.
     """
-    if mesh is not None:
-        raise UnsupportedError(
-            "streaming_approximate_svd(mesh=) is not ported yet (ROADMAP Queue A item 9b: "
-            "explicit in-process sharded schedules)")
+    if mesh is not None and mesh.explicit:
+        raise ValueError(
+            "streaming_approximate_svd needs an Auto-axes mesh "
+            "(make_mesh(..., explicit=False)); explicit typed-sharding "
+            "would require out_sharding on every accumulator contraction")
     params = params or SVDParams(num_iterations=1)
     m, n = shape
     k, s = _sketch_size(rank, params, n, m)
@@ -268,6 +279,10 @@ def streaming_approximate_svd(block_fn, shape: tuple[int, int], rank: int,
     nblocks = m // block_rows
     # Panel 0 tells the dtype and device; it serves the first pass too.
     first = [block_fn(0, block_rows)]
+    if mesh is not None:
+        from ..parallel.mesh import constrain_rows, fully_replicated, psum
+
+        first = [fully_replicated(first[0])]
     dtype, dev = first[0].dtype, first[0].device
     acc = torch.promote_types(dtype, torch.float32)
 
@@ -275,13 +290,24 @@ def streaming_approximate_svd(block_fn, shape: tuple[int, int], rank: int,
         for i in range(nblocks):
             yield first.pop() if i == 0 and first else block_fn(i * block_rows, block_rows)
 
+    def slots(Ab):
+        """The panel's row blocks, one per slot (the panel itself without
+        a mesh)."""
+        return [Ab] if mesh is None else constrain_rows(Ab, mesh).shards
+
+    def merge(parts):
+        return parts[0] if mesh is None else psum(parts, dev)
+
+    def on(x, a):
+        return x if x.device == a.device else x.to(a.device)
+
     def panel_y(Ab, Om):
-        return Ab @ Om.to(Ab.dtype)
+        return Ab @ on(Om, Ab).to(Ab.dtype)
 
     def sweep(Om):
         W = torch.zeros((n, s), dtype=acc, device=dev)
         for Ab in panels():
-            W += _acc_mm(Ab.T, panel_y(Ab, Om), acc)
+            W += merge([_acc_mm(a.T, panel_y(a, Om), acc) for a in slots(Ab)])
         return W
 
     Om = gaussian_matrix(context, (n, s), dtype=acc, device=dev)
@@ -294,9 +320,9 @@ def streaming_approximate_svd(block_fn, shape: tuple[int, int], rank: int,
     G = torch.zeros((s, s), dtype=acc, device=dev)
     M = torch.zeros((s, n), dtype=acc, device=dev)
     for Ab in panels():
-        Yb = panel_y(Ab, Omq)
-        G += _acc_mm(Yb.T, Yb, acc)
-        M += _acc_mm(Yb.T, Ab, acc)
+        parts = [(panel_y(a, Omq), a) for a in slots(Ab)]
+        G += merge([_acc_mm(y.T, y, acc) for y, _ in parts])
+        M += merge([_acc_mm(y.T, a, acc) for y, a in parts])
     # Stage 1 keeps directions a few times above the representation noise
     # (4·eps); stage 2 re-accumulates the Gram of the whitened panels,
     # where genuine directions land near 1 and noise far below (0.25).
@@ -304,8 +330,8 @@ def streaming_approximate_svd(block_fn, shape: tuple[int, int], rank: int,
     T1 = _whiten(G, 4.0 * eps)
     G2 = torch.zeros((s, s), dtype=acc, device=dev)
     for Ab in panels():
-        Qb = panel_y(Ab, Omq) @ T1.to(Ab.dtype)
-        G2 += _acc_mm(Qb.T, Qb, acc)
+        qs = [panel_y(a, Omq) @ on(T1, a).to(a.dtype) for a in slots(Ab)]
+        G2 += merge([_acc_mm(q.T, q, acc) for q in qs])
     T2 = _whiten(G2, 0.25)
     # T1 and T2 stay factored: their product mixes column scales that
     # span orders of magnitude before the whitening of Y·T1.
@@ -315,8 +341,9 @@ def streaming_approximate_svd(block_fn, shape: tuple[int, int], rank: int,
 
     def u_block(i: int):
         """Rows [i·block_rows, (i+1)·block_rows) of U."""
-        Ab = block_fn(i * block_rows, block_rows)
-        return (panel_y(Ab, Omq) @ T1.to(Ab.dtype)) @ rot2.to(Ab.dtype)
+        us = [(panel_y(a, Omq) @ on(T1, a).to(a.dtype)) @ on(rot2, a).to(a.dtype)
+              for a in slots(block_fn(i * block_rows, block_rows))]
+        return us[0] if mesh is None else torch.cat([u.to(dev) for u in us])
 
     if materialize_u:
         return torch.cat([u_block(i) for i in range(nblocks)], dim=0), sv[:k], Vt[:k].T

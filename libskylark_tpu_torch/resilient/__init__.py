@@ -12,7 +12,7 @@
 
 The elastic layer's ``HostFaultPlan`` and the serve journal's
 ``faults.JournalFaultPlan`` are ported; ``FleetFaultPlan`` raises
-``UnsupportedError`` naming ROADMAP Queue A item 9b.
+``UnsupportedError`` naming ROADMAP Queue A item 9c.
 """
 
 from .chunked import ChunkedSolver

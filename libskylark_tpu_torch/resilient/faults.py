@@ -17,7 +17,7 @@ are here too, and so is the serve journal's :class:`JournalFaultPlan`
 layer's host faults: :class:`HostFaultPlan` (rank death, stragglers, a
 hostile host, a stale-epoch writer), :func:`corrupt_manifest` and
 :func:`tear_ledger_tail`.  ``FleetFaultPlan`` (replicas on several
-cards) is ROADMAP Queue A item 9b; its name raises ``UnsupportedError``.
+cards) is ROADMAP Queue A item 9c; its name raises ``UnsupportedError``.
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ __all__ = [
     "with_retries",
 ]
 
-FleetFaultPlan = deferred("FleetFaultPlan", "ROADMAP Queue A item 9b: the router's "
+FleetFaultPlan = deferred("FleetFaultPlan", "ROADMAP Queue A item 9c: the router's "
                                            "replicas on several cards")
 
 

@@ -35,7 +35,7 @@ Layout:
   threads to the local cards), warm start, priming, telemetry;
 - :mod:`.dispatch` — the device-parallel dispatch gates; where they
   pick two or more devices the executors raise ``UnsupportedError``
-  (the sharded programs wait for ROADMAP Queue A item 9b);
+  (the sharded programs wait for ROADMAP Queue A item 9c);
 - :mod:`.router` — the fleet front door: signature-fenced membership
   (code 109), key-affinity placement, 112/114 shedding, heartbeat
   ejection with in-flight re-placement;

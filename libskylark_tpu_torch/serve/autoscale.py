@@ -27,7 +27,7 @@ the fleet layer already enforces:
 
 Faults are injected through a plan object with ``before_tick(tick)``
 (the JAX package's ``FleetFaultPlan``; the port's own waits for ROADMAP
-Queue A item 9b) bound to the loop, which fires die-under-load /
+Queue A item 9c) bound to the loop, which fires die-under-load /
 slow-heartbeat / join-storm / flapping faults at exact ticks,
 deterministically.
 

@@ -129,7 +129,7 @@ def _execute_ls(registry, entries, device=None):
     else:
         Qt, R = system.Qt.to(dev), system.R.to(dev)
         # Past the gates the heavy half would shard over the local
-        # devices: that raises (ROADMAP Queue A item 9b).
+        # devices: that raises (ROADMAP Queue A item 9c).
         dispatch.maybe_sketch_sharded(S, B, kb, entries)
     SB = _by_blocks(lambda b: plans.apply(S, b, "columnwise"), B, 1)
     X = _qr_solve(Qt, R, SB)[:, :k].T.cpu().numpy()  # (k, n), one read per batch
@@ -407,7 +407,7 @@ def _dispatch(registry, entries, device=None) -> None:
     except Exception as e:  # noqa: BLE001 — isolate, then solo-retry
         if n == 1 or isinstance(e, UnsupportedError):
             # A route the port refuses (the sharded dispatch of ROADMAP
-            # Queue A item 9b) is the batch's, not a payload's: a solo
+            # Queue A item 9c) is the batch's, not a payload's: a solo
             # retry at a narrower rung would hide it, so every rider
             # gets the error.
             for entry in entries:

@@ -16,13 +16,14 @@ that decide it are ported as they are:
   :func:`worthwhile`, ``=0`` turns it off.
 
 The sharded programs and their parity probe wait for ROADMAP Queue A
-item 9b (the explicit in-process sharded schedules).  So where the gates pick two or more devices, the
+item 9c (they run the executors' solves on a sharded batch, which the
+JAX package leaves to GSPMD).  So where the gates pick two or more devices, the
 ``maybe_*`` entry points raise :class:`UnsupportedError` naming that
 item instead of quietly running the single-device path; where they pick
 none (one card, a CPU registry, a rung too narrow to split) they return
 ``None`` and the executor runs its own single-device path.  They keep
 the JAX package's signatures; ``entries`` and ``reference`` (the
-probe's inputs) wait for item 9b too.
+probe's inputs) wait for item 9c too.
 """
 
 from __future__ import annotations
@@ -47,11 +48,11 @@ __all__ = [
 # per-shard dispatch + resharding overhead eats the win.
 _MIN_FLOPS = 3e7
 
-ITEM9 = "ROADMAP Queue A item 9b: sharded serve programs and their parity probe"
+ITEM9 = "ROADMAP Queue A item 9c: sharded serve programs and their parity probe"
 
 
 def clear_cache() -> None:
-    """Drop the sharded programs (none exist until item 9b brings them)."""
+    """Drop the sharded programs (none exist until item 9c brings them)."""
 
 
 def supported(kb: int, d: int) -> bool:

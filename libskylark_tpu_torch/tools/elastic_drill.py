@@ -29,7 +29,8 @@ saves a run's result to ``<out>/x-0.pt``, every rank its
 ``history``); each rank prints ``DRILL-OK`` and a JSON line (per run:
 launch counts, seconds, the result's SHA-256; the group's backend); a
 collective past its deadline prints ``DRILL-TIMEOUT`` with the
-stragglers and exits 110, a stale epoch exits 111.
+stragglers and exits 110, a stale epoch exits 111.  Every rank marks
+its phases on stderr (``DRILL-PHASE``, :func:`_phase`).
 """
 
 from __future__ import annotations
@@ -282,6 +283,13 @@ def run(spec: dict, *, rank: int, device, root=None, out=None) -> dict:
     return result
 
 
+def _phase(name: str) -> None:
+    """``DRILL-PHASE <name> <unix seconds>`` on stderr: how far a rank got
+    (start: imports done; group: joined; run NAME; checks; leave), for a
+    caller that has only its output."""
+    print(f"DRILL-PHASE {name} {time.time():.3f}", file=sys.stderr, flush=True)
+
+
 def main(argv=None, *, setup=None) -> int:
     """The rank process: join the group, run the runs, report, leave.
 
@@ -311,12 +319,15 @@ def main(argv=None, *, setup=None) -> int:
     device = torch.device(args.device)
     if device.type == "cuda" and device.index is not None:
         torch.cuda.set_device(device)
+    _phase("start")
     dist.init_process_group("gloo", init_method=args.init, rank=args.rank,
                             world_size=args.world,
                             timeout=datetime.timedelta(seconds=args.group_timeout))
+    _phase("group")
     finish = setup(args.rank) if setup is not None else None
     done = []
     for r in runs:
+        _phase(f"run {r['name']}")
         try:
             res = run(r["spec"], rank=args.rank, device=device, root=r.get("root"),
                       out=r.get("out"))
@@ -330,9 +341,11 @@ def main(argv=None, *, setup=None) -> int:
             os._exit(111)
         done.append({"name": r["name"], "seconds": res["seconds"], "sha": res["x_sha256"],
                      "launches": res["launches"], "replay": res["info"].get("replay")})
+    _phase("checks")
     report = {"rank": args.rank, "world": args.world, "backend": dist.get_backend(),
               "host_copies": cross_host_psum.host_copies, "runs": done,
               **(finish() if finish is not None else {})}
+    _phase("leave")
     dist.destroy_process_group()
     print("DRILL-OK", flush=True)
     print(json.dumps(report, default=str), flush=True)

@@ -19,7 +19,7 @@ numpy in both and equal; ``serve`` over stdio answers the same frames
 renders the same frame, timestamp aside.  Also: a model saved by one package predicts
 the same in the other, ``--stream`` equals the whole-file solve with the
 stream's own sketch, ``--shard`` raises ``UnsupportedError`` naming its
-ROADMAP item (9b) and the elastic flags run one rank of a world of 1, the
+ROADMAP item (9c) and the elastic flags run one rank of a world of 1, the
 telemetry flags print and ledger what the
 JAX drivers do and hold for the run only, and a run without ``--device
 cpu`` raises here,
@@ -451,8 +451,8 @@ def test_deferred_flags_raise_naming_their_item(blob_files, name, argv, item, mo
     files = {"linear": [str(root / "train")], "svd": [str(root / "train")],
              "krr": ["--trainfile", str(root / "train")],
              "ml": ["--trainfile", str(root / "train")]}[name]
-    if "--shard" in argv:  # the sharded schedules: ROADMAP Queue A item 9b
-        with pytest.raises(UnsupportedError, match=f"ROADMAP Queue A {item}b"):
+    if "--shard" in argv:  # sharded-input routes: ROADMAP Queue A item 9c
+        with pytest.raises(UnsupportedError, match=f"ROADMAP Queue A {item}c"):
             tmain(name)(files + argv + CPU)
         return
     # The elastic flags are ported: --distributed joins the world of the

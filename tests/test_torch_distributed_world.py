@@ -22,12 +22,20 @@ with checks of its own after the runs).
 - Ranks whose partitions disagree fail the handshake with 109.
 
 Every spawned world has a 60 s subprocess timeout and a 30 s group
-timeout.
+timeout.  A world that fails reports, for every rank, its exit code,
+its seconds, the last phase it marked (``DRILL-PHASE``: start-up, group,
+run, checks) and the last 40 lines of its stderr, in the assertion and
+in ``world-<name>.txt`` under the test's ``tmp_path``, naming which
+stage failed: start-up, the 60 s shared deadline, the 30 s group
+timeout or the battery's checks (the 1e-10 comparison with the JAX
+package says so in its own message).
 """
 
 from __future__ import annotations
 
+import functools
 import json
+import operator
 import os
 import subprocess
 import sys
@@ -54,7 +62,7 @@ EXACT = {"scenario": "lsq", "exact": True, "sketch": "CWT", "nrows": 96, "ncols"
          "batch_rows": 4, "s": 24}
 
 _BATTERY = r"""
-import sys
+import functools, operator, sys
 import torch, torch.distributed as dist
 from libskylark_tpu_torch import telemetry
 from libskylark_tpu_torch.parallel import cross_host_psum
@@ -83,7 +91,11 @@ def setup(rank):
         fleet = telemetry.snapshot(fleet=True)
         every = gather_objects(local["counters"])
         for key in local["counters"]:
-            assert fleet["counters"][key] == sum(c[key] for c in every), key
+            # The merge's left fold in rank order: Python's sum() adds
+            # floats compensated (3.12) and can differ in the last bit
+            # over three ranks (the seconds counters).
+            want = functools.reduce(operator.add, (c[key] for c in every), 0)
+            assert fleet["counters"][key] == want, (key, fleet["counters"][key], want)
         assert fleet["counters"]["elastic.runs"] == world, fleet["counters"]
         print("CHECK fleet OK", flush=True)
 
@@ -137,21 +149,60 @@ def spawn_world(world: int, tmp: Path, spec: dict, *, name: str, root: Path,
     return procs, out
 
 
-def finish(procs, timeout: float = WORLD_TIMEOUT_S) -> list:
+def finish(procs, timeout: float = WORLD_TIMEOUT_S, seconds=None) -> list:
     """``[(returncode, stdout, stderr)]`` of every rank; every process is
-    gone when this returns."""
-    deadline = time.monotonic() + timeout
+    gone when this returns.  A rank still running at the shared deadline
+    is killed and says so at the end of its stderr.  ``seconds``, a list,
+    gets each rank's seconds from this call to its exit."""
+    t0 = time.monotonic()
+    deadline = t0 + timeout
     outs = []
     try:
         for p in procs:
-            out, err = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+            try:
+                out, err = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                out, err = p.communicate()
+                err += f"\n[killed at the {timeout:g} s shared deadline]"
             outs.append((p.returncode, out, err))
+            if seconds is not None:
+                seconds.append(time.monotonic() - t0)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.communicate()
     return outs
+
+
+def _stage(rc: int, stdout: str, stderr: str) -> str:
+    """Which stage of a rank's life failed, from its output."""
+    phases = [line.split()[1] for line in stderr.splitlines() if line.startswith("DRILL-PHASE")]
+    if "shared deadline]" in stderr:
+        return f"the {WORLD_TIMEOUT_S} s shared deadline (last phase: {phases[-1:] or 'none'})"
+    if "start" not in phases:
+        return "start-up (imports)"
+    if any(w in stderr for w in ("Timed out", "timed out", "DistStoreError", "Timeout")):
+        return "the 30 s group timeout"
+    if "group" not in phases:
+        return "start-up (joining the group)"
+    if "checks" in phases and "leave" not in phases:
+        return "the battery's checks"
+    return "the run" if rc else "none"
+
+
+def diagnose(outs, seconds, path: Path) -> str:
+    """Every rank's exit code, seconds, stage and last 40 lines of
+    stderr; written to ``path`` and returned."""
+    lines = []
+    for r, ((rc, so, se), s) in enumerate(zip(outs, seconds)):
+        lines.append(f"rank {r}: rc={rc}, {s:.1f} s, failed stage: {_stage(rc, so, se)}; "
+                     f"DRILL-OK {'in' if 'DRILL-OK' in so else 'not in'} stdout")
+        lines += [f"  | {line}" for line in se.splitlines()[-40:]]
+    text = "\n".join(lines)
+    path.write_text(text + "\n")
+    return f"{text}\n(also in {path})"
 
 
 def report(stdout: str) -> dict:
@@ -163,9 +214,11 @@ def run_world(world, tmp, spec, *, name, root, **kw):
     """A world that must succeed: every rank exits 0 with ``DRILL-OK`` and
     the same result; returns (x of rank 0, [(rc, stdout, stderr)])."""
     procs, out = spawn_world(world, tmp, spec, name=name, root=root, **kw)
-    outs = finish(procs)
-    for r, (rc, so, se) in enumerate(outs):
-        assert rc == 0 and "DRILL-OK" in so, f"rank {r} rc={rc}\n{so}\n{se[-3000:]}"
+    seconds = []
+    outs = finish(procs, seconds=seconds)
+    if not all(rc == 0 and "DRILL-OK" in so for rc, so, _ in outs):
+        raise AssertionError(f"world {name!r} of {world} failed:\n"
+                             + diagnose(outs, seconds, tmp / f"world-{name}.txt"))
     assert len({report(so)["runs"][0]["sha"] for _, so, _ in outs}) == 1  # one x everywhere
     return torch.load(out / "x-0.pt"), outs
 
@@ -174,15 +227,21 @@ def kill_world(world, tmp, spec, *, name, root, victim):
     """A world whose ``victim`` SIGKILLs itself: wait for its death, then
     end the survivors (blocked in a collective with a dead peer)."""
     procs, _ = spawn_world(world, tmp, spec, name=name, root=root)
+    t0 = time.monotonic()
     try:
         rc = procs[victim].wait(timeout=WORLD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        rc = None  # still running at the shared deadline
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-        for p in procs:
-            p.communicate()
-    assert rc == -9, f"the victim exited {rc} before its SIGKILL:\n{procs[victim].stderr}"
+    outs = [(p.returncode, *p.communicate()) for p in procs]
+    if rc != -9:
+        what = "was still running at the shared deadline" if rc is None else f"exited {rc}"
+        raise AssertionError(
+            f"the victim (rank {victim}) {what} instead of its SIGKILL:\n"
+            + diagnose(outs, [time.monotonic() - t0] * world, tmp / f"world-{name}.txt"))
 
 
 def reference(spec: dict):
@@ -208,7 +267,7 @@ def test_exact_merge_and_battery(tmp_path, world):
         for check in ("timer-report", "timer-mismatch", "fleet", "psum"):
             assert f"CHECK {check} OK" in so, f"rank {r}: {check}\n{so}"
     want, factory = reference(EXACT)
-    assert torch.equal(x, want)  # exact data: the merge is bitwise world = 1
+    assert torch.equal(x, want), "world merge not bitwise world = 1"  # exact data
     Sj = J.sketch.create_sketch("CWT", 96, 24, J.SketchContext(seed=EXACT.get("seed", 5) + 8))
 
     def jfactory(start):
@@ -217,7 +276,8 @@ def test_exact_merge_and_battery(tmp_path, world):
 
     xj, _ = J.streaming.sketch_least_squares(jfactory, Sj, ncols=5)
     xj = np.asarray(xj)
-    assert np.abs(x.numpy() - xj).max() <= 1e-10 * np.abs(xj).max()
+    diff = np.abs(x.numpy() - xj).max()
+    assert diff <= 1e-10 * np.abs(xj).max(), f"1e-10 comparison with the JAX package: {diff}"
 
 
 def test_kill_one_rank_resume_is_bitwise(tmp_path):

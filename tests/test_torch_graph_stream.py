@@ -146,7 +146,9 @@ def test_error_paths(rng):
     with pytest.raises(InvalidParameters, match="live torch.distributed world"):
         tstream.streamed_adjacency_sketch([], St, ncols=Gt.n,
                                           partition=T.streaming.RowPartition(10, 5, 2))
-    with pytest.raises(UnsupportedError, match="item 9b"):
+    # The chained sketch is ported (tests/test_torch_sharded_paths.py): a
+    # second sketch that does not take the first's rows is refused.
+    with pytest.raises(InvalidParameters, match="S2.n == S1.s"):
         tstream.chained_adjacency_sketch(Gt, St, St)
     with pytest.raises(InvalidParameters, match="one-pass"):
         tstream.streaming_ase([], Gt.n, 2, T.SketchContext(),

@@ -96,8 +96,36 @@ def test_parallel_exports_the_jax_names():
         assert getattr(T.parallel, name).__module__.endswith("parallel.collectives")
     assert T.parallel.HEARTBEAT_DIR == jparallel.HEARTBEAT_DIR
     assert (T.parallel.ROWS, T.parallel.COLS) == (jparallel.ROWS, jparallel.COLS)
-    with pytest.raises(T.utils.UnsupportedError, match="item 9b"):
-        T.parallel.rowwise_sharded(None, None, None)
+    # The mesh and the explicit schedules are ported: the real functions
+    # (tests/test_torch_mesh.py, tests/test_torch_sharded.py).
+    for name in T.parallel.__all__:
+        obj = getattr(T.parallel, name)
+        if callable(obj):
+            assert obj.__module__.endswith(("parallel.mesh", "parallel.collectives")), name
+            assert "Not ported yet" not in (obj.__doc__ or ""), name
+
+
+@pytest.mark.parametrize("what", ["serve", "fleet", "shard"])
+def test_what_is_left_of_the_sharded_layer_names_item_9c(what, monkeypatch):
+    """The serve layer's sharded programs, ``FleetFaultPlan`` and the CLI's
+    ``--shard`` (what the JAX package leaves to GSPMD) wait for item 9c."""
+    if what == "serve":
+        from libskylark_tpu_torch.serve import dispatch
+
+        # Two devices past the gates: the sharded route raises.
+        monkeypatch.setattr(dispatch, "_local_devices", lambda dev: [dev, dev])
+        monkeypatch.setenv("SKYLARK_SERVE_SHARD", "1")
+        S = T.sketch.CWT(32, 8, T.SketchContext(seed=1))
+        with pytest.raises(T.utils.UnsupportedError, match="ROADMAP Queue A item 9c"):
+            dispatch.maybe_sketch_sharded(S, torch.zeros(32, 16), 16)
+    elif what == "fleet":
+        with pytest.raises(T.utils.UnsupportedError, match="item 9c"):
+            T.resilient.FleetFaultPlan()
+    else:
+        from libskylark_tpu_torch.cli import common
+
+        with pytest.raises(T.utils.UnsupportedError, match="ROADMAP Queue A item 9c"):
+            common.refuse_deferred(type("Args", (), {"shard": True})())
 
 
 @pytest.mark.parametrize("module", ["streaming", "ml"])

@@ -280,7 +280,7 @@ def test_fault_plan_block_faults_are_one_shot():
                                   "tear_ledger_tail"])
 def test_host_faults_name_their_item(name, tmp_path):
     if name == "FleetFaultPlan":  # the router's replicas on several cards
-        with pytest.raises(UnsupportedError, match="item 9b"):
+        with pytest.raises(UnsupportedError, match="item 9c"):
             getattr(tres, name)()
         return
     # The host faults are ported (tests/test_torch_elastic.py).

@@ -176,7 +176,8 @@ def test_streaming_svd_matches_jax(dtype):
 
 def test_streaming_svd_errors():
     blk = T.linalg.synthetic_lowrank_blocks(T.SketchContext(seed=1), 64, 8, 2, device="cpu")
-    with pytest.raises(UnsupportedError, match="item 9"):
-        T.linalg.streaming_approximate_svd(blk, (64, 8), 2, T.SketchContext(), mesh=object())
+    explicit = T.parallel.make_mesh((2,), (T.parallel.ROWS,), explicit=True, devices="cpu")
+    with pytest.raises(ValueError, match="Auto-axes mesh"):
+        T.linalg.streaming_approximate_svd(blk, (64, 8), 2, T.SketchContext(), mesh=explicit)
     with pytest.raises(ValueError, match="divisible"):
         T.linalg.streaming_approximate_svd(blk, (64, 8), 2, T.SketchContext(), block_rows=10)

@@ -240,6 +240,9 @@ def test_synthetic_lowrank_blocks_match_jax(dtype, noise, decay):
 
 
 def test_streaming_svd_is_deferred():
-    # Ported (tests/test_torch_streaming.py) but for its sharded panels.
-    with pytest.raises(NotImplementedError, match="item 9"):
-        T.linalg.streaming_approximate_svd(None, (4, 4), 1, T.SketchContext(), mesh=object())
+    # Ported with its sharded panels (tests/test_torch_sharded_paths.py):
+    # an explicit mesh is refused before any panel is asked for, as in the
+    # JAX package.
+    explicit = T.parallel.make_mesh((1,), (T.parallel.ROWS,), explicit=True, devices="cpu")
+    with pytest.raises(ValueError, match="Auto-axes mesh"):
+        T.linalg.streaming_approximate_svd(None, (4, 4), 1, T.SketchContext(), mesh=explicit)
