@@ -147,7 +147,17 @@ paths:
   a rank-100 2^20 x 1024 matrix with its panels split over the slots;
   a mesh of one bitwise the unsharded call, more slots bitwise or
   within an f32 bound, each beside a control.  Slots on one card run in
-  turn: the seconds are a schedule's overhead, never a speed-up.
+  turn: the seconds are a schedule's overhead, never a speed-up;
+- the sharded-input routes (``shard_path``) on meshes of 1, 2 and 4
+  slots of the one card: ``solve_regression`` on a row-sharded A at the
+  LS cell and at 32768 x 768 (accelerated, sketched with FJLT and CWT,
+  exact), the randomized SVD, approximate KRR and BlockADMM at the
+  training widths, the drivers' ``--shard`` (a mesh of one on one card,
+  bitwise the run without it), ``dryrun_multichip(4)``, the serve
+  programs forced over 2 and 4 entries of the card (every probe verdict
+  printed, every answer bitwise the serial one) and a die-under-load
+  drill on replicas sharing the card.  A mesh of one bitwise the
+  unsharded call, more slots within a bound per route beside a control.
 
 It exits non-zero, printing no result, without a CUDA device or without
 the package beside it.  It imports nothing of JAX.
@@ -445,6 +455,27 @@ MESH_JLT_N, MESH_JLT_M, MESH_JLT_S = 1 << 20, 512, 2048
 MESH_RW_ROWS = 1 << 18
 MESH_CHAIN_S1, MESH_CHAIN_S2 = 64, 32
 MESH_TOL = 1e-5
+# Phase 3q: the sharded-input routes (parallel.routes) on meshes of 1, 2
+# and 4 slots of the one card.  (a) solve_regression at the LS cell and at
+# bench.py's refine width, b = A x + SH_NOISE g; (b) the randomized SVD at
+# phase 3e's width 1024 and rank (depth cut from 2^21 to 2^19), approximate
+# KRR at phase 3f's width 4096 -> 2048 (depth cut to 32768) and BlockADMM
+# at phase 3f's configuration (SH_ADMM_ITERS iterations); (e) the serve
+# programs on a 32768 x 768 system and a 768-wide feature-map model.  A
+# mesh of one is held bitwise; 2 and 4 slots within SH_TOL of the one
+# slot's result (max |diff| / max |ref|), each beside a control that
+# misses: another sketch's x for the sketch route, the sketch-and-solve x
+# for the routes that solve exactly (LSQR to eps32, the QR), sigma one
+# index over, another seed's maps.
+SH_LS = ((1 << 20, 512), (32_768, 768))
+SH_SLOTS = (1, 2, 4)
+SH_NOISE = 0.1
+SH_TOL = {"sketched": 1e-4, "accelerated": 1e-4, "exact": 1e-5, "svd": 1e-4,
+          "krr": TRAIN_W_TOL, "admm": TRAIN_W_TOL}
+SH_SVD_M, SH_SVD_N, SH_SVD_R = 1 << 19, 1024, 100
+SH_KRR_M = 32_768
+SH_ADMM_ITERS = 5
+SH_SV_M, SH_SV_N, SH_SV_D, SH_SV_REQ = 32_768, 768, 768, 32
 
 
 def fail(msg: str) -> None:
@@ -6175,6 +6206,376 @@ def mesh_path(sky, dev, reset_counts, read_counts, uncounted, smi, edges) -> set
     return held
 
 
+def shard_path(sky, dev, reset_counts, read_counts, uncounted, smi, cli_files) -> set:
+    """Phase 3q: the sharded-input routes (``parallel.routes``, what the
+    JAX package leaves to GSPMD) on meshes of 1, 2 and 4 slots of the one
+    card: (a) ``solve_regression`` on a row-sharded A at the LS cell
+    (2^20 x 512 f32) and at 32768 x 768, through accelerated, sketched
+    (FJLT, CWT) and exact; (b) ``approximate_svd``, ``approximate_kernel_
+    ridge`` and ``BlockADMMSolver.train`` at phases 3e's and 3f's widths;
+    (c) ``skylark_linear`` and ``skylark_svd --shard`` on phase 3l's
+    YearPredictionMSD file, bitwise the runs without the flag (one card:
+    a mesh of one); (d) ``flagship.dryrun_multichip(4, device="cuda")``;
+    (e) the serve LS and predict programs forced over 2 and 4 entries of
+    the card, every probe's verdict printed and every answer bitwise the
+    serial one; (f) a die-under-load drill on two replicas sharing the
+    card.  The unsharded references and the controls run ``uncounted()``,
+    so a ``shard (x)`` count is the sharded calls' own, and every first
+    launch of a signature is held against its plain version.  Slots on
+    one card run in turn: the seconds are overhead, not a speed-up.
+    Returns the held signatures."""
+    from importlib import import_module
+
+    from libskylark_tpu_torch import parallel as P
+    from libskylark_tpu_torch import serve, telemetry
+    from libskylark_tpu_torch.parallel import mesh as M
+    from libskylark_tpu_torch.resilient import FleetFaultPlan
+    from libskylark_tpu_torch.serve import dispatch
+    from libskylark_tpu_torch.sketch import kernels_fut as kf
+    from libskylark_tpu_torch.sketch import kernels_scatter as ks
+    from libskylark_tpu_torch.sketch import kernels_window as kw
+    from libskylark_tpu_torch.solvers import RegressionProblem, solve_regression
+
+    card = f"[{smi}]"
+    f32 = torch.float32
+    g = torch.Generator(device=dev).manual_seed(SEED + 31)
+    held = set()
+    meshes = {p: P.make_mesh((p,), (P.ROWS,), devices=[dev] * p) for p in SH_SLOTS}
+    times = {}
+
+    def segsum_held(out, vals, keys, segs):
+        ref = ks.segment_sum_flat_plain(vals, keys, segs)
+        _, r = max_err(out, ref)
+        i = int(vals.abs().argmax())
+        ctl = ks.segment_sum_flat_plain(torch.cat([vals[:i], vals[i + 1:]]),
+                                        torch.cat([keys[:i], keys[i + 1:]]), segs)
+        _, c = max_err(out, ctl)
+        print(f"shard (held) segment_sum_flat {vals.shape[0]} -> {segs} {vals.dtype}: vs its "
+              f"plain version rel {r:.3g} (tol 1e-5); control (the plain version without entry "
+              f"{i}) {c:.3g}")
+        check(r <= 1e-5 and c > 1e-5, f"shard segment_sum_flat {vals.shape[0]}: {r}, control {c}")
+
+    kernels = hold_kernels("shard", kf, kw, ("rfut_rowwise", "rfut_rowwise_sampled",
+                                             "gather_scaled_rows", "scatter_rows"), held)
+    kernels.append((ks, "segment_sum_flat", hold(ks, "segment_sum_flat", segsum_held, held)))
+
+    def timed(name, slots, fn):
+        """``fn()``, its synchronized host seconds under ``times[name]``;
+        ``slots`` None is the unsharded reference, run uncounted.  The
+        call is timed again, warm and uncounted: the first pays first-use
+        costs and holds its kernels' signatures."""
+        def once():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = fn()
+            torch.cuda.synchronize()
+            return got, time.perf_counter() - t0
+
+        with uncounted() if slots is None else contextlib.nullcontext():
+            out = once()[0]
+        with uncounted():
+            secs = once()[1]
+        times.setdefault(name, {})["unsharded" if slots is None else slots] = secs
+        return out
+
+    def rel(a, b):
+        a, b = M.fully_replicated(a).double(), M.fully_replicated(b).double()
+        return float((a - b).abs().max() / b.abs().max())
+
+    def agree(name, p, got, ref, tol, ctl):
+        """One slot bitwise the unsharded call; more within ``tol`` beside
+        a control that misses it."""
+        got = M.fully_replicated(got)
+        if p == 1:
+            same = torch.equal(got, ref)
+            print(f"shard {name}, 1 slot: bitwise the unsharded call {same} {card}")
+            check(same, f"shard {name}: one slot is not bitwise the unsharded call")
+            return
+        r, c = rel(got, ref), rel(ctl, ref)
+        print(f"shard {name}, {p} slots: max |diff| / max |ref| {r:.3g} (bound {tol:g}); "
+              f"control {c:.3g} {card}")
+        check(r <= tol and c > tol, f"shard {name}, {p} slots: {r} (control {c})")
+
+    def x_of(out):
+        return out[0] if isinstance(out, tuple) else out
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_phase = time.perf_counter()
+    try:
+        # (a) solve_regression on a row-sharded A.
+        reset_counts()
+        t0 = time.perf_counter()
+        for m, n in SH_LS:
+            A = torch.randn(m, n, generator=g, device=dev)
+            b = A @ torch.randn(n, generator=g, device=dev) + SH_NOISE * torch.randn(
+                m, generator=g, device=dev)
+            solves = (("accelerated", None), ("sketched", "FJLT"), ("sketched", "CWT"),
+                      ("exact", None))
+
+            def solve(A_, b_, solver, stype, seed=SEED):
+                params = (sky.linalg.LeastSquaresParams(sketch_type=stype) if stype
+                          else None)
+                return x_of(solve_regression(RegressionProblem(A_), b_, solver,
+                                             sky.SketchContext(seed=seed), params=params))
+
+            with uncounted():
+                x_sk = solve(A, b, "sketched", "FJLT")
+            for solver, stype in solves:
+                name = f"solve_regression {solver}{f' {stype}' if stype else ''} {m} x {n} f32"
+                ref = timed(name, None, lambda: solve(A, b, solver, stype))
+                with uncounted():
+                    ctl = solve(A, b, solver, stype, SEED + 1) if solver == "sketched" else x_sk
+                for p, mesh in meshes.items():
+                    As, bs = P.shard_rows(A, mesh), P.shard_rows(b, mesh)
+                    got = timed(name, p, lambda: solve(As, bs, solver, stype))
+                    agree(name, p, got, ref, SH_TOL[solver], ctl)
+            del A, b, As, bs, ref, ctl, got, x_sk
+            torch.cuda.empty_cache()
+        read_counts("shard (a)", t0, ("rfut_rowwise", "rfut_rowwise_sampled",
+                                      "gather_scaled_rows", "scatter_rows"))
+
+        # (b) the randomized SVD, approximate KRR and BlockADMM.
+        reset_counts()
+        t0 = time.perf_counter()
+        A = (torch.randn(SH_SVD_M, SH_SVD_R, generator=g, device=dev)
+             @ torch.randn(SH_SVD_R, SH_SVD_N, generator=g, device=dev)) / SH_SVD_R ** 0.5
+        A += 0.01 * torch.randn(SH_SVD_M, SH_SVD_N, generator=g, device=dev)
+        sp = sky.linalg.SVDParams(num_iterations=1)
+        name = f"approximate_svd {SH_SVD_M} x {SH_SVD_N} f32, rank {SH_SVD_R}"
+
+        def svd(A_):
+            return sky.linalg.approximate_svd(A_, SH_SVD_R, sky.SketchContext(seed=SEED), sp)
+
+        U0, s0, V0 = timed(name, None, lambda: svd(A))
+        for p, mesh in meshes.items():
+            U, s, V = timed(name, p, lambda: svd(P.shard_rows(A, mesh)))
+            check(tuple(U.shape) == (SH_SVD_M, SH_SVD_R) and (p == 1 or isinstance(U, M.Sharded)),
+                  f"shard {name}: U is {U!r}")
+            agree(f"{name} (sigma)", p, s, s0, SH_TOL["svd"],
+                  torch.cat([s0[1:], s0[-1:]]))
+        del A, U0, V0, U, V
+        torch.cuda.empty_cache()
+        X = torch.randn(SH_KRR_M, ML_DIM, generator=g, device=dev)
+        Y = torch.nn.functional.one_hot(torch.randint(0, ML_CLASSES, (SH_KRR_M,), generator=g,
+                                                      device=dev), ML_CLASSES).float()
+        kern = sky.ml.GaussianKernel(ML_DIM, sigma=ML_SIGMA)
+        name = f"approximate_kernel_ridge {SH_KRR_M} x {ML_DIM} -> {ML_S} f32"
+
+        def krr(X_, seed=SEED):
+            return sky.ml.approximate_kernel_ridge(kern, X_, Y if not isinstance(X_, M.Sharded)
+                                                   else P.shard_rows(Y, X_.mesh), KRR_LAM,
+                                                   ML_S, sky.SketchContext(seed=seed)).W
+
+        W0 = timed(name, None, lambda: krr(X))
+        with uncounted():
+            W_ctl = krr(X, SEED + 1)
+        for p, mesh in meshes.items():
+            agree(name, p, timed(name, p, lambda: krr(P.shard_rows(X, mesh))), W0,
+                  SH_TOL["krr"], W_ctl)
+        del X, Y, W0, W_ctl
+        torch.cuda.empty_cache()
+        X = torch.randn(ADMM_M, ADMM_D, generator=g, device=dev)
+        y = (X[:, :4].sum(1) > 0).long().cpu().numpy()
+        name = (f"BlockADMMSolver.train {ADMM_M} x {ADMM_D}, 2 maps of {ADMM_S}, P = {ADMM_P}, "
+                f"{SH_ADMM_ITERS} iterations")
+
+        def admm(X_, seed=SEED):
+            kk = sky.ml.GaussianKernel(ADMM_D, sigma=ADMM_SIGMA)
+            ctx = sky.SketchContext(seed=seed)
+            maps = [kk.create_rft(ADMM_S, "regular", ctx) for _ in range(2)]
+            return sky.ml.BlockADMMSolver("hinge", "l2", maps, sky.ml.ADMMParams(
+                maxiter=SH_ADMM_ITERS, data_partitions=ADMM_P)).train(X_, y)
+
+        m0 = timed(name, None, lambda: admm(X))
+        with uncounted():
+            W_ctl = admm(X, SEED + 1).W
+        for p, mesh in meshes.items():
+            mp = timed(name, p, lambda: admm(P.shard_rows(X, mesh)))
+            agree(name, p, mp.W, m0.W, SH_TOL["admm"], W_ctl)
+            out = mp.predict(P.shard_rows(X, mesh))
+            check((p == 1 or isinstance(out, M.Sharded)) and tuple(out.shape) == (ADMM_M, 2),
+                  f"shard {name}: predict of a sharded X is {out!r}")
+        del X, m0, mp, W_ctl, out
+        torch.cuda.empty_cache()
+        read_counts("shard (b)", t0, ())
+
+        # (c) the drivers' --shard on one card: a mesh of one, bitwise.
+        reset_counts()
+        t0 = time.perf_counter()
+        out_dir = CLI_DIR / "out"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        for drv, argv, outs in (
+                ("linear", [cli_files["ls"], "--solution", out_dir / "sh_x{tag}.npy"],
+                 ("sh_x{tag}.npy",)),
+                ("svd", [cli_files["ls"], "-k", CLI_LS_TOP, "-i", 2, "--prefix",
+                         out_dir / "sh_y{tag}"],
+                 ("sh_y{tag}.U.npy", "sh_y{tag}.S.npy", "sh_y{tag}.V.npy"))):
+            main_ = import_module(f"libskylark_tpu_torch.cli.{drv}").main
+            for tag, flag in (("0", []), ("1", ["--shard"])):
+                args = [str(a).replace("{tag}", tag) for a in argv] + flag
+                ctx_ = uncounted() if not flag else contextlib.nullcontext()
+                with ctx_:
+                    t = time.perf_counter()
+                    check(main_(args) == 0, f"shard: skylark_{drv} {' '.join(args)} failed")
+                    times.setdefault(f"skylark_{drv} (YearPredictionMSD width)", {})[
+                        "--shard" if flag else "without"] = time.perf_counter() - t
+            same = all(np.array_equal(np.load(out_dir / f.replace("{tag}", "0")),
+                                      np.load(out_dir / f.replace("{tag}", "1"))) for f in outs)
+            print(f"shard skylark_{drv} --shard on {cli_files['ls'].name}: bitwise the run "
+                  f"without it {same} (one card: a mesh of one) {card}")
+            check(same, f"shard: skylark_{drv} --shard differs from the run without it")
+        read_counts("shard (c)", t0, ("gather_scaled_rows",))
+
+        # (d) the JAX package's multichip dry run on 4 slots of the card.
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            sky.flagship.dryrun_multichip(4, device="cuda")
+        except AssertionError as e:
+            fail(f"shard: dryrun_multichip(4): {e}")
+        times["dryrun_multichip(4)"] = {4: time.perf_counter() - t0}
+        print(f"shard dryrun_multichip(4, device='cuda'): every step ran and met its check "
+              f"{card}")
+        read_counts("shard (d)", t0, ("rfut_rowwise", "scatter_rows", "segment_sum_flat"))
+
+        # (e) the serve programs forced over 2 and 4 entries of the card,
+        # two rounds of distinct requests on one server: round 0's first
+        # batch of each program is its probe (a match serves the
+        # reference), round 1's batches run the kept sharded programs.
+        reset_counts()
+        t0 = time.perf_counter()
+        A = torch.randn(SH_SV_M, SH_SV_N, generator=g, device=dev).cpu().numpy()
+        rng_s = np.random.default_rng(SEED + 32)
+        W = rng_s.standard_normal((ML_S, ML_CLASSES)).astype(np.float32)
+        rhs = [rng_s.standard_normal(SH_SV_M) for _ in range(2 * SH_SV_REQ)]
+        xq = [rng_s.standard_normal(SH_SV_D) for _ in range(2 * SH_SV_REQ)]
+
+        def replica(coalesce):
+            # The linger gathers a round submitted to a running server
+            # into one batch of each op, the rung its program was kept at.
+            srv = serve.Server(serve.ServeParams(max_coalesce=coalesce, warm_start=False,
+                                                 prime=False, coalesce_window_ms=200.0),
+                               seed=42, device=dev)
+            srv.registry.register_system("sys", A, context=sky.SketchContext(seed=9))
+            srv.registry.register_model("fm", sky.ml.FeatureMapModel(
+                [sky.sketch.GaussianRFT(SH_SV_D, ML_S, sky.SketchContext(seed=5), sigma=20.0)],
+                W, device=dev))
+            return srv
+
+        rounds = [[serve.make_request("ls_solve", system="sys", b=v)
+                   for v in rhs[r * SH_SV_REQ:(r + 1) * SH_SV_REQ]]
+                  + [serve.make_request("predict", model="fm", x=v)
+                     for v in xq[r * SH_SV_REQ:(r + 1) * SH_SV_REQ]] for r in range(2)]
+
+        def answers(coalesce, rounds):
+            srv = replica(coalesce)
+            out = []
+            for r, reqs in enumerate(rounds):
+                futs = [srv.submit(dict(q)) for q in reqs]
+                if r == 0:
+                    srv.start()
+                out.append([f.result(timeout=300) for f in futs])
+            srv.stop()
+            check(all(a["ok"] for got in out for a in got),
+                  f"shard serve: an answer failed {out[0][0]}")
+            return out
+
+        def events(got, kind):
+            return [e for a in got for e in a["trace"]["events"] if e["kind"] == kind]
+
+        with uncounted():
+            serial = answers(1, [rounds[0] + rounds[1]])[0]
+        saved = dispatch._local_devices
+        try:
+            os.environ["SKYLARK_SERVE_SHARD"] = "1"
+            for nd in (2, 4):
+                dispatch._local_devices = lambda device, nd=nd: [device] * nd
+                dispatch.clear_cache()
+                got = answers(SH_SV_REQ, rounds)
+                verdicts = sorted({(e["op"], e["devices"], e["match"])
+                                   for e in events(got[0] + got[1], "sharded_probe")})
+                kept = sorted({(e["op"], e["devices"]) for e in events(got[1], "sharded")})
+                same = all(np.array_equal(np.asarray(a["result"]), np.asarray(c["result"]))
+                           for a, c in zip(serial, got[0] + got[1]))
+                print(f"shard serve, {nd} entries of the card: probe verdicts (op, devices, "
+                      f"match) {verdicts}; round 1 served by the kept programs (op, devices) "
+                      f"{kept}, {len(events(got[1], 'sharded'))} of {len(got[1])} answers; "
+                      f"both rounds' answers bitwise the serial ones {same} {card}")
+                check(verdicts and {v[0] for v in verdicts} == {"ls", "predict"},
+                      f"shard serve: programs probed {verdicts}")
+                check({k[0] for k in kept} == {"ls", "predict"},
+                      f"shard serve on {nd} entries: round 1 ran no kept sharded program "
+                      f"of each op: {kept}")
+                check(same, f"shard serve on {nd} entries: answers differ from the serial ones")
+        finally:
+            dispatch._local_devices = saved
+            dispatch.clear_cache()
+            os.environ.pop("SKYLARK_SERVE_SHARD", None)
+        del A
+        read_counts("shard (e)", t0, ())
+
+        # (f) a replica dies under load at tick 2; replicas share the card.
+        reset_counts()
+        t0 = time.perf_counter()
+        small = np.random.default_rng(SEED + 33).standard_normal((4096, 64)).astype(np.float32)
+
+        def drill_replica():
+            srv = serve.Server(serve.ServeParams(max_coalesce=8, warm_start=False, prime=False),
+                               seed=42, device=dev)
+            srv.registry.register_system("sys", small, context=sky.SketchContext(seed=9))
+            return srv
+
+        telemetry_was = os.environ.get("SKYLARK_TELEMETRY")
+        os.environ["SKYLARK_TELEMETRY"] = "1"
+        telemetry.REGISTRY.reset()
+        r1, r2 = drill_replica().start(), drill_replica().start()
+        router = serve.Router(serve.RouterParams(heartbeat_timeout_s=0.0))
+        router.join("r1", server=r1)
+        router.join("r2", server=r2)
+        plan = FleetFaultPlan(die_under_load_at=2)
+        plan.bind_fleet(kill=lambda: r2.stop(0.5))
+        scaler = serve.Autoscaler(router, lambda name: drill_replica(), serve.AutoscaleParams(
+            min_replicas=1, max_replicas=2, queue_high=1e9, queue_low=-1.0, p99_high_ms=1e-4,
+            cooldown_ticks=0, idle_ticks=10**6), fault_plan=plan)
+        responses = []
+        for _ in range(5):
+            responses += [router.call(op="ls_solve", system="sys", b=v)
+                          for v in np.random.default_rng(len(responses)).standard_normal(
+                              (2, 4096))]
+            scaler.step()
+        fleet = router.fleet_report()
+        snap = telemetry.snapshot()
+        router.stop()
+        r1.stop()
+        for srv in scaler._owned.values():
+            srv.stop()
+        telemetry.REGISTRY.reset()
+        if telemetry_was is None:
+            os.environ.pop("SKYLARK_TELEMETRY", None)
+        else:
+            os.environ["SKYLARK_TELEMETRY"] = telemetry_was
+        codes = sorted({r["error"]["code"] for r in responses if not r["ok"]})
+        placeable = sorted(n for n, mm in fleet["members"].items() if mm["placeable"])
+        print(f"shard die-under-load drill: {len(responses)} calls, error codes {codes} (no "
+              f"114 may show), placeable after {placeable}, ejects {snap['router']['ejects']}, "
+              f"scale-ups {snap['autoscale']['scale_ups']} {card}")
+        check(not codes and len(placeable) == 2 and "r2" not in fleet["members"],
+              f"shard drill: codes {codes}, placeable {placeable}")
+        read_counts("shard (f)", t0, ())
+    finally:
+        for mod, name_, kernel in kernels:
+            setattr(mod, name_, kernel)
+
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    for name, by in times.items():
+        cells = ", ".join(f"{k if isinstance(k, str) else f'{k} slot(s)'} {v:.4f} s"
+                          for k, v in by.items())
+        print(f"shard time {name}: {cells} (slots share one card: overhead, not speed-up) {card}")
+    print(f"shard: phase 3q items {time.perf_counter() - t_phase:.1f} s, peak memory allocated "
+          f"{peak:.2f} GiB {card}")
+    return held
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
@@ -6793,6 +7194,14 @@ def main() -> None:
 
     memory("3p")
 
+    # -- 3q. the sharded-input routes on virtual meshes of the one card
+    torch.cuda.empty_cache()
+    t_3q = time.perf_counter()
+    shard_held = shard_path(sky, dev, reset_counts, read_counts, uncounted, smi, cli_files)
+    print(f"shard: phase 3q {time.perf_counter() - t_3q:.1f} s [{smi}]")
+
+    memory("3q")
+
     # -- 4. times at main-path shapes ------------------------------------
     kernels = []
 
@@ -6800,10 +7209,11 @@ def main() -> None:
             path_count=None, err=None, shape=None, split=None):
         b_ms, by = bound(bytes_moved, ops)
         by_path = {p: c[name] for p, c in path_launches.items() if c[name]}
-        # Phases 3i's, 3j's, 3l's, 3m's, 3n's, 3o's and 3p's items, and
-        # their sums under "refine", "policy", "cli", "telemetry", "serve",
-        # "elastic" and "mesh", on every row.
-        for phase in ("refine", "policy", "cli", "telemetry", "serve", "elastic", "mesh"):
+        # Phases 3i's, 3j's, 3l's, 3m's, 3n's, 3o's, 3p's and 3q's items,
+        # and their sums under "refine", "policy", "cli", "telemetry",
+        # "serve", "elastic", "mesh" and "shard", on every row.
+        for phase in ("refine", "policy", "cli", "telemetry", "serve", "elastic", "mesh",
+                      "shard"):
             by_path[phase] = sum(c[name] for p, c in path_launches.items()
                                  if p.startswith(f"{phase} ("))
         kernels.append({
@@ -6834,6 +7244,9 @@ def main() -> None:
             # ... and those phase 3p held.
             "mesh_held": sorted(str(sig[1:]).replace("torch.", "")
                                 for sig in mesh_held if sig[0] == name),
+            # ... and those phase 3q held.
+            "shard_held": sorted(str(sig[1:]).replace("torch.", "")
+                                 for sig in shard_held if sig[0] == name),
             "max_abs_err": errs[name] if err is None else err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
             "library_ms": library_ms, **({"shape": shape} if shape else {}), **(split or {}),

@@ -8,10 +8,8 @@ telemetry knob and ledger directory) for one run and put them back after
 it, and
 :func:`to_device`, the host→card copy of what the IO layer read (f32, or
 f64 under ``--x64``, as ``jnp.asarray`` gives).  :func:`distributed_scope`
-joins the ``torch.distributed`` world of a ``--distributed`` run.  Flags
-whose layer the port lacks raise
-:class:`~libskylark_tpu_torch.utils.UnsupportedError` naming the ROADMAP
-item that brings it.
+joins the ``torch.distributed`` world of a ``--distributed`` run, and
+:func:`shard_input` lays A out for ``--shard``.
 """
 
 from __future__ import annotations
@@ -24,7 +22,6 @@ import numpy as np
 import torch
 
 from .. import _device
-from ..utils.exceptions import UnsupportedError
 from ..utils.sparse import is_sparse
 
 __all__ = [
@@ -43,7 +40,8 @@ __all__ = [
     "print_policy_report",
     "print_telemetry_report",
     "print_test_metrics",
-    "refuse_deferred",
+    "add_shard_args",
+    "shard_input",
     "run_scope",
     "scan_dims",
     "setup_perf",
@@ -54,9 +52,6 @@ __all__ = [
     "to_device",
     "to_numpy",
 ]
-
-ITEM_SHARDED = "ROADMAP Queue A item 9c: sharded-input routes through the solvers"
-
 
 def add_device_args(p) -> None:
     """The port's device flag (every driver)."""
@@ -133,18 +128,37 @@ def sync() -> None:
 
 
 def to_numpy(x) -> np.ndarray:
-    """A host numpy copy of a tensor (dense or COO) or array."""
+    """A host numpy copy of a tensor (dense or COO), a sharded value
+    (gathered) or an array."""
+    from ..parallel import fully_replicated
+
+    x = fully_replicated(x)
     if isinstance(x, torch.Tensor):
         x = x.to_dense() if is_sparse(x) else x
         return x.detach().cpu().numpy()
     return np.asarray(x)
 
 
-def refuse_deferred(args) -> None:
-    """Raise UnsupportedError for a flag of a layer the port lacks:
-    ``--shard`` waits for ROADMAP Queue A item 9c."""
-    if getattr(args, "shard", False):
-        raise UnsupportedError(f"--shard is not ported yet ({ITEM_SHARDED})")
+def add_shard_args(p) -> None:
+    """``--shard`` (``skylark_linear``, ``skylark_svd``)."""
+    p.add_argument("--shard", action="store_true",
+                   help="shard the input rows over all visible devices (a mesh of one "
+                        "slot per card; rows zero-padded to a multiple of the slots)")
+
+
+def shard_input(args, A, dev):
+    """``(A, n_orig)``: with ``--shard`` a dense A row-sharded over
+    ``default_mesh()`` (``shard_rows_padded``: zero rows up to a multiple
+    of the slots; ``n_orig`` its true row count), else A and None.  A
+    sparse A keeps one device, with the JAX driver's warning."""
+    if not args.shard:
+        return A, None
+    if is_sparse(A):
+        print("warning: --shard ignores sparse inputs (BCOO stays on one device)")
+        return A, None
+    from ..parallel import default_mesh, shard_rows_padded
+
+    return shard_rows_padded(A, default_mesh(device=None if dev.type == "cuda" else dev))
 
 
 def add_distributed_args(p, *, what: str) -> None:

@@ -7,8 +7,10 @@ package).
 Where the port departs from the JAX driver: ``--cond-est`` sketches A
 with CWT whether A is dense or sparse (the JAX driver takes FJLT for a
 dense A, and fails on a sparse one: its QR refuses a BCOO), and a sparse
-A's sketch comes out dense; ``--shard`` raises ``UnsupportedError``
-naming its ROADMAP item (9c).  ``--stream --distributed`` runs one rank
+A's sketch comes out dense.  ``--shard`` row-shards A over
+``default_mesh()`` (one slot per visible card: on one card the run is
+bitwise the run without it) and hands it to
+``solve_regression``.  ``--stream --distributed`` runs one rank
 of the elastic streaming pass over a ``torch.distributed`` world
 (``cli.common.distributed_scope``).
 """
@@ -26,13 +28,13 @@ from .common import (
     add_device_args,
     add_distributed_args,
     add_perf_args,
+    add_shard_args,
     add_policy_args,
     add_telemetry_args,
     print_perf_report,
     print_policy_report,
     print_telemetry_report,
     distributed_scope,
-    refuse_deferred,
     run_scope,
     setup_perf,
     setup_policy,
@@ -58,9 +60,7 @@ def main(argv=None) -> int:
                         "QR, cond_est on R, one small SVD)")
     p.add_argument("--sparse", action="store_true")
     p.add_argument("--x64", action="store_true")
-    p.add_argument("--shard", action="store_true",
-                   help="shard the input rows over all visible devices "
-                        "(not ported yet: raises)")
+    add_shard_args(p)
     p.add_argument("--stream", action="store_true",
                    help="out-of-core sketch-and-solve: stream the input "
                         "in --batch-rows row blocks instead of reading "
@@ -82,7 +82,6 @@ def main(argv=None) -> int:
     add_telemetry_args(p)
     args = p.parse_args(argv)
 
-    refuse_deferred(args)
     setup_perf(args)
     if args.distributed and not args.stream:
         print("error: --distributed rides the streaming path; add --stream", file=sys.stderr)
@@ -99,10 +98,15 @@ def _whole_file_main(args, dev) -> int:
     from ..core.context import SketchContext
     from ..io import read_libsvm
     from ..solvers import RegressionProblem, solve_regression
-    from .common import to_device, to_numpy
+    from ..parallel import routes
+    from .common import shard_input, to_device, to_numpy
 
     A, b = read_libsvm(args.inputfile, sparse=args.sparse)
-    Aj = to_device(A, args)
+    Aj, n_orig = shard_input(args, to_device(A, args), dev)
+    if n_orig is not None:
+        # Zero rows contribute zero residual: the LS solution is
+        # unchanged; pad b to match.
+        b = np.concatenate([b, np.zeros(Aj.shape[0] - n_orig)])
     if args.cond_est:
         _print_cond_est(args, Aj)
     t0 = time.perf_counter()
@@ -117,8 +121,12 @@ def _whole_file_main(args, dev) -> int:
     dt = time.perf_counter() - t0
     xj = torch.as_tensor(x, device=dev)
     both = torch.promote_types(Aj.dtype, xj.dtype)  # as jnp's f32 @ f64 promotes
-    Ab, xj = Aj.to(both), xj.to(both)
-    Ax = torch.sparse.mm(Ab, xj[:, None])[:, 0] if Ab.layout == torch.sparse_coo else Ab @ xj
+    if routes.is_sharded(Aj):
+        Ax = routes.linear_ops(routes.map_shards(Aj, lambda t: t.to(both)))[0](xj.to(both))
+    else:
+        Ab, xj = Aj.to(both), xj.to(both)
+        Ax = (torch.sparse.mm(Ab, xj[:, None])[:, 0] if Ab.layout == torch.sparse_coo
+              else Ab @ xj)
     r = np.linalg.norm(to_numpy(Ax) - b)
     print(f"Solved {A.shape[0]}x{A.shape[1]} ({args.solver}) in {dt:.3f}s; "
           f"residual {r:.6e}")
@@ -151,7 +159,7 @@ def _print_cond_est(args, Aj) -> None:
     m, n = (int(d) for d in Aj.shape)
     s = min(max(4 * n, n + 16), m)
     S = create_sketch("CWT", m, s, SketchContext(seed=args.seed))
-    if Aj.layout == torch.sparse_coo:
+    if isinstance(Aj, torch.Tensor) and Aj.layout == torch.sparse_coo:
         SA = S.apply(Aj, "columnwise", dense_output=True)
     else:
         SA = plans.apply(S, Aj, "columnwise")
@@ -179,6 +187,9 @@ def _stream_main(args) -> int:
         print(f"error: --stream is sketch-and-solve only; --solver "
               f"{args.solver} needs the resident matrix", file=sys.stderr)
         return 2
+    if args.shard:
+        print("warning: --shard is a whole-matrix layout; ignored with "
+              "--stream", file=sys.stderr)
 
     from ..core.context import SketchContext
     from ..io import scan_libsvm_dims, stream_libsvm

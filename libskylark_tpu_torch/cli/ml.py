@@ -29,7 +29,6 @@ from .common import (
     print_policy_report,
     print_telemetry_report,
     distributed_scope,
-    refuse_deferred,
     run_scope,
     setup_perf,
     setup_policy,
@@ -93,7 +92,6 @@ def main(argv=None) -> int:
     add_telemetry_args(p)
     args = p.parse_args(argv)
 
-    refuse_deferred(args)
     setup_perf(args)
     if args.trainfile is None and args.testfile is None:
         p.error("need --trainfile (train) or --testfile + --modelfile (predict)")

@@ -52,7 +52,6 @@ from .common import (
     print_perf_report,
     print_policy_report,
     print_telemetry_report,
-    refuse_deferred,
     run_scope,
     setup_perf,
     setup_policy,
@@ -162,7 +161,6 @@ def main(argv=None) -> int:
     add_telemetry_args(p)
     args = p.parse_args(argv)
 
-    refuse_deferred(args)
     setup_perf(args)
     with run_scope(args) as dev:
         setup_telemetry(args)

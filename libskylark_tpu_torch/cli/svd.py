@@ -10,8 +10,9 @@ U/S/V as .npy, or as the reference's ASCII convention (``El::Write(...,
 El::ASCII)`` to ``prefix.U`` / ``prefix.S`` / ``prefix.V``,
 ``skylark_svd.cpp:110-112``) with ``--ascii``.  ``--profile`` generates a
 synthetic low-rank + noise matrix instead of reading a file (≙
-``skylark_svd.cpp:37-60``).  ``--shard`` raises ``UnsupportedError``
-naming its ROADMAP item.
+``skylark_svd.cpp:37-60``).  ``--shard`` row-shards A over
+``default_mesh()`` (zero rows up to a multiple of the slots; U trimmed
+back), as the JAX driver does; a sparse A keeps one device.
 """
 
 from __future__ import annotations
@@ -26,12 +27,12 @@ import torch
 from .common import (
     add_device_args,
     add_perf_args,
+    add_shard_args,
     add_policy_args,
     add_telemetry_args,
     print_perf_report,
     print_policy_report,
     print_telemetry_report,
-    refuse_deferred,
     run_scope,
     setup_perf,
     setup_policy,
@@ -89,9 +90,7 @@ def main(argv=None) -> int:
         help="synthetic MxN profiling mode (no input file)",
     )
     p.add_argument("--x64", action="store_true", help="enable float64")
-    p.add_argument("--shard", action="store_true",
-                   help="shard the input rows over all visible devices "
-                        "(not ported yet: raises)")
+    add_shard_args(p)
     p.add_argument(
         "--stream",
         type=int,
@@ -105,7 +104,6 @@ def main(argv=None) -> int:
     add_telemetry_args(p)
     args = p.parse_args(argv)
 
-    refuse_deferred(args)
     setup_perf(args)
     with run_scope(args) as dev:
         setup_telemetry(args)
@@ -223,9 +221,15 @@ def _run(p, args, dev) -> int:
         print_telemetry_report(args)
         return 0
 
+    from .common import shard_input
+
+    # Zero rows don't affect singular values/V; U is trimmed below.
+    A, n_orig = shard_input(args, A, dev)
     t0 = time.perf_counter()
     U, s, V = (to_numpy(t) for t in approximate_svd(A, args.rank, ctx, params))
     dt = time.perf_counter() - t0
+    if n_orig is not None:
+        U = U[:n_orig]
     write(".U", U)
     write(".S", s)
     write(".V", V)

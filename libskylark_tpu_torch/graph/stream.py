@@ -134,8 +134,9 @@ def ase_from_sketch(SA, S, k: int):
     eigensolves turns that into an eigendecomposition.  Signed: negative
     eigenvalues carry through, exact when ``rank(A) ≤ s``.  Returns
     ``(V, lam)``, the top ``k`` by |λ|; the embedding is
-    ``V·√|λ|``.  On one device the reference's ``fully_replicated`` is
-    the identity."""
+    ``V·√|λ|``.  ``SA`` is one tensor (a sharded sketch merges by psum
+    onto slot 0's device), so the reference's ``fully_replicated`` points
+    have nothing to gather."""
     dtype = SA.dtype
     s = SA.shape[0]
     Y = SA.T  # (n, s) = A·Ωᵀ (A symmetric)

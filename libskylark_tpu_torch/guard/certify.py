@@ -87,20 +87,31 @@ def certify_svd(A, U, s, V, *, stage: str = "randomized_svd",
                 rtol: float | None = None) -> Certificate:
     """Posterior check of a randomized SVD: finite factors and
     ``‖A v₀ − σ₀ u₀‖ ≤ rtol·σ₀`` (default rtol 0.5: a healthy run's
-    leading triplet is accurate, a collapsed one misses by far more)."""
-    if not bool(torch.isfinite(s).all() & torch.isfinite(U).all() & torch.isfinite(V).all()):
+    leading triplet is accurate, a collapsed one misses by far more).
+    A row-sharded A comes with U sharded as A: each slot checks its rows
+    and the squared norms are psum'd."""
+    from .._device import is_sharded
+    from ..parallel import routes
+
+    bad_u = routes.tsum(lambda u: (~torch.isfinite(u)).sum(), U)  # non-finite entries
+    if not bool(torch.isfinite(s).all() & torch.isfinite(V).all() & (bad_u == 0)):
         return Certificate(RESKETCH, stage, detail="non-finite SVD factors")
     s0 = float(s[0])
     if s0 == 0.0:
         # A ≈ 0, or a collapsed sketch: ‖A‖_F tells the two apart.
         vals = A.coalesce().values() if is_sparse(A) else A
-        if float(torch.linalg.vector_norm(vals)) == 0.0:
+        if float(routes.tsum(lambda a: torch.linalg.vector_norm(a), vals)) == 0.0:
             return Certificate(OK, stage, sigma_max=0.0)
         return Certificate(RESKETCH, stage, sigma_max=s0,
                            detail="sigma_0 = 0 on a nonzero matrix")
     rtol = 0.5 if rtol is None else rtol
-    matvec, _ = linear_ops(A)
-    res = float(torch.linalg.vector_norm(matvec(V[:, 0]) - s0 * U[:, 0]))
+    if is_sharded(U):
+        v0 = V[:, 0]
+        res = float(torch.sqrt(routes.tsum(
+            lambda a, u: torch.sum((a @ v0.to(a.device) - s0 * u[:, 0]) ** 2), A, U)))
+    else:
+        matvec, _ = linear_ops(A)
+        res = float(torch.linalg.vector_norm(matvec(V[:, 0]) - s0 * U[:, 0]))
     if not (res <= rtol * s0):
         return Certificate(RESKETCH, stage, sigma_max=s0,
                            detail=f"posterior residual {res:.3e} > {rtol}*sigma_0")

@@ -23,6 +23,11 @@ OK.  Each routed solve then records what it saw (``policy.observe``)
 and closes with ``telemetry.run_summary``, which writes the observation
 to the store (``policy.flush``) and, with telemetry on, ledgers the
 run's info beside the registry's snapshot.
+A row-sharded A (:class:`~libskylark_tpu_torch.parallel.mesh.Sharded`)
+takes every route slot by slot (``parallel.routes``): the sketch merged
+by one psum, the exact solves through the TSQR of the slots' R factors,
+refinement's and LSQR's products per slot; B is laid out on slot 0's
+device.
 ``streaming_least_squares`` is the out-of-core face: the same
 sketch-and-solve over ``(A_block, b_block)`` batches
 (``streaming.sketch_least_squares``), JLT by default (FJLT has no
@@ -36,10 +41,11 @@ from dataclasses import dataclass, replace
 import torch
 
 from .. import guard, plans, policy, telemetry
-from .._device import as_tensor
+from .._device import is_sharded
 from ..core.context import SketchContext
 from ..core.params import Params
 from ..core.precision import fp8_dtype, round_to_e4m3
+from ..parallel import routes
 from ..sketch.base import Dimension, create_sketch
 from ..utils.exceptions import NumericalHealthError, UnsupportedError
 from ..utils.sparse import is_sparse
@@ -66,15 +72,48 @@ def _svd_lstsq(A, B):
     return Vh.T @ (sinv[:, None] * (U.T @ B))
 
 
+def _exact_sharded(A, B, alg: str):
+    """:func:`exact_least_squares` of a row-sharded A: ``qr`` and ``svd``
+    through the TSQR of the slots' R factors, ``sne`` with its R, ``ne``
+    on the psum'd Gram; every Aᵀ·B a psum in slot order."""
+    Bs = routes.split_rows(B, A)
+    if alg == "qr":
+        Q, R = routes.tsqr(A)
+        return torch.linalg.solve_triangular(R, routes.rmatmul(Q, Bs), upper=True)
+    if alg == "sne":
+        R = routes.tsqr(A)[1]
+        Y = torch.linalg.solve_triangular(R.T, routes.rmatmul(A, Bs), upper=False)
+        return torch.linalg.solve_triangular(R, Y, upper=True)
+    if alg == "ne":
+        L, info = torch.linalg.cholesky_ex(routes.tsum(lambda a: a.T @ a, A))
+        if int(info) == 0 and bool(torch.isfinite(L).all()):
+            return torch.cholesky_solve(routes.rmatmul(A, Bs), L)
+        if not guard.enabled():
+            raise NumericalHealthError(
+                "Cholesky of the Gram matrix failed (singular or indefinite) "
+                "in exact_least_squares(alg='ne')",
+                stage="exact_ls_ne",
+            )
+    elif alg != "svd":
+        raise ValueError(f"unknown exact LS alg {alg!r}")
+    U, s, Vh = routes.dense_svd(A)
+    cutoff = torch.finfo(A.dtype).eps * max(A.shape) * s[0]
+    sinv = torch.where(s > cutoff, 1.0 / s, torch.zeros_like(s))
+    return Vh.T @ (sinv[:, None] * routes.rmatmul(U, Bs))
+
+
 def exact_least_squares(A, B, alg: str = "qr", *, device=None):
     """Solve ``min_X ||A X - B||_F`` for tall A; returns X (n, k), or
     (n,) for a vector B.  ``alg`` ∈ {"qr", "sne", "ne", "svd"}.  When the
     Gram matrix of ``ne`` has no finite Cholesky factor, the guard
     reroutes to the ``svd`` pseudoinverse; under ``SKYLARK_GUARD=0`` it
-    raises :class:`NumericalHealthError` instead."""
-    A = as_tensor(A, device)
-    B = as_tensor(B, A.device if device is None else device)
+    raises :class:`NumericalHealthError` instead.  A row-sharded A runs
+    slot by slot (:func:`_exact_sharded`); X is on slot 0's device."""
+    A, B = routes.operands(A, B, device)
     squeeze = B.ndim == 1
+    if is_sharded(A):
+        X = _exact_sharded(A, B[:, None] if squeeze else B, alg)
+        return X[:, 0] if squeeze else X
     if squeeze:
         B = B[:, None]
     if alg == "qr":
@@ -142,8 +181,7 @@ def approximate_least_squares(
     if route is not None and route not in policy.LS_ROUTES:
         raise ValueError(f"unknown least-squares route {route!r}; one of {policy.LS_ROUTES}")
     params = params or LeastSquaresParams()
-    A = as_tensor(A, device)
-    B = as_tensor(B, A.device if device is None else device)
+    A, B = routes.operands(A, B, device)
     squeeze = B.ndim == 1
     if squeeze:
         B = B[:, None]
@@ -151,7 +189,8 @@ def approximate_least_squares(
     sparse = is_sparse(A)
     guard_on = guard.enabled()
     decision = policy.consult(
-        "ls", m=m, n=n, targets=B.shape[1], dtype=A.dtype, sparse=sparse, device=A.device,
+        "ls", m=m, n=n, targets=B.shape[1], dtype=A.dtype, sparse=sparse,
+        device=routes.device0(A),
         route=route, sketch_type=params.sketch_type, sketch_size=params.sketch_size,
         guard_on=guard_on)
     default_size = min(4 * n, m)
@@ -252,9 +291,10 @@ def approximate_least_squares(
         fp8 = decision.compute_dtype == "float8_e4m3fn"
         report = None
         if not fp8:
-            X, report = run_guarded(A.to(torch.bfloat16), True)
+            X, report = run_guarded(routes.map_shards(A, lambda t: t.to(torch.bfloat16)), True)
         elif fp8_dtype() is not None:
-            X, report = run_guarded(round_to_e4m3(A).to(torch.bfloat16), True)
+            X, report = run_guarded(
+                routes.map_shards(A, lambda t: round_to_e4m3(t).to(torch.bfloat16)), True)
         if report is None or not ok0(report):
             decision.escalated = True
             notes["fp8" if fp8 else "bf16"] = "fail"

@@ -7,9 +7,12 @@ The tall products are ``torch.matmul`` in full f32 on the card (TF32 is
 off, ``_device.py``), the counterpart of the JAX package's
 ``precision="highest"``; the small factorizations are torch's own.
 ``A`` may be a dense or a sparse COO tensor (only products with A are
-taken).  Torch has no sharding propagation, so the JAX package's
-``fully_replicated`` constraints are no-ops here (sharded-input routes
-are ROADMAP Queue A item 9c).  ``streaming_approximate_svd`` is the
+taken), or a row-sharded
+:class:`~libskylark_tpu_torch.parallel.mesh.Sharded`: then Y = A·Ω and
+the power iterations' A·Z run per slot, and the Grams of
+:func:`gram_orth` and ``B = AᵀQ`` (the JAX package's
+``fully_replicated`` points) are psum'd in slot order onto slot 0's
+device; U comes back row-sharded as A.  ``streaming_approximate_svd`` is the
 matrix-free form for A too large for the card: row panels regenerated
 (or re-streamed) per pass, only one panel and the small accumulators
 resident; with ``mesh=`` each panel is split over a mesh's slots.
@@ -22,11 +25,12 @@ from dataclasses import dataclass, replace
 import torch
 
 from .. import guard
-from .._device import as_tensor
+from .._device import as_tensor, is_sharded
 from ..core.context import SketchContext
 from ..core.matrices import gaussian_matrix
 from ..core.params import Params
 from ..core.random import sample_window
+from ..parallel import routes
 from ..resilient.chunked import ChunkedSolver
 from ..sketch.base import Dimension
 from ..sketch.dense import JLT
@@ -62,12 +66,12 @@ def gram_orth(Y: torch.Tensor, passes: int = 2) -> torch.Tensor:
     sketch of an exactly low-rank A) yields zero columns, not NaNs; the
     rank-k truncation downstream drops them."""
     for _ in range(passes):
-        G = Y.T @ Y
+        G = routes.tsum(lambda y: y.T @ y, Y)
         lam, V = torch.linalg.eigh(G)
         floor = torch.clamp(lam[-1], min=0) * torch.finfo(Y.dtype).eps * G.shape[0]
         scale = torch.where(lam > floor, torch.rsqrt(torch.maximum(lam, floor)),
                             torch.zeros_like(lam))
-        Y = Y @ (V * scale[None, :])
+        Y = routes.rows_map(torch.matmul, Y, V * scale[None, :])
     return Y
 
 
@@ -81,11 +85,18 @@ def _sketch_size(k: int, params: SVDParams, n: int, m: int | None = None):
     return k, max(s, k)
 
 
+def _ops(A):
+    """``(A·Z, Aᵀ·Q)``: a row-sharded A keeps A·Z row-sharded."""
+    if is_sharded(A):
+        return (lambda Z: routes.rows_map(torch.matmul, A, Z)), (lambda Q: routes.rmatmul(A, Q))
+    return linear_ops(A)
+
+
 def power_iteration(A, Q: torch.Tensor, num_iterations: int, orthogonalize: bool = True):
     """Subspace iteration ``Q <- orth((A·Aᵀ)·Q)``, repeated
     (≙ ``PowerIteration``, ``nla/svd.hpp:71-149``; pass ``A.T`` for the
-    adjoint flavour)."""
-    matvec, rmatvec = linear_ops(A)
+    adjoint flavour).  A row-sharded A takes a Q sharded as A."""
+    matvec, rmatvec = _ops(A)
     for _ in range(max(int(num_iterations), 0)):
         Q = matvec(rmatvec(Q))
         if orthogonalize:
@@ -101,12 +112,12 @@ def approximate_svd_chunked(A, rank: int, context: SketchContext,
     the same test matrix.  ``extract_result`` does the trailing
     orthonormalization, ``B = AᵀQ``, the small SVD and the truncation."""
     params = params or SVDParams()
-    A = as_tensor(A, device)
+    A, _ = routes.operands(A, device=device)
     m, n = A.shape
     k, s = _sketch_size(rank, params, n, m)
     niter = max(params.num_iterations, 0)
     orthogonalize = not params.skip_qr
-    rmatvec = linear_ops(A)[1]
+    rmatvec = _ops(A)[1]
 
     def init_state():
         # Y = A·Ωᵀ, a rowwise JLT sketch (nla/svd.hpp:255-257).
@@ -124,8 +135,8 @@ def approximate_svd_chunked(A, rank: int, context: SketchContext,
         B = rmatvec(Q)  # (n, s)
         W, sv, Zt = torch.linalg.svd(B, full_matrices=False)
         # A ≈ Q·Bᵀ = (Q·Ztᵀ)·diag(sv)·Wᵀ (nla/svd.hpp:266-285).
-        U = Q @ Zt.T
-        return U[:, :k], sv[:k], W[:, :k]
+        U = routes.rows_map(torch.matmul, Q, Zt.T[:, :k]) if is_sharded(Q) else (Q @ Zt.T)[:, :k]
+        return U, sv[:k], W[:, :k]
 
     return ChunkedSolver(
         init_state=init_state,
@@ -151,7 +162,7 @@ def approximate_svd(A, rank: int, context: SketchContext, params: SVDParams | No
     ``info["recovery"]``.
     """
     params = params or SVDParams()
-    A = as_tensor(A, device)
+    A, _ = routes.operands(A, device=device)
 
     def run(ctx, p):
         sol = approximate_svd_chunked(A, rank, ctx, p)
@@ -185,9 +196,14 @@ def approximate_svd(A, rank: int, context: SketchContext, params: SVDParams | No
             out = (U, sv, V)
             break
     if out is None:
-        Ad = A.to_dense() if is_sparse(A) else A
-        Uf, svf, Vtf = torch.linalg.svd(Ad, full_matrices=False)
-        out = (Uf[:, :rank], svf[:rank], Vtf[:rank].T)
+        if is_sharded(A):
+            Uf, svf, Vtf = routes.dense_svd(A)
+            Uf = routes.rows_map(lambda u: u[:, :rank], Uf)
+        else:
+            Ad = A.to_dense() if is_sparse(A) else A
+            Uf, svf, Vtf = torch.linalg.svd(Ad, full_matrices=False)
+            Uf = Uf[:, :rank]
+        out = (Uf, svf[:rank], Vtf[:rank].T)
         report.record("fallback", verdict=guard.FALLBACK, detail="dense torch.linalg.svd")
         report.recovered = True
     if return_info:

@@ -40,6 +40,11 @@ on the same buffers, bitwise the eager steps
 and ``chunked`` run the same step, so their models are bitwise equal;
 ``ml.distributed`` runs it too (``_admm_step``), over a rank's
 partitions with the consensus summed over the ranks.
+A row-sharded X (:class:`~libskylark_tpu_torch.parallel.mesh.Sharded`)
+lays the data partitions over the mesh's slots: each slot runs the
+local half on its partitions and the consensus sums are psum'd in slot
+order (``_admm_step_sharded``), as the JAX package's psum over the
+partition axis; ``predict`` of a sharded X is row-sharded.
 The Gram products and factors run in at least f32 with TF32 off (the
 JAX package's ``precision="highest"``; an indefinite factor gives silent
 NaNs).
@@ -54,9 +59,11 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
-from .._device import as_tensor
+from .._device import as_tensor, is_sharded
 from ..core.params import Params
 from ..core.random import _const
+from ..parallel import routes
+from ..parallel import mesh as pmesh
 from ..resilient.chunked import ChunkedSolver, graphable, stepper
 from ..sketch.base import Dimension
 from ..solvers.prox import get_loss, get_regularizer
@@ -143,16 +150,17 @@ def _factor(Zs, timer):
     return Cinvs
 
 
-def _admm_step(loss, reg, maps, p, Zs, Cinvs, Yp, k: int, P_total: int, merge=None):
-    """``(state0, step, graphed)`` of the ADMM iteration over this
-    process's partitions: ``Zs`` (P_local, ni, s_j), ``Cinvs`` their
-    cached inverses, ``Yp`` the partitioned targets.  The consensus needs
-    Σ over ALL ``P_total`` partitions of Wi (and the loss summed over
-    them): ``merge({"wi", "obj"})`` sums this process's parts over the
-    ranks of a distributed trainer (it runs eagerly, between the local
-    half and the consensus); None (one process) takes the local sums as
-    they are, and the step is the single-process trainer's, op for op,
-    captured as one CUDA graph where it can be."""
+_LOCAL_KEYS = ("O", "Obar", "nu", "del_o", "mu_ij", "ZtObar")
+
+
+def _admm_halves(loss, reg, maps, p, Zs, Cinvs, Yp, k: int, P_total: int):
+    """``(local, consensus, local0, rep0)`` of one ADMM iteration.
+
+    ``local(s, Wbar)`` is the half over the partitions ``Zs`` holds
+    (their loss prox and block updates): it returns the partitions' new
+    state, their Σ Wi and their loss.  ``consensus(s, wi, obj_loss)``
+    takes those summed over ALL ``P_total`` partitions and returns the
+    replicated state.  ``local0``/``rep0`` are the initial states."""
     P = Zs[0].shape[0]
     ni = Zs[0].shape[1]
     dtype, dev = Zs[0].dtype, Zs[0].device
@@ -167,11 +175,10 @@ def _admm_step(loss, reg, maps, p, Zs, Cinvs, Yp, k: int, P_total: int, merge=No
     def zt_mul(Z, B):
         return _zt_mul(Z, B, split)
 
-    def step(s):
-        mu_ij = s["mu_ij"] - s["Wbar"][None]
+    def local(s, Wbar):
+        mu_ij = s["mu_ij"] - Wbar[None]
         Obar = s["Obar"] - s["nu"]
         O = loss.prox(Obar, inv_rho, Yp)
-        W = reg.prox(s["Wbar"] - s["mu"], lam_rho)
 
         sum_o = torch.zeros_like(O)
         wbar_out = torch.zeros_like(O)
@@ -179,7 +186,7 @@ def _admm_step(loss, reg, maps, p, Zs, Cinvs, Yp, k: int, P_total: int, merge=No
         Wi, mu_ij_new, ZtObar_new = [], [], []
         for j in range(J):
             lo, hi = starts[j], starts[j + 1]
-            Z, Wbar_j = Zs[j], s["Wbar"][lo:hi]
+            Z, Wbar_j = Zs[j], Wbar[lo:hi]
             wbar_out = wbar_out + torch.bmm(Z, Wbar_j.expand(P, -1, -1)).transpose(1, 2)
             rhs = Wbar_j[None] - mu_ij[:, lo:hi] + s["ZtObar"][:, lo:hi] + zt_mul(Z, dsum)
             C = Cinvs[j]
@@ -193,37 +200,91 @@ def _admm_step(loss, reg, maps, p, Zs, Cinvs, Yp, k: int, P_total: int, merge=No
         del_o = O - sum_o
         Obar = O - del_o / (J + 1.0)
         nu = s["nu"] + O - Obar
+        out = dict(O=O, Obar=Obar, nu=nu, del_o=del_o, mu_ij=torch.cat(mu_ij_new, dim=1),
+                   ZtObar=torch.cat(ZtObar_new, dim=1))
+        return out, torch.cat(Wi, dim=1).sum(dim=0), loss.evaluate(wbar_out, Yp)
+
+    def consensus(s, wi, obj_loss):
         # Consensus: the sum over partitions (≙ the MPI reduce of Wi,
         # BlockADMM.hpp:574-578), over every rank's partitions.
-        wi = torch.cat(Wi, dim=1).sum(dim=0)
-        obj_loss = loss.evaluate(wbar_out, Yp)
-        if merge is not None:
-            g = merge({"wi": wi, "obj": obj_loss})
-            wi, obj_loss = g["wi"], g["obj"]
+        W = reg.prox(s["Wbar"] - s["mu"], lam_rho)
         Wbar = (wi + W) / (P_total + 1.0)
         mu = s["mu"] + W - Wbar
         obj = obj_loss + lam * reg.evaluate(Wbar)
-        return dict(
-            it=s["it"] + 1, Wbar=Wbar, W=W, mu=mu, O=O, Obar=Obar, nu=nu,
-            del_o=del_o, mu_ij=torch.cat(mu_ij_new, dim=1),
-            ZtObar=torch.cat(ZtObar_new, dim=1), obj=obj,
-            objs=s["objs"].index_copy(0, s["it"].reshape(1), obj.reshape(1)),
-        )
+        return dict(it=s["it"] + 1, Wbar=Wbar, W=W, mu=mu, obj=obj,
+                    objs=s["objs"].index_copy(0, s["it"].reshape(1), obj.reshape(1)))
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=dev)
 
-    state = dict(
+    local0 = dict(O=zeros(P, k, ni), Obar=zeros(P, k, ni), nu=zeros(P, k, ni),
+                  del_o=zeros(P, k, ni), mu_ij=zeros(P, D, k), ZtObar=zeros(P, D, k))
+    rep0 = dict(
         it=torch.zeros((), dtype=torch.int64, device=dev),
         Wbar=zeros(D, k), W=zeros(D, k), mu=zeros(D, k),
-        O=zeros(P, k, ni), Obar=zeros(P, k, ni), nu=zeros(P, k, ni),
-        del_o=zeros(P, k, ni),
-        mu_ij=zeros(P, D, k), ZtObar=zeros(P, D, k),
         obj=zeros(),
         objs=zeros(max(int(p.maxiter), 1)),  # the objective trace
     )
+    return local, consensus, local0, rep0
+
+
+def _ordered(rep, loc):
+    """The state dict in its one key order (a graph's static state)."""
+    out = {key: rep[key] for key in ("it", "Wbar", "W", "mu")}
+    out.update((key, loc[key]) for key in _LOCAL_KEYS)
+    out.update(obj=rep["obj"], objs=rep["objs"])
+    return out
+
+
+def _admm_step(loss, reg, maps, p, Zs, Cinvs, Yp, k: int, P_total: int, merge=None):
+    """``(state0, step, graphed)`` of the ADMM iteration over this
+    process's partitions: ``Zs`` (P_local, ni, s_j), ``Cinvs`` their
+    cached inverses, ``Yp`` the partitioned targets.  The consensus needs
+    Σ over ALL ``P_total`` partitions of Wi (and the loss summed over
+    them): ``merge({"wi", "obj"})`` sums this process's parts over the
+    ranks of a distributed trainer (it runs eagerly, between the local
+    half and the consensus); None (one process) takes the local sums as
+    they are, and the step is the single-process trainer's, op for op,
+    captured as one CUDA graph where it can be."""
+    local, consensus, local0, rep0 = _admm_halves(loss, reg, maps, p, Zs, Cinvs, Yp, k,
+                                                  P_total)
+
+    def step(s):
+        loc, wi, obj_loss = local(s, s["Wbar"])
+        if merge is not None:
+            g = merge({"wi": wi, "obj": obj_loss})
+            wi, obj_loss = g["wi"], g["obj"]
+        return _ordered(consensus(s, wi, obj_loss), loc)
+
     graphed = merge is None and loss.graphable and graphable(*Zs, *Cinvs, Yp)
-    return state, step, graphed
+    return _ordered(rep0, local0), step, graphed
+
+
+def _admm_step_sharded(loss, reg, maps, p, slots, k: int, P_total: int):
+    """``(state0, step)`` of the ADMM iteration with the data partitions
+    laid over a mesh's slots: ``slots`` holds per slot its ``(Zs, Cinvs,
+    Yp)``.  Each slot runs the local half on its device with the
+    replicated Wbar; Σ Wi and the loss are psum'd in slot order onto slot
+    0's device, where the consensus runs (the JAX package's psum over
+    the data-partition axis).  The state keeps each slot's partitions'
+    state under ``"slots"``."""
+    halves = [_admm_halves(loss, reg, maps, p, Zs, Cinvs, Yp, k, P_total)
+              for Zs, Cinvs, Yp in slots]
+    consensus, rep0 = halves[0][1], halves[0][3]
+    dev0 = rep0["Wbar"].device
+
+    def step(s):
+        outs = [h[0](loc, s["Wbar"].to(loc["O"].device)) for h, loc in zip(halves, s["slots"])]
+        wi = pmesh.psum([o[1] for o in outs], dev0)
+        obj_loss = pmesh.psum([o[2] for o in outs], dev0)
+        return dict(consensus(s, wi, obj_loss), slots=tuple(o[0] for o in outs))
+
+    return dict(rep0, slots=tuple(h[2] for h in halves)), step
+
+
+def _clone_state(st: dict) -> dict:
+    return {key: (tuple({k: t.clone() for k, t in d.items()} for d in v)
+                  if key == "slots" else v.clone()) for key, v in st.items()}
 
 
 class BlockADMMSolver:
@@ -259,12 +320,15 @@ class BlockADMMSolver:
         feature blocks, cache each (Z·Zᵀ + I)⁻¹, build the step and the
         initial state."""
         p = self.params
-        X = _dense(X, device)
+        X, _ = routes.operands(X, device=device)
         n, d = X.shape
         P = int(p.data_partitions)
         if n % P:
             raise ValueError(f"n={n} not divisible by data_partitions={P}")
         ni = n // P
+        if is_sharded(X):
+            return self._prepare_sharded(X, Y, classes, regression, P, ni)
+        X = _dense(X)
         dev, dtype = X.device, X.dtype
 
         Yp, k, classes = _targets(self.loss, Y, classes, regression, P, ni, dtype, dev)
@@ -281,6 +345,32 @@ class BlockADMMSolver:
             state0=state, step=step, graphed=graphed, timer=timer, d=d, classes=classes,
             device=dev,
         )
+
+    def _prepare_sharded(self, X, Y, classes, regression: bool, P: int, ni: int):
+        """:meth:`_prepare` for a row-sharded X: the P data partitions laid
+        over the mesh's slots in order (slot k holds partitions
+        ``[k·P/p, (k+1)·P/p)``, which are its rows), each slot making its
+        partitions' feature blocks and factors on its device."""
+        nslots = X.mesh.size
+        if P % nslots:
+            raise ValueError(f"data_partitions={P} must be a multiple of the mesh's "
+                             f"{nslots} slots to lay the partitions over them")
+        p, per = self.params, P // nslots
+        dev, dtype = routes.device0(X), X.dtype
+        Y = pmesh.fully_replicated(Y)  # a column of targets, not X
+        Yp, k, classes = _targets(self.loss, Y, classes, regression, P, ni, dtype, dev)
+        timer = PhaseTimer()
+        slots = []
+        for j, x in enumerate(X.shards):
+            if not x.is_floating_point():
+                x = x.to(torch.float32)
+            with timer.phase("transform") as ph:
+                Zs = [self._apply_map(S, x, per) for S in self.maps]
+                ph.result = Zs
+            slots.append((Zs, _factor(Zs, timer), Yp[j * per:(j + 1) * per].to(x.device)))
+        state, step = _admm_step_sharded(self.loss, self.regularizer, self.maps, p, slots, k, P)
+        return _PreparedRun(state0=state, step=step, graphed=False, timer=timer,
+                            d=X.shape[1], classes=classes, device=dev)
 
     def _model(self, run: _PreparedRun, state: dict) -> FeatureMapModel:
         it = int(state["it"])
@@ -366,7 +456,7 @@ class BlockADMMSolver:
                     if run.graphed and out is not st else out)
 
         return ChunkedSolver(
-            init_state=lambda: {key: v.clone() for key, v in run.state0.items()},
+            init_state=lambda: _clone_state(run.state0),
             step_chunk=step_chunk,
             extract_result=lambda st: self._model(run, st),
             is_done=lambda st: int(st["it"]) >= maxiter,

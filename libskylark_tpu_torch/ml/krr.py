@@ -51,10 +51,11 @@ from dataclasses import dataclass
 import torch
 
 from .. import guard, plans, policy, telemetry
-from .._device import as_tensor
+from .._device import as_tensor, is_sharded
 from ..core.context import SketchContext
 from ..core.params import Params
 from ..core.random import _const
+from ..parallel import routes
 from ..sketch.base import Dimension, create_sketch
 from ..solvers.krylov import KrylovParams, cg
 from ..resilient import chunked
@@ -130,6 +131,15 @@ def _as2d(Y):
     return Y[:, None] if Y.ndim == 1 else Y
 
 
+def _rows_operands(X, Y, device):
+    """``(X, Y2)``: X (``routes.operands``) and Y as (n, t), split into a
+    row-sharded X's row blocks (the features, ZᵀZ and ZᵀY then run per
+    slot and are psum'd: the JAX package's ``fully_replicated``
+    points)."""
+    X, Y = routes.operands(X, Y, device)
+    return X, routes.split_rows(_as2d(Y), X)
+
+
 def _tag(params: KrrParams) -> str:
     return "fast" if params.use_fast else "regular"
 
@@ -172,15 +182,14 @@ def approximate_kernel_ridge(
     in the decision), and W keeps the feature dtype either way.
     """
     params = params or KrrParams()
-    X = as_tensor(X, device)
-    Y2 = _as2d(as_tensor(Y, X.device))
+    X, Y2 = _rows_operands(X, Y, device)
     S = kernel.create_rft(s, _tag(params), context)
     Z = plans.apply(S, X, Dimension.ROWWISE)  # (n, s)
     if params.sketched_rr:
         return _solve_sketched_ridge(S, Z, Y2, lam, s, context, params)
     guarded = guard.enabled()
     decision = policy.consult("krr", m=X.shape[0], n=int(s), targets=Y2.shape[1],
-                              dtype=Z.dtype, sparse=is_sparse(X), device=Z.device,
+                              dtype=Z.dtype, sparse=is_sparse(X), device=routes.device0(Z),
                               guard_on=guarded)
 
     def ridge_solve(Zs):
@@ -189,9 +198,9 @@ def approximate_kernel_ridge(
                   else guard.RecoveryReport.disabled("approximate_krr"))
         # Factor and solve in _psd_gram's ≥ f32 dtype; the coefficients
         # come back in the feature dtype.
-        G = _plus_lam_eye(_psd_gram(Zs.T, Zs), lam, Zs.dtype)
+        G = _plus_lam_eye(routes.tsum(lambda z: _psd_gram(z.T, z), Zs), lam, Zs.dtype)
         L = _cholesky(G)
-        rhs = _mm(Zs.T, Y2)
+        rhs = routes.tsum(lambda z, y: _mm(z.T, y), Zs, Y2)
         fellback = guarded and not guard.tree_all_finite(L)
         if fellback:
             dt = torch.promote_types(G.dtype, rhs.dtype)
@@ -210,7 +219,8 @@ def approximate_kernel_ridge(
         # bf16-first: a fallback or a failed sentinel escalates the solve
         # to the feature dtype and retires the rung for this key.
         try:
-            W, report, fellback = ridge_solve(Z.to(torch.bfloat16))
+            W, report, fellback = ridge_solve(
+                routes.map_shards(Z, lambda z: z.to(torch.bfloat16)))
         except NumericalHealthError:
             fellback = True
         if fellback:
@@ -361,15 +371,15 @@ def large_scale_kernel_ridge(
     per sweep gives the relative update.
     """
     params = params or KrrParams()
-    X = as_tensor(X, device)
-    Y2 = _as2d(as_tensor(Y, X.device))
+    X, Y2 = _rows_operands(X, Y, device)
     n, d = X.shape
+    dev = routes.device0(X)
 
     sizes = _chunk_sizes(d, s, params)
     maps = [kernel.create_rft(sz, _tag(params), context) for sz in sizes]
 
     def chunk_Z(c):
-        return plans.apply(maps[c], X, Dimension.ROWWISE).T  # (sz, n)
+        return plans.apply(maps[c], X, Dimension.ROWWISE)  # (n, sz), per slot
 
     t = Y2.shape[1]
     factors, Ws, R = [], None, None
@@ -377,24 +387,26 @@ def large_scale_kernel_ridge(
     def sweep():
         """One pass over the chunks; the first builds the cached factors
         (krr.hpp:608-660) and takes the state's dtype from the first
-        chunk's features.  Returns Σ‖δ‖² (f64, on the device)."""
+        chunk's features.  Returns Σ‖δ‖² (f64, on the device).  A
+        sharded X keeps Z and R per slot; Z·R and Z·Zᵀ are psum'd."""
         nonlocal Ws, R, dtype, lam_
-        delsize = torch.zeros((), dtype=torch.float64, device=X.device)
+        delsize = torch.zeros((), dtype=torch.float64, device=dev)
         for c in range(len(maps)):
             Z = chunk_Z(c)
             if Ws is None:
                 dtype = Z.dtype
-                lam_ = _const(lam, dtype, X.device)
-                Ws = [torch.zeros((sz, t), dtype=dtype, device=X.device) for sz in sizes]
-                R = Y2.to(dtype)
+                lam_ = _const(lam, dtype, dev)
+                Ws = [torch.zeros((sz, t), dtype=dtype, device=dev) for sz in sizes]
+                R = routes.map_shards(Y2, lambda y: y.to(dtype))
             if len(factors) == c:
-                factors.append(_cholesky(_plus_lam_eye(_psd_gram(Z, Z.T), lam, dtype)))
-            ZR = Z @ R - lam_ * Ws[c]
+                factors.append(_cholesky(_plus_lam_eye(
+                    routes.tsum(lambda z: _psd_gram(z.T, z), Z), lam, dtype)))
+            ZR = routes.tsum(lambda z, r: z.T @ r, Z, R) - lam_ * Ws[c]
             # cast back: the f32 factor solve must not promote the resident
             # (n, t) R / Ws state out of the feature dtype
             delta = _cho_solve(factors[c], ZR).to(dtype)
             Ws[c] = Ws[c] + delta
-            R = R - Z.T @ delta
+            R = routes.rows_map(lambda z, r, dl: r - z @ dl, Z, R, delta)
             delsize = delsize + torch.sum(delta * delta).double()
             del Z  # release chunk c before chunk c + 1 is made
         return delsize
@@ -460,33 +472,50 @@ def streaming_krr_chunk_programs(maps, c, sz, nb, block_rows, t, lam, block_fn, 
     ``zr`` and ``apply_delta`` write into their arguments and create no
     tensor from a Python number, so a whole pass can be captured as a
     CUDA graph over fixed buffers and replayed.
+
+    A ``block_fn`` may return a row-sharded panel (a
+    :class:`~libskylark_tpu_torch.parallel.mesh.Sharded`, the JAX
+    package's ``constrain_rows(panel, mesh)``): each slot makes its rows'
+    features, the Gram and ``Zᵀ·R`` are psum'd in slot order, and each
+    slot updates its rows of R.
     """
     S = maps[c]
+    ops_by_device = {}
 
-    def panels(bargs, device):
-        ops = S.hoistable_operands(feature_dtype, device)
+    def features(x):
+        key = str(x.device)
+        if key not in ops_by_device:
+            ops_by_device[key] = S.hoistable_operands(feature_dtype, x.device)
+        return S.apply_with_operands(ops_by_device[key], x.to(feature_dtype), Dimension.ROWWISE)
+
+    def panels(bargs):
         for p in range(nb):
-            Xp = block_fn(p * block_rows, block_rows, *bargs).to(feature_dtype)
-            yield p, S.apply_with_operands(ops, Xp, Dimension.ROWWISE)
+            Xp = block_fn(p * block_rows, block_rows, *bargs)
+            yield p, routes.rows_map(features, routes.operand(Xp))
 
     def gram(*bargs, device=None):
         G = None
-        for _, Zp in panels(bargs, device):
-            blk = _panel_mm(Zp.T, Zp)
+        for _, Zp in panels(bargs):
+            blk = routes.tsum(lambda z: _panel_mm(z.T, z), Zp, device=device)
             G = blk if G is None else G + blk
         return G + _const(lam, torch.float32, G.device) * torch.eye(
             sz, dtype=torch.float32, device=G.device)
 
     def zr(out, R3, Wc, lam_t, *bargs):
         acc = torch.zeros((sz, t), dtype=torch.float32, device=R3.device)
-        for p, Zp in panels(bargs, R3.device):
-            acc += _panel_mm(Zp.T, R3[p])
+        for p, Zp in panels(bargs):
+            acc += routes.tsum(lambda z, r: _panel_mm(z.T, r), Zp,
+                               routes.split_rows(R3[p], Zp), device=R3.device)
         out.copy_(acc - lam_t * Wc)
         return out
 
     def apply_delta(R3, delta, *bargs):
-        for p, Zp in panels(bargs, R3.device):
-            R3[p] -= _panel_mm(Zp, delta.to(Zp.dtype))
+        for p, Zp in panels(bargs):
+            if routes.is_sharded(Zp):
+                for z, (r0, r1) in zip(Zp.shards, routes.row_blocks(Zp)):
+                    R3[p, r0:r1] -= _panel_mm(z, delta.to(z.device, z.dtype)).to(R3.device)
+            else:
+                R3[p] -= _panel_mm(Zp, delta.to(Zp.dtype))
         return R3
 
     return gram, zr, apply_delta
@@ -581,11 +610,17 @@ def streaming_kernel_ridge(
 
     sizes = _chunk_sizes(d, s, params)
     maps = [kernel.create_rft(sz, _tag(params), context) for sz in sizes]
+    kinds = set()  # whether block_fn's panels were sharded
+
+    def panel_fn(start, rows, *bargs):
+        Xp = block_fn(start, rows, *bargs)
+        kinds.add(is_sharded(Xp))
+        return Xp
+
     programs = [streaming_krr_chunk_programs(maps, c, sizes[c], nb, block_rows, t, lam,
-                                             block_fn, feature_dtype)
+                                             panel_fn, feature_dtype)
                 for c in range(len(maps))]
-    graphed = chunked.graphable(Y2)
-    pool = torch.cuda.graph_pool_handle() if graphed else None
+    graphed, pool = None, None  # decided once sweep 0's first Gram pass has read the panels
     lam_t = _const(lam, torch.float32, dev)
     factors = []
     Ws = [torch.zeros((sz, t), dtype=torch.float32, device=dev) for sz in sizes]
@@ -605,6 +640,11 @@ def streaming_kernel_ridge(
             for c, (gram, zr, apply_delta) in enumerate(programs):
                 if it == 0:
                     factors.append(_cholesky(gram(*block_args, device=dev)))
+                if graphed is None:
+                    # A sharded panel runs its slots eagerly: a capture
+                    # would hold the copies between the slots' devices.
+                    graphed = chunked.graphable(Y2) and True not in kinds
+                    pool = torch.cuda.graph_pool_handle() if graphed else None
                 if passes[c] is None:
                     passes[c] = (
                         _Pass(zr, (ZRs[c], R, Ws[c], lam_t, *block_args), graphed, pool),

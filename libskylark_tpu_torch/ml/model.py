@@ -31,6 +31,8 @@ import torch
 
 from .._device import as_tensor
 from ..core.random import _const
+from ..parallel import routes
+from ..parallel import mesh as pmesh
 from ..sketch.base import Dimension
 from ..sketch.base import from_dict as sketch_from_dict
 from .kernels import from_dict as kernel_from_dict
@@ -101,8 +103,12 @@ class FeatureMapModel:
 
     def features(self, X, *, device=None) -> torch.Tensor:
         """Concatenated (n, D) features of X (n, d); a sparse COO X goes
-        to the maps as it is."""
-        X = as_tensor(X, device)
+        to the maps as it is.  A sharded X gives row-sharded features,
+        each slot's from its own rows."""
+        X, _ = routes.operands(X, device=device)
+        return routes.rows_map(self._features, X)
+
+    def _features(self, X: torch.Tensor) -> torch.Tensor:
         if not self.maps:
             return X.to_dense() if X.layout == torch.sparse_coo else X
         blocks = []
@@ -114,12 +120,13 @@ class FeatureMapModel:
         return blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim=-1)
 
     def predict(self, X, *, device=None) -> torch.Tensor:
-        """(n, k) outputs (decision values or regression predictions)."""
+        """(n, k) outputs (decision values or regression predictions);
+        row-sharded for a sharded X."""
         Z = self.features(X, device=device)
-        return Z @ self.W.to(device=Z.device, dtype=Z.dtype)
+        return routes.rows_map(lambda z: z @ self.W.to(device=z.device, dtype=z.dtype), Z)
 
     def predict_labels(self, X, classes=None, *, device=None) -> torch.Tensor:
-        return _argmax_labels(self.predict(X, device=device),
+        return _argmax_labels(pmesh.fully_replicated(self.predict(X, device=device)),
                               classes if classes is not None else self.classes)
 
     # -- persistence --------------------------------------------------------
@@ -182,13 +189,18 @@ class KernelModel:
         self.classes = None if classes is None else list(np.asarray(classes).tolist())
 
     def predict(self, X, *, device=None) -> torch.Tensor:
-        X = as_tensor(X, device)
+        """(m, k) outputs; row-sharded for a sharded X (each slot's Gram
+        block against the training set)."""
+        X, _ = routes.operands(X, device=device)
+        return routes.rows_map(self._predict, X)
+
+    def _predict(self, X: torch.Tensor) -> torch.Tensor:
         K = self.kernel.gram(X, self.X_train.to(X.device))  # (m, n)
         dt = torch.promote_types(K.dtype, self.A.dtype)
         return K.to(dt) @ self.A.to(device=K.device, dtype=dt)
 
     def predict_labels(self, X, classes=None, *, device=None) -> torch.Tensor:
-        return _argmax_labels(self.predict(X, device=device),
+        return _argmax_labels(pmesh.fully_replicated(self.predict(X, device=device)),
                               classes if classes is not None else self.classes)
 
     def to_dict(self) -> dict:

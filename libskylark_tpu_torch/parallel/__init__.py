@@ -16,8 +16,12 @@ two layers in its place:
   merge of the elastic path.
 
 What JAX leaves to GSPMD (any jitted code given a sharded array: the
-CLI's ``--shard``, the sharded-input solvers, the serve layer's sharded
-programs) has no torch counterpart yet: ROADMAP Queue A item 9c.
+CLI's ``--shard``, the sharded-input sketches, solvers, SVD, KRR, ADMM
+and predict, the serve layer's sharded programs) runs on a third:
+``routes.py``, one row-sharded schedule the entry points share (the
+input resharded once to rows, the tall work per slot, the small
+replicated matrices psum'd in slot order; a mesh of one is the
+unsharded call).
 """
 
 from .collectives import (

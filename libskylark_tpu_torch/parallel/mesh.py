@@ -45,7 +45,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from .._device import resolve_device
+from .._device import ShardedValue, resolve_device
 
 __all__ = [
     "ROWS",
@@ -57,6 +57,7 @@ __all__ = [
     "default_mesh",
     "sharding",
     "shard",
+    "reshard",
     "row_sharding",
     "shard_rows",
     "constrain_rows",
@@ -269,7 +270,7 @@ def _blocks(mesh: Mesh, spec, shape) -> list:
     return out
 
 
-class Sharded:
+class Sharded(ShardedValue):
     """A global array split over a mesh: ``mesh``, ``spec``, the global
     ``shape`` and ``shards``, one local tensor per slot (flat slot order)
     on the slot's device.  The port's ``jax.Array`` with a
@@ -295,6 +296,13 @@ class Sharded:
     def sharding(self) -> NamedSharding:
         return NamedSharding(self.mesh, self.spec)
 
+    def linear_ops(self):
+        """``(matvec, rmatvec)`` slot by slot (``routes.linear_ops``), for
+        ``utils.linear_ops`` and the solvers that take an operator."""
+        from .routes import linear_ops
+
+        return linear_ops(self)
+
     def __repr__(self):
         return (f"Sharded(shape={self.shape}, dtype={self.dtype}, spec={self.spec}, "
                 f"mesh={self.mesh!r})")
@@ -308,13 +316,44 @@ def shard(x, mesh: Mesh, *spec) -> Sharded:
     """Place ``x`` with the given partition-spec entries: each slot gets
     its block, contiguous, on its device (a block already there and
     contiguous is a view of ``x``, never written here).  A
-    :class:`Sharded` ``x`` is gathered and re-split (a reshard)."""
+    :class:`Sharded` ``x`` is resharded (:func:`reshard`): no slot
+    gathers the whole array."""
     if isinstance(x, Sharded):
-        x = fully_replicated(x)
-    elif not isinstance(x, torch.Tensor):
+        return reshard(x, mesh, *spec)
+    if not isinstance(x, torch.Tensor):
         x = torch.as_tensor(np.asarray(x))
     blocks = _blocks(mesh, spec, x.shape)
     shards = [x[sl].contiguous().to(mesh.device(k)) for k, sl in enumerate(blocks)]
+    return Sharded(mesh, spec, x.shape, shards)
+
+
+def reshard(x: Sharded, mesh: Mesh, *spec) -> Sharded:
+    """``x`` laid out as ``spec`` over ``mesh`` without gathering it:
+    each target slot's block is assembled from the pieces of the source
+    shards that overlap it, each piece copied once to the target slot's
+    device (the all-to-all a GSPMD reshard runs).  A target block that
+    is a source shard on the same device is that shard."""
+    blocks = _blocks(mesh, spec, x.shape)
+    src = _blocks(x.mesh, x.spec, x.shape)
+    shards = []
+    for k, tgt in enumerate(blocks):
+        dev = mesh.device(k)
+        same = [j for j, sl in enumerate(src) if sl == tgt and x.shards[j].device == dev]
+        if same:
+            shards.append(x.shards[same[0]])
+            continue
+        out = torch.empty(tuple(b.stop - b.start for b in tgt), dtype=x.dtype, device=dev)
+        covered = set()
+        for j, sl in enumerate(src):
+            inter = [slice(max(a.start, b.start), min(a.stop, b.stop)) for a, b in zip(sl, tgt)]
+            if any(i.start >= i.stop for i in inter) or tuple(inter) in covered:
+                continue  # no overlap, or a replica of a piece already copied
+            covered.add(tuple(inter))
+            piece = x.shards[j][tuple(slice(i.start - a.start, i.stop - a.start)
+                                      for i, a in zip(inter, sl))]
+            out[tuple(slice(i.start - b.start, i.stop - b.start)
+                      for i, b in zip(inter, tgt))] = piece.to(dev)
+        shards.append(out)
     return Sharded(mesh, spec, x.shape, shards)
 
 

@@ -83,7 +83,7 @@ import weakref
 import torch
 
 from .. import telemetry
-from .._device import as_tensor
+from .._device import as_tensor, is_sharded
 from ..policy.record import _dtype_name, note_plan
 from ..sketch import _launch
 from ..sketch.base import Dimension, from_json, sketch_registry
@@ -394,6 +394,9 @@ def apply(S, A, dim: Dimension | str = Dimension.COLUMNWISE):
     as ``S.apply`` moves it.
     """
     dim = Dimension.of(dim)
+    if is_sharded(A):  # slot by slot, never captured
+        PLAN_CACHE.bump("bypasses")
+        return S.apply(A, dim)
     A = as_tensor(A)
     if A.layout == torch.strided:
         axis = 0 if dim is Dimension.COLUMNWISE or A.ndim == 1 else A.ndim - 1

@@ -10,9 +10,9 @@
 - ``faults``: deterministic fault injection (preemption, corruption,
   transient IO, the guard's numerical faults) and ``with_retries``.
 
-The elastic layer's ``HostFaultPlan`` and the serve journal's
-``faults.JournalFaultPlan`` are ported; ``FleetFaultPlan`` raises
-``UnsupportedError`` naming ROADMAP Queue A item 9c.
+The elastic layer's ``HostFaultPlan``, the serve journal's
+``faults.JournalFaultPlan`` and the serve fleet's ``FleetFaultPlan`` are
+ported.
 """
 
 from .chunked import ChunkedSolver

@@ -16,8 +16,10 @@ are here too, and so is the serve journal's :class:`JournalFaultPlan`
 (a real SIGKILL inside the journal's commit window), and the elastic
 layer's host faults: :class:`HostFaultPlan` (rank death, stragglers, a
 hostile host, a stale-epoch writer), :func:`corrupt_manifest` and
-:func:`tear_ledger_tail`.  ``FleetFaultPlan`` (replicas on several
-cards) is ROADMAP Queue A item 9c; its name raises ``UnsupportedError``.
+:func:`tear_ledger_tail`, and the serve fleet's :class:`FleetFaultPlan`
+(replica death under load, a slow heartbeat, a join storm, a flapping
+replica), bound to the autoscaler's ``fault_plan`` hook.  The drills run
+on replicas in one process: on the CPU, or sharing one card.
 """
 
 from __future__ import annotations
@@ -28,7 +30,6 @@ from dataclasses import dataclass, field
 
 import torch
 
-from ..utils.exceptions import deferred
 
 __all__ = [
     "SimulatedPreemption",
@@ -41,10 +42,6 @@ __all__ = [
     "tear_ledger_tail",
     "with_retries",
 ]
-
-FleetFaultPlan = deferred("FleetFaultPlan", "ROADMAP Queue A item 9c: the router's "
-                                           "replicas on several cards")
-
 
 class SimulatedPreemption(RuntimeError):
     """Stands in for the process being killed: raised from a fault-plan
@@ -310,3 +307,79 @@ class HostFaultPlan(FaultPlan):
             self._tear()
             self._suicide()
         super().after_commit(chunk)
+
+
+@dataclass
+class FleetFaultPlan(HostFaultPlan):
+    """Replica-level chaos schedule for the serve fleet: the failure
+    modes of a *membership*, not a machine.  Keyed by autoscaler control
+    tick (1-based, the :meth:`before_tick` argument), every fault fires
+    exactly once at its scheduled tick, so a drill replays the same
+    membership history on every run:
+
+    - ``die_under_load_at``: **replica death under traffic**: the bound
+      ``kill`` callback abruptly stops a busy replica's workers (no
+      drain, no leave); the router's next heartbeat sweep must eject it
+      and the surviving replicas absorb its keys.
+    - ``slow_heartbeat_at`` / ``slow_heartbeat_s``: **stale but alive**:
+      the bound ``slow_report`` callback makes one replica's
+      ``load_report`` lag by ``slow_heartbeat_s``; the router must stamp
+      ``report_age_s`` and keep placing on it, NOT eject it.
+    - ``join_storm_at`` / ``join_storm_size``: **join storm**: the bound
+      ``spawn`` callback runs ``join_storm_size`` times in one tick;
+      every joiner must clear the registry-signature fence and prime
+      before taking traffic.
+    - ``flap_at`` / ``flap_times``: **flapping replica**: alternating
+      kill/spawn ``flap_times`` times from ``flap_at`` (one transition
+      per tick); membership must converge without shedding admitted
+      work.
+
+    :meth:`bind_fleet` binds the plan to a fleet: the callbacks own the
+    how (which replica, how it dies), the plan owns the when.  Every
+    :class:`HostFaultPlan` / :class:`FaultPlan` knob is inherited, so
+    fleet chaos composes with host and numerical injection in one
+    schedule.
+    """
+
+    die_under_load_at: int | None = None
+    slow_heartbeat_at: int | None = None
+    slow_heartbeat_s: float = 0.0
+    join_storm_at: int | None = None
+    join_storm_size: int = 2
+    flap_at: int | None = None
+    flap_times: int = 2
+    _kill: object = field(default=None, repr=False)
+    _spawn: object = field(default=None, repr=False)
+    _slow_report: object = field(default=None, repr=False)
+    _flaps_left: int = field(default=0, repr=False)
+    _flap_next: str = field(default="kill", repr=False)
+
+    def bind_fleet(self, *, kill=None, spawn=None, slow_report=None) -> None:
+        """Attach the drill's actuators: ``kill()`` stops a busy replica
+        abruptly, ``spawn()`` builds and joins a fresh one,
+        ``slow_report(seconds)`` delays one replica's next report."""
+        self._kill = kill
+        self._spawn = spawn
+        self._slow_report = slow_report
+
+    def before_tick(self, tick: int) -> None:
+        """Autoscaler hook: fire every fault scheduled for this control
+        tick (each once, through the inherited ``_fire`` ledger)."""
+        if self._fire("die_under_load", self.die_under_load_at, tick):
+            if self._kill is not None:
+                self._kill()
+        if self._fire("slow_heartbeat", self.slow_heartbeat_at, tick):
+            if self._slow_report is not None:
+                self._slow_report(float(self.slow_heartbeat_s))
+        if self._fire("join_storm", self.join_storm_at, tick):
+            if self._spawn is not None:
+                for _ in range(int(self.join_storm_size)):
+                    self._spawn()
+        if self.flap_at is not None and tick == self.flap_at:
+            self._flaps_left = int(self.flap_times)
+        if self._flaps_left > 0:
+            self._flaps_left -= 1
+            actor = self._kill if self._flap_next == "kill" else self._spawn
+            self._flap_next = "spawn" if self._flap_next == "kill" else "kill"
+            if actor is not None:
+                actor()

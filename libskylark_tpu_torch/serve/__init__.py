@@ -33,9 +33,9 @@ Layout:
   (code 108);
 - :mod:`.server` — the worker loop (``workers=K`` pins K batcher
   threads to the local cards), warm start, priming, telemetry;
-- :mod:`.dispatch` — the device-parallel dispatch gates; where they
-  pick two or more devices the executors raise ``UnsupportedError``
-  (the sharded programs wait for ROADMAP Queue A item 9c);
+- :mod:`.dispatch` — device-parallel dispatch: past the gates the heavy
+  half of a batch runs split over several devices, each program held
+  bitwise to the single device by a parity probe at its first dispatch;
 - :mod:`.router` — the fleet front door: signature-fenced membership
   (code 109), key-affinity placement, 112/114 shedding, heartbeat
   ejection with in-flight re-placement;

@@ -26,8 +26,8 @@ the fleet layer already enforces:
   the fleet was the size it was at any tick.
 
 Faults are injected through a plan object with ``before_tick(tick)``
-(the JAX package's ``FleetFaultPlan``; the port's own waits for ROADMAP
-Queue A item 9c) bound to the loop, which fires die-under-load /
+(:class:`~libskylark_tpu_torch.resilient.FleetFaultPlan`) bound to the
+loop, which fires die-under-load /
 slow-heartbeat / join-storm / flapping faults at exact ticks,
 deterministically.
 

@@ -122,16 +122,21 @@ def _execute_ls(registry, entries, device=None):
     B = Bt.new_zeros((S.n, kb))
     B[: Bt.shape[1], :k] = Bt.T
 
+    def single():
+        return _by_blocks(lambda b: plans.apply(S, b, "columnwise"), B, 1)
+
+    SB = None
     if entries[0].sketch is not None:
         # fresh-sketch slow path: the factorization is per-request
         Q, R = torch.linalg.qr(plans.apply(S, system.A.to(dev), "columnwise"))
         Qt = Q.T.contiguous()
     else:
         Qt, R = system.Qt.to(dev), system.R.to(dev)
-        # Past the gates the heavy half would shard over the local
-        # devices: that raises (ROADMAP Queue A item 9c).
-        dispatch.maybe_sketch_sharded(S, B, kb, entries)
-    SB = _by_blocks(lambda b: plans.apply(S, b, "columnwise"), B, 1)
+        # Heavy half over several devices when the rung clears the gates
+        # (dispatch.py); the (s, kb) solve below is the unchanged light half.
+        SB = dispatch.maybe_sketch_sharded(S, B, kb, entries, single)
+    if SB is None:
+        SB = single()
     X = _qr_solve(Qt, R, SB)[:, :k].T.cpu().numpy()  # (k, n), one read per batch
     return list(X), kb
 
@@ -159,17 +164,23 @@ def _execute_predict(registry, entries, device=None):
     kb = _lane_bucket(R_tot)
     Xp = _stage(torch.from_numpy(plans.pad_rows(X, kb)), dev)
     if hasattr(model, "maps"):
-        dispatch.maybe_feature_sharded(model, Xp, R_tot, entries)
         W = model.W.to(dev)
 
         def block(xb):
             Z = _feature_z(model, xb)
             return Z @ W.to(Z.dtype)
 
-        O = _by_blocks(block, Xp, 0)
+        def single():
+            return _by_blocks(block, Xp, 0)
+
+        O = dispatch.maybe_feature_sharded(model, Xp, R_tot, entries, single)
     else:
-        dispatch.maybe_kernel_sharded(model, Xp, R_tot, entries)
-        O = _by_blocks(model.predict, Xp, 0)
+        def single():
+            return _by_blocks(model.predict, Xp, 0)
+
+        O = dispatch.maybe_kernel_sharded(model, Xp, R_tot, entries, single)
+    if O is None:
+        O = single()
     O = O[:R_tot].cpu().numpy()
     outs, at = [], 0
     for e in entries:
@@ -406,9 +417,8 @@ def _dispatch(registry, entries, device=None) -> None:
         outs, bucket = executor(registry, entries, device)
     except Exception as e:  # noqa: BLE001 — isolate, then solo-retry
         if n == 1 or isinstance(e, UnsupportedError):
-            # A route the port refuses (the sharded dispatch of ROADMAP
-            # Queue A item 9c) is the batch's, not a payload's: a solo
-            # retry at a narrower rung would hide it, so every rider
+            # A route the port refuses is the batch's, not a payload's: a
+            # solo retry at a narrower rung would hide it, so every rider
             # gets the error.
             for entry in entries:
                 telemetry.inc("serve.errors")

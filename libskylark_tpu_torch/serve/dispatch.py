@@ -1,10 +1,31 @@
-"""Device-parallel dispatch gates (port of ``libskylark_tpu/serve/dispatch.py``).
+"""Device-parallel dispatch: one coalesced batch over several devices
+(port of ``libskylark_tpu/serve/dispatch.py``).
 
-The JAX package reroutes the heavy half of a coalesced batch (the sketch
-apply for LS-solve, the feature-map or Gram block for predict) through
-a program sharded over the batch axis of every local device, once a
-parity probe has shown it bitwise the single-device program.  The gates
-that decide it are ported as they are:
+The executors (``batcher.py``) run each batch on the worker's device.
+Where a batch's padded rung clears the gates, the heavy half of the
+executor runs as a program over a mesh of the devices the gates pick
+(``parallel.mesh``), split on the batch axis:
+
+- LS-solve: the (m, kb) right-hand sides split on columns
+  (``parallel.collectives.batch_sharded_program``), each slot applying
+  the full sketch to its columns;
+- predict: the (kb, d) queries split on rows, each slot computing its
+  rows' outputs (the feature maps and the coefficient product, or the
+  Gram block against the training set).
+
+Communication-free: no sum crosses slots.  Each slot computes in the
+executors' fixed blocks of :data:`~.batcher.BLOCK` columns or rows, the
+scheme that holds coalesced ≡ serial, so a slot's bits are the single
+device's wherever its blocks see the same kernels.  That is verified,
+not assumed: the first dispatch of every (anchor, rung, devices, dtype)
+program is a parity probe that runs both routes on the live batch and
+compares the bits on the host.  A match serves the reference bits and
+keeps the program (``serve.sharded_verified``, trace event
+``sharded_probe``); a mismatch tombstones it (``serve.sharded_rejected``)
+and the executor keeps its single-device path.  Later dispatches of a
+kept program count ``serve.sharded_dispatch`` (event ``sharded``).
+
+The gates are the JAX package's:
 
 - :func:`supported`: hard feasibility — at least two devices, the device
   count divides the rung, and each shard width stays on the batcher's
@@ -15,24 +36,19 @@ that decide it are ported as they are:
   devices, or ``None``; ``SKYLARK_SERVE_SHARD=1`` forces the route past
   :func:`worthwhile`, ``=0`` turns it off.
 
-The sharded programs and their parity probe wait for ROADMAP Queue A
-item 9c (they run the executors' solves on a sharded batch, which the
-JAX package leaves to GSPMD).  So where the gates pick two or more devices, the
-``maybe_*`` entry points raise :class:`UnsupportedError` naming that
-item instead of quietly running the single-device path; where they pick
-none (one card, a CPU registry, a rung too narrow to split) they return
-``None`` and the executor runs its own single-device path.  They keep
-the JAX package's signatures; ``entries`` and ``reference`` (the
-probe's inputs) wait for item 9c too.
+On one card the gates pick none and the executor runs its own path.
+Several entries of one device (a virtual split of one card) run the
+same programs slot after slot.
 """
 
 from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
 
-from ..utils.exceptions import UnsupportedError
+from .. import telemetry
 
 __all__ = [
     "supported",
@@ -48,11 +64,18 @@ __all__ = [
 # per-shard dispatch + resharding overhead eats the win.
 _MIN_FLOPS = 3e7
 
-ITEM9 = "ROADMAP Queue A item 9c: sharded serve programs and their parity probe"
+_AXIS = "serve_batch"
+
+# (id(anchor), kind, kb, d, dtype) -> [anchor, verdict].  The anchor
+# (sketch / model) is held so that its id is never recycled; verdict
+# None = unprobed, True = parity held (serve sharded), False =
+# tombstoned (single-device from then on).
+_PROGRAMS: dict = {}
 
 
 def clear_cache() -> None:
-    """Drop the sharded programs (none exist until item 9c brings them)."""
+    """Drop every program and its verdict."""
+    _PROGRAMS.clear()
 
 
 def supported(kb: int, d: int) -> bool:
@@ -97,45 +120,109 @@ def shard_devices(kb: int, flops: float, device=None):
     return None
 
 
-def _refuse(kind: str, kb: int, devs) -> None:
-    raise UnsupportedError(
-        f"serve {kind} batch of rung {kb} would shard over {len(devs)} devices; "
-        f"the sharded serve programs are not ported yet ({ITEM9})"
-    )
+def _host(t: torch.Tensor, rows) -> np.ndarray:
+    a = t.detach().cpu().numpy()
+    return a if rows is None else a[:rows]
+
+
+def _dispatch_sharded(anchor, kind, kb, devs, dtype, local, x, axis, reference, rows,
+                      entries):
+    """Shared probe-then-serve core: ``local`` runs on each slot's block
+    of ``x`` (split on ``axis``: 1 for columns, 0 for rows).  Returns the
+    result the caller uses, or ``None`` (a tombstoned program) meaning
+    "run your single-device path yourself"."""
+    from ..parallel.mesh import Sharded, fully_replicated, make_mesh, shard
+
+    key = (id(anchor), kind, kb, len(devs), str(dtype))
+    slot = _PROGRAMS.setdefault(key, [anchor, None])
+    if slot[1] is False:
+        return None
+    mesh = make_mesh((len(devs),), (_AXIS,), devices=devs)
+    # Explicit reshard first: the worker hands over a batch on its own
+    # device, and each slot's block goes to the slot's device.
+    spec = (None, _AXIS) if axis == 1 else (_AXIS, None)
+    xs = shard(x, mesh, *spec)
+    outs = [local(t) for t in xs.shards]
+    shape = list(outs[0].shape)
+    shape[axis] *= len(devs)
+    out = fully_replicated(Sharded(mesh, spec, shape, outs)).to(x.device)
+    if slot[1] is None:
+        ref = reference()
+        match = bool(np.array_equal(_host(out, rows), _host(ref, rows)))
+        slot[1] = match
+        telemetry.inc("serve.sharded_verified" if match else "serve.sharded_rejected")
+        telemetry.event("serve", "sharded_probe",
+                        {"kind": kind, "bucket": kb, "devices": len(devs), "match": match})
+        for e in entries or ():
+            e.trace["events"].append({"kind": "sharded_probe", "op": kind,
+                                      "devices": len(devs), "match": match})
+        # Parity held: the sharded bits ARE the reference bits; hand back
+        # the reference itself on the probe call.
+        return ref if match else None
+    telemetry.inc("serve.sharded_dispatch")
+    for e in entries or ():
+        e.trace["events"].append({"kind": "sharded", "op": kind, "devices": len(devs)})
+    return out
 
 
 def maybe_sketch_sharded(S, B, kb: int, entries=None, reference=None):
-    """``None`` (run the single-device S·B) unless the gates pick two or
-    more devices for the (m, kb) block ``B``, which raises."""
+    """S·B with B's kb columns (the coalesced RHS batch) split over the
+    devices the gates pick, each slot in blocks of 8 columns as the
+    executor; ``None`` when the gates (or a failed parity probe) say
+    stay single-device.  ``reference()`` computes the single-device S·B
+    for the probe."""
     devs = shard_devices(kb, 2.0 * B.shape[0] * S.s * kb, B.device)
-    if devs is not None:
-        _refuse("ls", kb, devs)
-    return None
+    if devs is None:
+        return None
+    from .. import plans
+    from .batcher import _by_blocks
+
+    def local(b):
+        return _by_blocks(lambda blk: plans.apply(S, blk, "columnwise"), b, 1)
+
+    return _dispatch_sharded(S, "ls", kb, devs, B.dtype, local, B, 1, reference, None,
+                             entries)
 
 
 def maybe_feature_sharded(model, Xp, true_rows: int, entries=None,
                           reference=None):
-    """``None`` (run the single-device feature block) unless the gates
-    pick two or more devices for the (kb, d) block ``Xp``, which raises."""
+    """The (kb, k) outputs of a feature-map predict batch, its rows
+    (requests) split over the devices the gates pick, each slot in blocks
+    of 8 rows (the maps, then the coefficient product, as the executor);
+    ``None`` when gated off or tombstoned.  The probe compares the true
+    rows only."""
     maps = getattr(model, "maps", None)
     if not maps:
         return None
     kb, d_in = Xp.shape
     devs = shard_devices(kb, 2.0 * kb * d_in * sum(s.s for s in maps), Xp.device)
-    if devs is not None:
-        _refuse("predict", kb, devs)
-    return None
+    if devs is None:
+        return None
+    from .batcher import _by_blocks, _feature_z
+
+    def block(xb):
+        Z = _feature_z(model, xb)
+        return Z @ model.W.to(device=Z.device, dtype=Z.dtype)
+
+    return _dispatch_sharded(model, "predict", kb, devs, Xp.dtype,
+                             lambda x: _by_blocks(block, x, 0), Xp, 0, reference,
+                             true_rows, entries)
 
 
 def maybe_kernel_sharded(model, Xp, true_rows: int, entries=None,
                          reference=None):
-    """``None`` (run the single-device Gram predict) unless the gates
-    pick two or more devices for the (kb, d) block ``Xp``, which raises."""
+    """Gram-matrix predict with the query rows split over the devices
+    the gates pick, each slot in blocks of 8 rows; ``None`` when gated
+    off or tombstoned.  Returns the full padded (kb, t) output."""
     if not hasattr(model, "kernel"):
         return None
     kb, d_in = Xp.shape
     n_train = model.X_train.shape[0]
     devs = shard_devices(kb, 2.0 * kb * n_train * d_in, Xp.device)
-    if devs is not None:
-        _refuse("kernel", kb, devs)
-    return None
+    if devs is None:
+        return None
+    from .batcher import _by_blocks
+
+    return _dispatch_sharded(model, "kernel", kb, devs, Xp.dtype,
+                             lambda x: _by_blocks(model.predict, x, 0), Xp, 0, reference,
+                             true_rows, entries)

@@ -19,12 +19,14 @@ from __future__ import annotations
 
 import abc
 import enum
+import functools
 import json
 import warnings
 from typing import Any, ClassVar
 
 import torch
 
+from .._device import is_sharded
 from ..core.context import SketchContext
 
 __all__ = [
@@ -82,6 +84,33 @@ class SketchTransform(abc.ABC):
     """
 
     sketch_type: ClassVar[str] = "Abstract"
+
+    def __init_subclass__(cls, **kwargs):
+        """Every subclass's ``apply`` takes a sharded ``A`` too
+        (:func:`~libskylark_tpu_torch.parallel.routes.sketch_apply`): the
+        JAX package's sketches take a sharded ``jax.Array`` the same way
+        they take any array.  Its slots are computed where they lie, as a
+        tensor is, so ``device=`` has nothing to move; any other option
+        raises rather than be dropped."""
+        super().__init_subclass__(**kwargs)
+        fn = cls.__dict__.get("apply")
+        if fn is None or getattr(fn, "takes_sharded", False):
+            return
+
+        @functools.wraps(fn)
+        def apply(self, A, dim=Dimension.COLUMNWISE, *args, **kw):
+            if is_sharded(A):
+                extra = list(args) + sorted(set(kw) - {"device"})
+                if extra:
+                    raise TypeError(f"{cls.__name__}.apply of a sharded A takes only dim and "
+                                    f"device=, got {extra}")
+                from ..parallel.routes import sketch_apply
+
+                return sketch_apply(self, A, dim)
+            return fn(self, A, dim, *args, **kw)
+
+        apply.takes_sharded = True
+        cls.apply = apply
     #: Batch sizes at which the apply switches algorithms; the plans'
     #: bucketing never pads a batch across one.
     batch_size_gates: ClassVar[tuple] = ()
@@ -99,7 +128,10 @@ class SketchTransform(abc.ABC):
     def apply(self, A, dim: Dimension | str = Dimension.COLUMNWISE, *,
               device=None):
         """Sketch ``A`` along ``dim``; returns a new tensor.  A tensor is
-        computed where it lies; an array-like moves to ``device``."""
+        computed where it lies; an array-like moves to ``device``.  A
+        sharded ``A`` (:class:`~libskylark_tpu_torch.parallel.mesh.Sharded`)
+        is sketched slot by slot: rowwise gives a row-sharded result,
+        columnwise one tensor on slot 0's device."""
 
     def __call__(self, A, dim: Dimension | str = Dimension.COLUMNWISE):
         return self.apply(A, dim)

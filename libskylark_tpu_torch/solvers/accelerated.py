@@ -9,7 +9,10 @@ accelerated_linearl2_regression_solver_Elemental.hpp`` and
 - LSRN: SVD of S·A → N = V·Σ⁻¹ as the right preconditioner of LSQR.
 
 Sparse A is refused: the JAX package fails on it too (its QR and SVD of
-the BCOO sketch S·A; ROADMAP Queue C).  Each solve closes its run with
+the BCOO sketch S·A; ROADMAP Queue C).  A row-sharded A
+(:class:`~libskylark_tpu_torch.parallel.mesh.Sharded`) is sketched slot
+by slot and merged by one psum, and LSQR's products run per slot
+(``parallel.routes``).  Each solve closes its run with
 ``telemetry.run_summary``.
 """
 
@@ -21,9 +24,9 @@ from dataclasses import dataclass
 import torch
 
 from .. import guard, telemetry
-from .._device import as_tensor
 from ..core.context import SketchContext
 from ..core.params import Params
+from ..parallel import routes
 from ..sketch.base import Dimension, create_sketch
 from ..utils.exceptions import UnsupportedError
 from ..utils.sparse import is_sparse
@@ -50,12 +53,14 @@ class FasterLeastSquaresParams(Params):
 
 
 def _inputs(A, B, device, solver: str):
-    A = as_tensor(A, device)
+    # A row-sharded A: the sketch is merged by psum and LSQR's products
+    # run per slot (parallel.routes); B is laid out on slot 0's device.
+    A, B = routes.operands(A, B, device)
     if is_sparse(A):
         raise UnsupportedError(
             f"{solver} of a sparse A is not supported: the JAX package fails on it "
             "too (its factorization of the sparse sketch S·A; ROADMAP Queue C)")
-    return A, as_tensor(B, A.device if device is None else device)
+    return A, B
 
 
 def _sketch_once(A, s, sketch_type, context):

@@ -30,12 +30,11 @@ from typing import NamedTuple
 
 import torch
 
-from .._device import as_tensor
 from ..core.context import SketchContext
 from ..core.matrices import gaussian_matrix
 from ..core.params import Params
+from ..parallel import routes
 from ..resilient.chunked import graphable, stepper
-from ..utils.sparse import linear_ops
 from . import krylov
 
 __all__ = ["CondEstParams", "CondEstResult", "cond_est"]
@@ -105,9 +104,9 @@ def cond_est(A, context: SketchContext, params: CondEstParams | None = None, *,
             powerits=params.powerits if power_its is None else power_its,
             iter_lim=params.iter_lim if lanczos_steps is None else lanczos_steps,
         )
-    A = as_tensor(A, device)
+    A, _ = routes.operands(A, device=device)
     n = A.shape[1]
-    dtype, dev = A.dtype, A.device
+    dtype, dev = A.dtype, routes.device0(A)
     eps = torch.finfo(dtype).eps
     c1 = params.c1 if params.c1 is not None else 8 * eps
     c3 = params.c3 if params.c3 is not None else 64.0 / eps
@@ -117,7 +116,7 @@ def cond_est(A, context: SketchContext, params: CondEstParams | None = None, *,
     # v0 then xhat0, as two (n, 1) draws in a row: one (2n, 1) draw is the
     # same counters in the same order, and one launch sequence.
     v0, xhat0 = gaussian_matrix(context, (2 * n, 1), dtype=dtype, device=dev)[:, 0].split(n)
-    matvec, rmatvec = linear_ops(A)
+    matvec, rmatvec = routes.linear_ops(A)
     c = lambda x: torch.tensor(x, dtype=dtype, device=dev)
 
     sigma_max, u_max, v_max = _power_sigma_max(matvec, rmatvec, v0, int(params.powerits))

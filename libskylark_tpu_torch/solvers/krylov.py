@@ -27,8 +27,8 @@ import torch
 
 from .._device import as_tensor
 from ..core.params import Params
+from ..parallel import routes
 from ..resilient.chunked import ChunkedSolver, graphable, stepper
-from ..utils.sparse import linear_ops
 from .precond import IdPrecond
 
 __all__ = [
@@ -69,14 +69,12 @@ def _safe(x):
 
 
 def _inputs(A, B, device):
-    """A as a tensor (or the given pair), (matvec, rmatvec), B as (m, k),
-    whether B was a vector."""
-    if not isinstance(A, tuple):
-        A = as_tensor(A, device)
-        device = A.device if device is None else device
-    B = as_tensor(B, device)
+    """A as a tensor (or the given pair, or a row-sharded A), (matvec,
+    rmatvec), B as (m, k), whether B was a vector.  A sharded A's B is
+    laid out in the mesh's row order on slot 0's device."""
+    A, B = routes.operands(A, B, device)
     squeeze = B.ndim == 1
-    return A, linear_ops(A), (B[:, None] if squeeze else B), squeeze
+    return A, routes.linear_ops(A), (B[:, None] if squeeze else B), squeeze
 
 
 def _converged(s):

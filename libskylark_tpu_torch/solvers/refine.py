@@ -26,7 +26,10 @@ fresh sketch, a grown one, and the exact dense ``svd`` solve.  Under
 
 The residual dtype is f64 always, as the JAX package computes it under
 x64.  The JAX package's fixed-trip traced loop has no counterpart: the
-port does not trace.
+port does not trace.  A row-sharded A
+(:class:`~libskylark_tpu_torch.parallel.mesh.Sharded`) is sketched slot
+by slot and its two matvecs a sweep run per slot, the residual laid out
+on slot 0's device (``parallel.routes``).
 """
 
 from __future__ import annotations
@@ -37,10 +40,10 @@ from dataclasses import dataclass, replace
 import torch
 
 from .. import guard, plans
-from .._device import as_tensor
 from ..core.context import SketchContext
 from ..core.params import Params
 from ..core.precision import f32_accumulable
+from ..parallel import routes
 from ..sketch.base import Dimension, create_sketch
 from ..utils.exceptions import RefinementError, UnsupportedError
 from ..utils.sparse import is_sparse
@@ -75,8 +78,8 @@ def _working_cast(A, dtype):
     f32 QR where ``f32_accumulable`` takes the input dtype, f32 for both
     otherwise (f64 input is lowered only here, and only to f32)."""
     if f32_accumulable(dtype):
-        return A.to(torch.bfloat16), torch.float32, "bf16+f32"
-    return A.to(torch.float32), torch.float32, "f32"
+        return routes.map_shards(A, lambda t: t.to(torch.bfloat16)), torch.float32, "bf16+f32"
+    return routes.map_shards(A, lambda t: t.to(torch.float32)), torch.float32, "f32"
 
 
 def _solve_pair(precond, G, wdtype, rdtype):
@@ -89,12 +92,19 @@ def _colsum(U, V):
     return torch.sum(U * V, dim=0)
 
 
+def _matvec(A, V):
+    """``A·V``; a row-sharded A's per slot, laid out in the mesh's row
+    order on slot 0's device (``parallel.routes.linear_ops``)."""
+    return routes.linear_ops(A)[0](V)
+
+
 def _rmatvec(A, V):
     """``Aᵀ·V``.  cuBLAS takes the transposed row-major A as an operand
     flag of its GEMV/GEMM, with no copy, so the natural form runs at
     bandwidth on the card (the JAX package's ``(Vᵀ A)ᵀ`` rewrite works
-    around a strided gather of XLA:CPU, which torch does not have)."""
-    return A.T @ V
+    around a strided gather of XLA:CPU, which torch does not have).  A
+    row-sharded A's is a psum of the slots' ``A_kᵀ·V_k``."""
+    return routes.linear_ops(A)[1](V)
 
 
 def _safe_div(num, den):
@@ -107,7 +117,7 @@ def _sweep(A, precond, wdtype, X, Rres, P, gz):
     direction.  Returns the new state and the host's one read per sweep,
     ``[‖G‖, ‖r‖, ‖X‖]`` (the caller drops the speculative direction when
     it restarts or halts)."""
-    W = A @ P
+    W = _matvec(A, P)
     theta = _safe_div(gz, _colsum(W, W))
     X = X + theta[None, :] * P
     Rres = Rres - theta[None, :] * W
@@ -159,7 +169,7 @@ def _refine_loop(A, B, R, *, sigma_max, rtol, max_iters, stagnation_factor):
         ):
             # Certify on a freshly recomputed f64 residual: incremental
             # updates drift, and only the true residual gates.
-            Rres = B - A @ X
+            Rres = B - _matvec(A, X)
             G = _rmatvec(A, Rres)
             gnorm = float(torch.linalg.vector_norm(G))
             rnorm = float(torch.linalg.vector_norm(Rres))
@@ -211,13 +221,12 @@ def refine_least_squares(A, B, context: SketchContext, params: RefineParams | No
     A raises :class:`UnsupportedError`: the JAX package fails there too
     (its QR of the sparse ``S·A``; ROADMAP Queue C)."""
     params = params or RefineParams()
-    A = as_tensor(A, device)
+    A, B = routes.operands(A, B, device)
     if is_sparse(A):
         raise UnsupportedError(
             "sparse inputs are not supported by refine_least_squares: the JAX "
             "package fails there too (jnp.linalg.qr of the sparse S·A that its "
             "CWT sketch returns; ROADMAP Queue C)")
-    B = as_tensor(B, A.device if device is None else device)
     squeeze = B.ndim == 1
     if squeeze:
         B = B[:, None]
@@ -227,7 +236,7 @@ def refine_least_squares(A, B, context: SketchContext, params: RefineParams | No
     stype = params.sketch_type or "FJLT"
     s0 = params.sketch_size or min(4 * n, m)
     s0 = min(max(s0, min(2 * n, m)), m)
-    A64 = A.to(_RDTYPE)
+    A64 = routes.map_shards(A, lambda t: t.to(_RDTYPE))
     B64 = B.to(_RDTYPE)
 
     def done(X, report, stats):

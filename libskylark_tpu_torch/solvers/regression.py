@@ -9,6 +9,11 @@
   is ``sketched``);
 - penalty "l1": a Cauchy (MMT) sketch, then IRLS on the small problem;
 - ``ridge`` regularization by the augmented system ``[A; √λ I]``.
+
+A row-sharded A (:class:`~libskylark_tpu_torch.parallel.mesh.Sharded`)
+takes every solver: its sketches, products and factorizations run slot
+by slot (``parallel.routes``).  Ridge regularization raises for it: the
+augmented rows do not split into the mesh's equal row blocks.
 """
 
 from __future__ import annotations
@@ -18,15 +23,17 @@ from typing import Any
 
 import torch
 
-from .._device import as_tensor
+from .._device import is_sharded
 from ..core.context import SketchContext
 from ..linalg.least_squares import (
     LeastSquaresParams,
     approximate_least_squares,
     exact_least_squares,
 )
+from ..parallel import routes
 from ..sketch.base import Dimension
 from ..sketch.hash import MMT
+from ..utils.exceptions import UnsupportedError
 from .accelerated import faster_least_squares, lsrn_least_squares
 
 __all__ = ["RegressionProblem", "solve_regression"]
@@ -82,9 +89,12 @@ def solve_regression(problem: RegressionProblem, B, solver: str = "exact",
     refine included.  ``"sketched"`` and ``"refine"`` pin their route, so
     a matured profile cannot reroute them; ``"auto"`` follows it.
     """
-    A = as_tensor(problem.A, device)
-    B = as_tensor(B, A.device if device is None else device)
+    A, B = routes.operands(problem.A, B, device)
     if problem.regularization == "ridge" and problem.lam > 0:
+        if is_sharded(A):
+            raise UnsupportedError(
+                "ridge regularization augments A with sqrt(lam)*I rows, which a row-sharded "
+                "A's equal row blocks do not hold; solve the augmented system unsharded")
         A, B = _augment_ridge(A, B, problem.lam)
     if problem.penalty == "l1":
         if context is None:

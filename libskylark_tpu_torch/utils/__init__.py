@@ -22,7 +22,6 @@ from .exceptions import (
     StaleEpochError,
     UnsupportedError,
     WorldMismatchError,
-    deferred,
 )
 from .sparse import coo_from_bcoo_arrays, is_sparse, linear_ops
 from .timer import PhaseTimer, aggregate_report, timer_report
@@ -33,6 +32,6 @@ __all__ = ["profiling", "SkylarkError", "AllocationError", "InvalidParameters", 
            "NumericalHealthError", "RefinementError", "WorldMismatchError", "CollectiveTimeoutError",
            "AdmissionError",
            "DeadlineExceededError", "ReplicaLostError", "RegistryEpochError",
-           "QuotaExceededError", "JournalError", "deferred", "save_solver_state", "load_solver_state",
+           "QuotaExceededError", "JournalError", "save_solver_state", "load_solver_state",
            "CheckpointStore", "coo_from_bcoo_arrays", "is_sparse",
            "linear_ops", "PhaseTimer", "timer_report", "aggregate_report"]

@@ -7,7 +7,7 @@ __all__ = ["SkylarkError", "AllocationError", "InvalidParameters", "SketchError"
            "UnsupportedError", "IOError_", "ConvergenceError", "CheckpointError",
            "NumericalHealthError", "WorldMismatchError", "StaleEpochError", "AdmissionError",
            "DeadlineExceededError", "ReplicaLostError", "RefinementError",
-           "RegistryEpochError", "QuotaExceededError", "JournalError", "deferred"]
+           "RegistryEpochError", "QuotaExceededError", "JournalError"]
 
 
 class SkylarkError(Exception):
@@ -262,16 +262,3 @@ class JournalError(IOError_):
         self.path = path
         self.record = record
         self.reason = reason
-
-
-def deferred(name: str, item: str):
-    """A stand-in for the JAX package's ``name`` that a later slice of the
-    port brings: calling it raises :class:`UnsupportedError` naming the
-    ROADMAP ``item``."""
-
-    def unsupported(*args, **kwargs):
-        raise UnsupportedError(f"{name} is not ported yet ({item})")
-
-    unsupported.__name__ = unsupported.__qualname__ = name
-    unsupported.__doc__ = f"Not ported yet ({item}); raises UnsupportedError."
-    return unsupported

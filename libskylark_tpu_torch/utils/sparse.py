@@ -51,9 +51,13 @@ def linear_ops(A):
     """``(matvec, rmatvec)``: ``x -> A @ x`` and ``y -> Aᵀ @ y`` for a
     dense tensor, a sparse COO tensor (coalesced once, and its transpose
     once) or an already given ``(matvec, rmatvec)`` pair.  Vectors may be
-    1-D or 2-D (a block of columns)."""
+    1-D or 2-D (a block of columns).  A value that knows its own pair
+    gives it (``A.linear_ops()``: a sharded A's per-slot products,
+    :func:`~libskylark_tpu_torch.parallel.routes.linear_ops`)."""
     if isinstance(A, tuple):
         return A
+    if hasattr(A, "linear_ops"):
+        return A.linear_ops()
     if is_sparse(A):
         A = A.coalesce()
         At = A.t().coalesce()

@@ -18,8 +18,9 @@ numpy in both and equal; ``serve`` over stdio answers the same frames
 (least squares at 1e-9, the same error envelopes), and ``top --once``
 renders the same frame, timestamp aside.  Also: a model saved by one package predicts
 the same in the other, ``--stream`` equals the whole-file solve with the
-stream's own sketch, ``--shard`` raises ``UnsupportedError`` naming its
-ROADMAP item (9c) and the elastic flags run one rank of a world of 1, the
+stream's own sketch, ``--shard`` on one CPU slot is bitwise the run
+without it (``tests/test_torch_cli_shard.py`` holds it to the JAX
+driver's ``--shard`` on 8 slots) and the elastic flags run one rank of a world of 1, the
 telemetry flags print and ledger what the
 JAX drivers do and hold for the run only, and a run without ``--device
 cpu`` raises here,
@@ -451,9 +452,24 @@ def test_deferred_flags_raise_naming_their_item(blob_files, name, argv, item, mo
     files = {"linear": [str(root / "train")], "svd": [str(root / "train")],
              "krr": ["--trainfile", str(root / "train")],
              "ml": ["--trainfile", str(root / "train")]}[name]
-    if "--shard" in argv:  # sharded-input routes: ROADMAP Queue A item 9c
-        with pytest.raises(UnsupportedError, match=f"ROADMAP Queue A {item}c"):
-            tmain(name)(files + argv + CPU)
+    if "--shard" in argv:  # sharded-input routes (item 9c): ported, one CPU slot
+        out = ["--solution", str(root / "x.npy")] if name == "linear" else \
+            ["--prefix", str(root / "svd"), "-k", "2"]
+        plain = ["--solution", str(root / "x0.npy")] if name == "linear" else \
+            ["--prefix", str(root / "svd0"), "-k", "2"]
+        # One thread for the bitwise pin: on a loaded host MKL may run a GEMM
+        # on fewer threads than torch asks for, and its bits follow the count.
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            assert tmain(name)(files + argv + out + CPU) == 0
+            assert tmain(name)(files + plain + CPU) == 0
+        finally:
+            torch.set_num_threads(threads)
+        for suffix in ((".npy",) if name == "linear" else (".U.npy", ".S.npy", ".V.npy")):
+            first = "x" if name == "linear" else "svd"
+            np.testing.assert_array_equal(np.load(root / f"{first}{suffix}"),
+                                          np.load(root / f"{first}0{suffix}"))
         return
     # The elastic flags are ported: --distributed joins the world of the
     # RANK / WORLD_SIZE / MASTER_ADDR / MASTER_PORT environment (one

@@ -317,9 +317,8 @@ def test_exports():
     assert T.solvers.get_loss("hinge").name == "hinge"
     assert T.solvers.get_regularizer("l1").name == "l1"
     # The runner is ported (tests/test_torch_resilient.py), and so are
-    # the host faults of the elastic layer (tests/test_torch_elastic.py);
-    # the fleet's replicas on several cards are what is left (item 9c).
+    # the host faults of the elastic layer (tests/test_torch_elastic.py)
+    # and the fleet's drills (tests/test_torch_serve_sharded.py).
     assert T.resilient.ResilientRunner.__module__.endswith("resilient.runner")
     assert T.resilient.HostFaultPlan(slow_at_batch=1).slow_at_batch == 1
-    with pytest.raises(NotImplementedError, match="item 9c"):
-        T.resilient.FleetFaultPlan()
+    assert T.resilient.FleetFaultPlan(slow_heartbeat_at=1).slow_heartbeat_at == 1

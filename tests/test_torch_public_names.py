@@ -106,26 +106,49 @@ def test_parallel_exports_the_jax_names():
 
 
 @pytest.mark.parametrize("what", ["serve", "fleet", "shard"])
-def test_what_is_left_of_the_sharded_layer_names_item_9c(what, monkeypatch):
+def test_what_is_left_of_the_sharded_layer_names_item_9c(what, monkeypatch, capsys):
     """The serve layer's sharded programs, ``FleetFaultPlan`` and the CLI's
-    ``--shard`` (what the JAX package leaves to GSPMD) wait for item 9c."""
+    ``--shard`` (what the JAX package leaves to GSPMD, item 9c) are
+    ported: each works and none raises naming the item."""
     if what == "serve":
         from libskylark_tpu_torch.serve import dispatch
 
-        # Two devices past the gates: the sharded route raises.
+        # Two devices past the gates: the probe runs both routes and,
+        # the bits matching, serves the reference's (the executor's blocks
+        # of 8 columns; the whole 16 columns would take CWT's one-hot
+        # route, other bits, and a tombstone).
         monkeypatch.setattr(dispatch, "_local_devices", lambda dev: [dev, dev])
         monkeypatch.setenv("SKYLARK_SERVE_SHARD", "1")
+        dispatch.clear_cache()
         S = T.sketch.CWT(32, 8, T.SketchContext(seed=1))
-        with pytest.raises(T.utils.UnsupportedError, match="ROADMAP Queue A item 9c"):
-            dispatch.maybe_sketch_sharded(S, torch.zeros(32, 16), 16)
+        B = torch.from_numpy(np.random.default_rng(3).standard_normal((32, 16))).float()
+        ref = torch.cat([T.plans.apply(S, b.contiguous(), "columnwise")
+                         for b in B.split(8, dim=1)], dim=1)
+        got = dispatch.maybe_sketch_sharded(S, B, 16, reference=lambda: ref)
+        assert got is ref and list(dispatch._PROGRAMS.values())[0][1] is True
+        dispatch.clear_cache()
     elif what == "fleet":
-        with pytest.raises(T.utils.UnsupportedError, match="item 9c"):
-            T.resilient.FleetFaultPlan()
+        fired = []
+        plan = T.resilient.FleetFaultPlan(die_under_load_at=2)
+        plan.bind_fleet(kill=lambda: fired.append("kill"))
+        for tick in (1, 2, 3):
+            plan.before_tick(tick)
+        assert fired == ["kill"]
     else:
         from libskylark_tpu_torch.cli import common
 
-        with pytest.raises(T.utils.UnsupportedError, match="ROADMAP Queue A item 9c"):
-            common.refuse_deferred(type("Args", (), {"shard": True})())
+        args = type("Args", (), {"shard": True})()
+        one_slot = T.parallel.default_mesh  # one slot on the CPU: nothing pads
+        monkeypatch.setattr(T.parallel, "default_mesh", lambda n_devices=None, device=None:
+                            one_slot(2, device=device))
+        A, n_orig = common.shard_input(args, torch.ones(5, 3), torch.device("cpu"))
+        assert n_orig == 5 and A.shape == (6, 3) and A.mesh.size == 2
+        monkeypatch.setattr(T.parallel, "default_mesh", one_slot)
+        A, n_orig = common.shard_input(args, torch.ones(5, 3), torch.device("cpu"))
+        assert n_orig == 5 and A.shape == (5, 3) and A.mesh.size == 1
+        coo = torch.ones(5, 3).to_sparse_coo()
+        assert common.shard_input(args, coo, torch.device("cpu")) == (coo, None)
+        assert "ignores sparse inputs" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("module", ["streaming", "ml"])

@@ -31,7 +31,6 @@ from libskylark_tpu_torch.utils.exceptions import (
     ConvergenceError,
     IOError_,
     StaleEpochError,
-    UnsupportedError,
 )
 
 
@@ -279,9 +278,15 @@ def test_fault_plan_block_faults_are_one_shot():
 @pytest.mark.parametrize("name", ["HostFaultPlan", "FleetFaultPlan", "corrupt_manifest",
                                   "tear_ledger_tail"])
 def test_host_faults_name_their_item(name, tmp_path):
-    if name == "FleetFaultPlan":  # the router's replicas on several cards
-        with pytest.raises(UnsupportedError, match="item 9c"):
-            getattr(tres, name)()
+    if name == "FleetFaultPlan":  # the serve fleet's drills (item 9c, ported)
+        plan = tres.FleetFaultPlan(flap_at=1, flap_times=3, join_storm_at=2,
+                                   join_storm_size=2)
+        seen = []
+        plan.bind_fleet(kill=lambda: seen.append("kill"), spawn=lambda: seen.append("spawn"))
+        for tick in range(1, 6):
+            plan.before_tick(tick)
+        # tick 1 kills, tick 2 storms two joiners and spawns, tick 3 kills
+        assert seen == ["kill", "spawn", "spawn", "spawn", "kill"]
         return
     # The host faults are ported (tests/test_torch_elastic.py).
     (tmp_path / "manifest.json").write_text('{"kind": "x"}')
