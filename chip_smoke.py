@@ -476,6 +476,22 @@ SH_SVD_M, SH_SVD_N, SH_SVD_R = 1 << 19, 1024, 100
 SH_KRR_M = 32_768
 SH_ADMM_ITERS = 5
 SH_SV_M, SH_SV_N, SH_SV_D, SH_SV_REQ = 32_768, 768, 768, 32
+# The matmul routes (phase 3r): (a) FJLT's subsampled-Hadamard GEMM at
+# phase 3p (a)'s rowwise shape (MM_RW_M x MM_RW_N -> MM_RW_S) and
+# columnwise at the policy phase's 32768 x 768 (MM_CW_*), and S swept over
+# MM_SWEEP_S at both; (b) Fastfood's hoisted W at phase 3f's 4096 -> 2048
+# on serving's predict block (MM_FF_PREDICT rows) and a streaming-KRR panel
+# (the driver's default block_rows, MM_FF_PANEL); (c) PPT at the predict
+# shape to MM_PPT_S, q = 3; (e) ridge on phase 3e's LS cell at a lam that
+# moves x by ~20 % (A^T A ~ m I), and the DCT FJLT at phase 3h's SK_S.
+MM_RW_M, MM_RW_N, MM_RW_S = 131_072, 4096, 1024
+MM_CW_M, MM_CW_N, MM_CW_S = 32_768, 768, 1024
+MM_SWEEP_S = (256, 512, 768, 1024)
+MM_FF_PREDICT, MM_FF_PANEL = 8, 262_144
+MM_PPT_S = 1024
+MM_RIDGE_LAM = float(1 << 18)
+# Phase 3j (f)'s approximate-KRR rungs, in seconds, printed again by 3r (d).
+KRR_RUNG_SECS: dict = {}
 
 
 def fail(msg: str) -> None:
@@ -489,18 +505,24 @@ def check(ok: bool, msg: str) -> None:
 
 
 @contextmanager
-def no_plans():
-    """The port's plans off (``SKYLARK_NO_PLANS=1``) for the duration: the
-    eager path a planned result is held against."""
-    old = os.environ.get("SKYLARK_NO_PLANS")
-    os.environ["SKYLARK_NO_PLANS"] = "1"
+def forced_env(**knobs):
+    """Env knobs set for the duration (a route forced on), put back after."""
+    saved = {k: os.environ.get(k) for k in knobs}
+    os.environ.update(knobs)
     try:
         yield
     finally:
-        if old is None:
-            os.environ.pop("SKYLARK_NO_PLANS")
-        else:
-            os.environ["SKYLARK_NO_PLANS"] = old
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+
+
+def no_plans():
+    """The port's plans off (``SKYLARK_NO_PLANS=1``) for the duration: the
+    eager path a planned result is held against."""
+    return forced_env(SKYLARK_NO_PLANS="1")
 
 
 def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -1941,8 +1963,11 @@ def stream_path(sky, dev, reset_counts, read_counts, smi, graph) -> dict:
     check(bool(torch.isfinite(model.W).all()), "stream (d): W not finite")
     # One feature chunk (max_split = 0): sweep 0 is the ridge solve, and
     # later sweeps refine what the bf16 rounding of its update lost, so
-    # the residual falls in sweep 0 and never rises after.
-    check(resid[0] < math.sqrt(NS_N) and all(b <= a for a, b in zip(resid, resid[1:])),
+    # the residual falls in sweep 0 and never rises after by more than one
+    # f32 rounding of ||R|| (its f32 entries are updated in place, and a
+    # converged residual moves by their rounding either way).
+    check(resid[0] < math.sqrt(NS_N) and all(b <= a * (1 + 2.0 ** -24)
+                                             for a, b in zip(resid, resid[1:])),
           f"stream (d): the residual rose in a sweep: {resid}")
     # Where a sweep's time goes: the device kernels of eight ZR panel steps
     # (profiler, eager), against the sweep's 160 panel steps.
@@ -2075,8 +2100,8 @@ def stream_path(sky, dev, reset_counts, read_counts, smi, graph) -> dict:
     del SA, Xe
     for mod, name, kernel in kernels:
         setattr(mod, name, kernel)
-    counts = read_counts("streaming", t_path,
-                         ("scatter_rows", "segment_sum_flat", "rfut_rowwise_sampled"))
+    # (b)'s rowwise FJLT(2048 -> 1024) takes the subsampled-Hadamard GEMM.
+    counts = read_counts("streaming", t_path, ("scatter_rows", "segment_sum_flat"))
     launched = {name for name, count in counts.items() if count}
     check(launched <= {sig[0] for sig in held},
           f"stream: kernels launched {sorted(launched)}, held against their plain versions "
@@ -3290,6 +3315,7 @@ def policy_path(sky, dev, reset_counts, read_counts, smi) -> set:
             f"(f) approximate_kernel_ridge Fastfood {ML_ROWS} x {ML_DIM} -> {ML_S}",
             {"f32": (dict(SKYLARK_POLICY_BF16="0"), fit), "bf16": ({}, fit)})
         (t32, m32), (tbf, mbf) = ((secs[k], models[k]) for k in ("f32", "bf16"))
+        KRR_RUNG_SECS.update(f32=t32, bf16=tbf)
         check(rung(m32.info["policy"]) == "f32" and rung(mbf.info["policy"]) == "bf16",
               f"policy (f) KRR timed rungs: {m32.info['policy']}, {mbf.info['policy']}")
         Z = mbf.maps[0].apply(X, "rowwise")
@@ -3702,7 +3728,8 @@ def plans_path(sky, dev, reset_counts, read_counts, smi) -> set:
         # Rowwise bucketed: the real rows of a bucket-padded batch against
         # the eager ragged apply.  Row-independent kernels (FJLT's rfut,
         # the hash scatter) must be bitwise at every size; a GEMM (JLT, the
-        # RFT's W·X, CWT's one-hot route) sees another M, and cuBLAS may
+        # RFT's W·X, CWT's one-hot route, the FJLT where its gate takes the
+        # subsampled-Hadamard GEMM) sees another M, and cuBLAS may
         # pick another algorithm there: bitwise through 48 rows (the JAX
         # package's pin), and above within the rounding bound of the two
         # GEMMs' dot products (2 gamma_K |X| |W|^T, K = N, carried through
@@ -3720,9 +3747,13 @@ def plans_path(sky, dev, reset_counts, read_counts, smi) -> set:
                 kb = plans.bucket_for(k, S.batch_size_gates)
                 row = (stype, k, kb, torch.equal(Z, e))
                 if not row[-1]:
-                    check(stype in ("JLT", "GaussianRFT") and k > 48,
+                    gemm = stype in ("JLT", "GaussianRFT") or (
+                        stype == "FJLT" and S._gemm_wins(X.dtype))
+                    check(gemm and k > 48,
                           f"plans (d): rowwise bucketed {stype} at {k} rows: not bitwise")
                     W = S.hoistable_operands(X.dtype, dev)
+                    if stype == "FJLT":  # (N, S) of ±1, scaled by 1/sqrt(S) after the sum
+                        W = W.double().T / math.sqrt(S.s)
                     mag = X.double().abs() @ W.double().abs().T
                     bnd = 2 * gk * mag
                     if stype == "GaussianRFT":  # outscale cos(W·X + shift)
@@ -4967,7 +4998,7 @@ def serve_path(sky, dev, reset_counts, read_counts, smi) -> set:
     xs = list(torch.randn((max(SV_RUNGS), ML_DIM), generator=g, device=dev).cpu().numpy())
     keys = ("ls", "ls_cwt", "ls_rf", "predict")
     expect = {"ls": ("gather_scaled_rows",), "ls_cwt": ("scatter_rows",),
-              "ls_rf": ("rfut_rowwise_sampled",), "predict": ("rfut_rowwise",)}
+              "ls_rf": ("rfut_rowwise_sampled",), "predict": ()}  # predict: the hoisted W
 
     def req(key, i, x=None):
         if key == "predict":
@@ -4986,8 +5017,7 @@ def serve_path(sky, dev, reset_counts, read_counts, smi) -> set:
     srv.prime()
     t_prime = time.perf_counter() - t1
     count("serve (register)", t0, ("gather_scaled_rows", "scatter_rows",
-                                   "rfut_rowwise_sampled", "rfut_rowwise",
-                                   "segment_sum_flat"))
+                                   "rfut_rowwise_sampled", "segment_sum_flat"))
     print(f"serve: registered {sorted(reg.describe()['systems'])}, mdl, g ({G.n} vertices, "
           f"{G.volume // 2} edges, built from phase 3l's arc list in {t_graph:.1f} s) in "
           f"{ {k: round(v, 3) for k, v in t_reg.items()} } s; primed {srv.primed} in "
@@ -5144,7 +5174,7 @@ def serve_path(sky, dev, reset_counts, read_counts, smi) -> set:
     check(not mism, f"serve mid-traffic captures: {mism[:4]} differ from serial")
     check(not errors, f"serve mid-traffic captures: requests failed {errors[:2]}")
     count("serve (pins)", t0, ("gather_scaled_rows", "scatter_rows",
-                                     "rfut_rowwise_sampled", "rfut_rowwise"))
+                                     "rfut_rowwise_sampled"))
     srv_s.stop()
 
     # -- (d) a cache hit launches nothing --------------------------------------
@@ -5323,7 +5353,9 @@ def serve_path(sky, dev, reset_counts, read_counts, smi) -> set:
         setattr(mod, name, fn)
     check({name for name, n in launched.items() if n} <= {sig[0] for sig in held},
           f"serve: kernels launched {launched}, held {sorted({sig[0] for sig in held})}")
-    for name in ("gather_scaled_rows", "scatter_rows", "rfut_rowwise", "rfut_rowwise_sampled",
+    # The Fastfood model's predict blocks take its hoisted W (a GEMM), so
+    # the server launches no rfut_rowwise.
+    for name in ("gather_scaled_rows", "scatter_rows", "rfut_rowwise_sampled",
                  "segment_sum_flat"):
         check(launched.get(name, 0) > 0, f"serve: {name} was not launched through the server")
     return held
@@ -5629,7 +5661,10 @@ def elastic_path(sky, dev, reset_counts, read_counts, add_counts, uncounted, smi
     tfac, maps, admm, classes = elastic_drill.train_problem(train, dev)
     X = torch.cat([Xb for Xb, _ in tfac(0)])
     y = torch.cat([yb for _, yb in tfac(0)]).cpu().numpy()
-    with uncounted():
+    # The trainer's feature blocks take the maps' hoisted W (a GEMM over
+    # each batch); the reference takes the same W by the forced realized
+    # apply over the whole X.
+    with uncounted(), forced_env(SKYLARK_FRFT_GEMM="1"):
         secs_ref, ref = clock(
             lambda: sky.ml.BlockADMMSolver("hinge", "l2", maps, admm).train(X, y))
     del X
@@ -5656,13 +5691,13 @@ def elastic_path(sky, dev, reset_counts, read_counts, add_counts, uncounted, smi
     per_iter_1 = (tN - t1) / (EL_ADMM_ITERS - 1)
     print(f"elastic (a) DistributedBlockADMMTrainer at world 1 on {backend}, {ADMM_M} x {ADMM_D}, two "
           f"Fastfood maps of {ADMM_S}, P = {ADMM_P}, hinge, {EL_ADMM_ITERS} iterations: W and "
-          f"objective bitwise BlockADMMSolver.train {same}; s/iter {per_iter_1!r} ((t_"
-          f"{EL_ADMM_ITERS} - t_1)/{EL_ADMM_ITERS - 1}, each the min of 2); "
+          f"objective bitwise BlockADMMSolver.train (on the forced realized W) {same}; s/iter "
+          f"{per_iter_1!r} ((t_{EL_ADMM_ITERS} - t_1)/{EL_ADMM_ITERS - 1}, each the min of 2); "
           f"BlockADMMSolver.train {secs_ref!r} s in all {card}")
     check(same, "elastic (a): the world-1 trainer is not bitwise BlockADMMSolver.train")
     for mod, name, kernel in kernels:
         setattr(mod, name, kernel)
-    read_counts("elastic (a)", t_a, ("scatter_rows", "rfut_rowwise"))
+    read_counts("elastic (a)", t_a, ("scatter_rows",))
 
     def ok_world(label, ranks, runs):
         for r, (rc, text, rep) in enumerate(ranks):
@@ -5705,7 +5740,7 @@ def elastic_path(sky, dev, reset_counts, read_counts, add_counts, uncounted, smi
     tally(reps)
     for rep in reps:  # (launches count on the card only)
         lc = {k: sum(run["launches"][k] for run in rep["runs"]) for k in rank_counts}
-        for name in ("scatter_rows", "rfut_rowwise", "segment_sum_flat"):
+        for name in ("scatter_rows", "segment_sum_flat"):
             check(lc[name] > 0 or dev.type != "cuda",
                   f"elastic: rank {rep['rank']} launched no {name}")
     secs = {run["name"]: max(rep["runs"][i]["seconds"] for rep in reps)
@@ -5975,8 +6010,10 @@ def mesh_path(sky, dev, reset_counts, read_counts, uncounted, smi, edges) -> set
             held_to(f"{name}, {p} slot(s)", out, ref, p == 1, ctl)
         del A, ref, out, ctl
         torch.cuda.empty_cache()
-        read_counts("mesh (a)", t0, ("rfut_rowwise", "rfut_rowwise_sampled",
-                                     "gather_scaled_rows", "scatter_rows"))
+        # The rowwise FJLT at 4096 -> 1000 and 1024 takes the subsampled-
+        # Hadamard GEMM: phase 2 and the LS, NLA, policy and plans paths hold
+        # the rfut kernels.
+        read_counts("mesh (a)", t0, ("gather_scaled_rows", "scatter_rows"))
 
         # (b) the sparse schedules on phase 3b's shape; integer-valued data
         # (nonzero integers: a zero entry is padding to the sparse-out
@@ -6436,7 +6473,7 @@ def shard_path(sky, dev, reset_counts, read_counts, uncounted, smi, cli_files) -
         times["dryrun_multichip(4)"] = {4: time.perf_counter() - t0}
         print(f"shard dryrun_multichip(4, device='cuda'): every step ran and met its check "
               f"{card}")
-        read_counts("shard (d)", t0, ("rfut_rowwise", "scatter_rows", "segment_sum_flat"))
+        read_counts("shard (d)", t0, ("scatter_rows", "segment_sum_flat"))
 
         # (e) the serve programs forced over 2 and 4 entries of the card,
         # two rounds of distinct requests on one server: round 0's first
@@ -6574,6 +6611,361 @@ def shard_path(sky, dev, reset_counts, read_counts, uncounted, smi, cli_files) -
     print(f"shard: phase 3q items {time.perf_counter() - t_phase:.1f} s, peak memory allocated "
           f"{peak:.2f} GiB {card}")
     return held
+
+
+def matmul_path(sky, dev, reset_counts, read_counts, uncounted, smi) -> set:
+    """Phase 3r: the matmul routes the JAX package takes outside its
+    kernels, each timed beside the route it replaced and held against it
+    beside a control that misses (max |diff| / max |ref| printed): (a)
+    FJLT's subsampled-Hadamard GEMM against the WHT route
+    (``SKYLARK_NO_SRHT_GEMM=1``) at MM_RW_* rowwise f32 and bf16 and
+    MM_CW_* columnwise bf16, and the sweep of S over MM_SWEEP_S at both
+    widths with the gate's verdict at each; (b) Fastfood's hoisted W
+    against the streamed apply at serving's predict block, a streaming-
+    KRR panel and the forced realized apply (``SKYLARK_FRFT_GEMM=1``);
+    (c) PPT's matmul DFT (``SKYLARK_PPT_DFT=1``) against its FFT in bf16
+    at the predict shape; (d) ``mm_f32`` against the f32 lift at
+    ``_psd_gram``'s KRR shape and a hash one-hot contract, and phase 3j's
+    approximate-KRR rungs again; (e) ridge and the DCT FJLT on a
+    row-sharded A on 1, 2 and 4 slots of the card, and the GEMM route's
+    columnwise FJLT of a row-sharded A.  Controls run ``uncounted()``;
+    every first launch of a kernel signature is held against its plain
+    version.  Returns the held signatures."""
+    from libskylark_tpu_torch import parallel as P
+    from libskylark_tpu_torch.core import precision
+    from libskylark_tpu_torch.core.precision import bf16_split3, mm_f32
+    from libskylark_tpu_torch.ml.krr import _psd_gram
+    from libskylark_tpu_torch.parallel import mesh as M
+    from libskylark_tpu_torch.sketch import kernels_fut as kf
+    from libskylark_tpu_torch.sketch import kernels_scatter as ks
+    from libskylark_tpu_torch.sketch import kernels_window as kw
+    from libskylark_tpu_torch.sketch import ppt as ppt_mod
+    from libskylark_tpu_torch.solvers import RegressionProblem, solve_regression
+
+    card = f"[{smi}]"
+    f32, bf16 = torch.float32, torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(SEED + 37)
+    held = set()
+    ctx = sky.SketchContext
+
+    def rel(a, b):
+        a, b = M.fully_replicated(a).double(), M.fully_replicated(b).double()
+        return float((a - b).abs().max() / b.abs().max())
+
+    def against(label, got, ref, ctl, tol, ms=None):
+        """``got`` within ``tol`` of ``ref`` (max |diff| / max |ref|) and
+        the control outside it; the two routes' times where given."""
+        r, c = rel(got, ref), rel(ctl, ref)
+        times = f"; {ms[0]!r} ms against {ms[1]!r} ms" if ms else ""
+        print(f"matmul {label}: max |diff| / max |ref| {r:.3g} (tol {tol:g}), control "
+              f"{c:.3g}{times} {card}")
+        check(r <= tol and c > tol, f"matmul {label}: {r} (control {c})")
+
+    def segsum_held(out, vals, keys, segs):
+        ref = ks.segment_sum_flat_plain(vals, keys, segs)
+        _, r = max_err(out, ref)
+        i = int(vals.abs().argmax())
+        ctl = ks.segment_sum_flat_plain(torch.cat([vals[:i], vals[i + 1:]]),
+                                        torch.cat([keys[:i], keys[i + 1:]]), segs)
+        _, c = max_err(out, ctl)
+        print(f"matmul (held) segment_sum_flat {vals.shape[0]} -> {segs} {vals.dtype}: vs its "
+              f"plain version rel {r:.3g} (tol 1e-5); control (the plain version without entry "
+              f"{i}) {c:.3g}")
+        check(r <= 1e-5 and c > 1e-5, f"matmul segment_sum_flat {vals.shape[0]}: {r}, control {c}")
+
+    kernels = hold_kernels("matmul", kf, kw, ("rfut_rowwise", "rfut_rowwise_sampled",
+                                              "gather_scaled_rows", "scatter_rows"), held)
+    kernels.append((ks, "segment_sum_flat", hold(ks, "segment_sum_flat", segsum_held, held)))
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_phase = time.perf_counter()
+    try:
+        # -- (a) FJLT: the subsampled-Hadamard GEMM against the WHT route ------
+        reset_counts()
+        t0 = time.perf_counter()
+        X = torch.randn(MM_RW_M, MM_RW_N, generator=g, device=dev)
+        A_cw = torch.randn(MM_CW_N, MM_CW_M, generator=g, device=dev).T  # (M, N) column-major
+        A_cw = A_cw.contiguous()
+        tol = {f32: 1e-5, bf16: 1e-2}
+
+        def fjlt_pair(label, n, s, A, dim, seed=SEED):
+            """The gate's verdict, the default apply and the WHT route (knob
+            on), each timed; the default held against the WHT route beside
+            another seed's sketch."""
+            S = sky.sketch.FJLT(n, s, ctx(seed=seed))
+            wins = S._gemm_wins(A.dtype)
+            t_gemm = time_ms(lambda: S.apply(A, dim), reps=5)
+            out = S.apply(A, dim)
+            with forced_env(SKYLARK_NO_SRHT_GEMM="1"):
+                t_wht = time_ms(lambda: S.apply(A, dim), reps=5)
+                ref = S.apply(A, dim)
+            with uncounted():
+                ctl = sky.sketch.FJLT(n, s, ctx(seed=seed + 1)).apply(A, dim)
+            route = "GEMM" if wins else "WHT (the gate says no: both runs take it)"
+            against(f"(a) FJLT {label} {A.dtype}: gate -> {route}; default against "
+                    f"SKYLARK_NO_SRHT_GEMM=1", out, ref, ctl, tol[A.dtype], (t_gemm, t_wht))
+            times[f"FJLT {label} {A.dtype}"] = {"gate": route.split()[0], "default_ms": t_gemm,
+                                                 "wht_ms": t_wht}
+            return S, out
+
+        times = {}
+        for dt in (f32, bf16):
+            Xd = X.to(dt)
+            S, _ = fjlt_pair(f"rowwise {MM_RW_M} x {MM_RW_N} -> {MM_RW_S}", MM_RW_N, MM_RW_S,
+                             Xd, "rowwise")
+            check(S._gemm_wins(dt), f"matmul (a): the gate does not take the GEMM at "
+                  f"{MM_RW_N} -> {MM_RW_S} {dt}")
+            # The hoisted G: the GEMM alone, bitwise the apply.
+            ops = S.hoistable_operands(dt, dev)
+            t_hoist = time_ms(lambda: S.apply_with_operands(ops, Xd, "rowwise"), reps=5)
+            t_g = time_ms(lambda: S._srht_matrix(bf16, dev), reps=5)
+            same = torch.equal(S.apply_with_operands(ops, Xd, "rowwise"), S.apply(Xd, "rowwise"))
+            print(f"matmul (a) FJLT rowwise {dt}: hoisted G {t_hoist!r} ms (G's build "
+                  f"{t_g!r} ms), bitwise the apply {same} {card}")
+            check(same, f"matmul (a): hoisted FJLT {dt} is not bitwise the apply")
+            times[f"FJLT rowwise {MM_RW_M} x {MM_RW_N} -> {MM_RW_S} {dt}"].update(
+                hoisted_ms=t_hoist, build_g_ms=t_g)
+            del Xd
+        # The f32 GEMM's parts: the split, one bf16 product with an f32 result.
+        Xh = bf16_split3(X)
+        G16 = S._srht_matrix(bf16, dev)
+        t_split = time_ms(lambda: bf16_split3(X), reps=5)
+        t_one = time_ms(lambda: mm_f32(Xh[0], G16), reps=5)
+        print(f"matmul (a) FJLT rowwise f32 GEMM parts: bf16_split3 of X {t_split!r} ms, one "
+              f"bf16 product {MM_RW_M} x {MM_RW_N} x {MM_RW_S} with an f32 result {t_one!r} ms "
+              f"(x 3) {card}")
+        times[f"FJLT rowwise {MM_RW_M} x {MM_RW_N} -> {MM_RW_S} {f32}"].update(
+            split_ms=t_split, one_product_ms=t_one)
+        del Xh, G16, ops
+        S_cw, _ = fjlt_pair(f"columnwise {MM_CW_M} x {MM_CW_N} -> {MM_CW_S}", MM_CW_M, MM_CW_S,
+                            A_cw.to(bf16), "columnwise")
+        check(S_cw._gemm_wins(bf16), "matmul (a): the gate does not take the columnwise GEMM")
+        for dt in (f32, bf16):
+            Xd, Ad = X.to(dt), A_cw.to(dt)
+            for s in MM_SWEEP_S:
+                fjlt_pair(f"rowwise {MM_RW_M} x {MM_RW_N} -> {s}", MM_RW_N, s, Xd, "rowwise")
+                fjlt_pair(f"columnwise {MM_CW_M} x {MM_CW_N} -> {s}", MM_CW_M, s, Ad,
+                          "columnwise")
+        del Xd, Ad
+        torch.cuda.empty_cache()
+        read_counts("matmul (a)", t0, ())
+
+        # -- (b) Fastfood: hoisted W against the streamed apply ---------------
+        reset_counts()
+        t0 = time.perf_counter()
+        kern = sky.ml.GaussianKernel(ML_DIM, ML_SIGMA)
+        F = kern.create_rft(ML_S, "fast", ctx(seed=SEED + 5))
+        F_ctl = kern.create_rft(ML_S, "fast", ctx(seed=SEED + 6))
+        ff_tol = {f32: 3e-3, bf16: 2e-2}
+
+        def ff_ref(Xd):
+            """The streamed apply in f32 of ``Xd``'s values: a bf16 streamed
+            apply rounds its pre-cos values and its epilogue to bf16 (~5e-2
+            of the features' scale), which the realized route does in f32."""
+            return F.apply(Xd.float(), "rowwise")
+
+        def ff_note(Xd, ref):
+            if Xd.dtype == f32:
+                return ""
+            with uncounted():
+                own = rel(F.apply(Xd, "rowwise"), ref)
+            return f" (in f32; the streamed bf16 apply itself reads {own:.3g})"
+        t_w = time_ms(lambda: F._realized_w(dev), reps=3)
+        for label, rows, dt in (("serving's predict block", MM_FF_PREDICT, f32),
+                                ("streaming-KRR panel", MM_FF_PANEL, bf16),
+                                ("streaming-KRR panel", MM_FF_PANEL, f32)):
+            Xb = torch.randn(rows, ML_DIM, generator=g, device=dev).to(dt)
+            ops = F.hoistable_operands(dt, dev)
+            t_h = time_ms(lambda: F.apply_with_operands(ops, Xb, "rowwise"), reps=5)
+            t_s = time_ms(lambda: F.apply(Xb, "rowwise"), reps=5)
+            got = F.apply_with_operands(ops, Xb, "rowwise")
+            ref = ff_ref(Xb)
+            with uncounted():
+                ctl = F_ctl.apply(Xb, "rowwise")
+            check(got.dtype == dt, f"matmul (b): hoisted Fastfood returned {got.dtype}")
+            against(f"(b) Fastfood {label} {rows} x {ML_DIM} -> {ML_S} {dt}: hoisted W "
+                    f"against the streamed apply{ff_note(Xb, ref)}", got, ref, ctl, ff_tol[dt],
+                    (t_h, t_s))
+            times[f"Fastfood {label} {rows} {dt}"] = {"hoisted_ms": t_h, "streamed_ms": t_s}
+            del Xb, got, ref, ctl
+        print(f"matmul (b) Fastfood W ({ML_S}, {ML_DIM}) f32 realized once per plan or chunk: "
+              f"{t_w!r} ms {card}")
+        for dt in (f32, bf16):
+            Xd = X.to(dt)
+            with forced_env(SKYLARK_FRFT_GEMM="1"):
+                check(F._realize_wins(dt, MM_RW_M), "matmul (b): the forced gate says no")
+                t_r = time_ms(lambda: F.apply(Xd, "rowwise"), reps=3)
+                got = F.apply(Xd, "rowwise")
+            t_s = time_ms(lambda: F.apply(Xd, "rowwise"), reps=3)
+            ref = ff_ref(Xd)
+            with uncounted():
+                ctl = F_ctl.apply(Xd, "rowwise")
+            against(f"(b) Fastfood forced realized apply {MM_RW_M} x {ML_DIM} -> {ML_S} {dt} "
+                    f"(SKYLARK_FRFT_GEMM=1) against the streamed apply{ff_note(Xd, ref)}", got,
+                    ref, ctl, ff_tol[dt], (t_r, t_s))
+            times[f"Fastfood realized apply {MM_RW_M} {dt}"] = {"realized_ms": t_r,
+                                                                "streamed_ms": t_s}
+            del Xd, got, ref, ctl
+        torch.cuda.empty_cache()
+        read_counts("matmul (b)", t0, ())
+
+        # -- (c) PPT: the matmul DFT against the FFT, bf16 --------------------
+        reset_counts()
+        t0 = time.perf_counter()
+        pk = sky.ml.PolynomialKernel(ML_DIM, 3, 1.0, 1.0 / ML_DIM)
+        Fp = pk.create_rft(MM_PPT_S, "regular", ctx(seed=SEED + 7))
+        Xp = X.to(bf16)
+        with forced_env(SKYLARK_PPT_DFT="1"):
+            check(Fp._dft_wins(bf16, MM_RW_M), "matmul (c): the forced DFT gate says no")
+            t_d = time_ms(lambda: Fp.apply(Xp, "rowwise"), reps=5)
+            got = Fp.apply(Xp, "rowwise")
+        t_f = time_ms(lambda: Fp.apply(Xp, "rowwise"), reps=5)
+        fft16 = Fp.apply(Xp, "rowwise")
+        ref32 = Fp.apply(X, "rowwise")
+        with uncounted():
+            ctl = pk.create_rft(MM_PPT_S, "regular", ctx(seed=SEED + 8)).apply(Xp, "rowwise")
+        check(got.dtype == bf16, f"matmul (c): the DFT route returned {got.dtype}")
+        against(f"(c) PPT q=3 {MM_RW_M} x {ML_DIM} -> {MM_PPT_S} bf16: SKYLARK_PPT_DFT=1 "
+                "against the FFT route", got, fft16, ctl, 0.02, (t_d, t_f))
+        against(f"(c) PPT q=3 bf16 DFT against the f32 FFT route", got, ref32, ctl, 0.02)
+        times[f"PPT {MM_RW_M} bf16"] = {"dft_ms": t_d, "fft_ms": t_f}
+        del Xp, got, fft16, ref32, ctl
+        read_counts("matmul (c)", t0, ())
+
+        # -- (d) mm_f32 against the lift ---------------------------------------
+        reset_counts()
+        t0 = time.perf_counter()
+        Z = F.apply(X, "rowwise").to(bf16)
+        out = _psd_gram(Z.T, Z)
+        check(out.dtype == f32, f"matmul (d): _psd_gram of bf16 returned {out.dtype}")
+        lift = Z.T.float() @ Z.float()
+        ctl = torch.mm(Z.T, Z)  # bf16 x bf16 rounded to bf16: what mm_f32 must not do
+        t_m = time_ms(lambda: _psd_gram(Z.T, Z), reps=5)
+        t_l = time_ms(lambda: Z.T.float() @ Z.float(), reps=5)
+        against(f"(d) _psd_gram Z^T Z, Z ({MM_RW_M}, {ML_S}) bf16: mm_f32 (f32 result) against "
+                "the f32 lift; control the bf16-rounded torch.mm", out, lift, ctl, 1e-4,
+                (t_m, t_l))
+        times["_psd_gram bf16"] = {"mm_f32_ms": t_m, "lift_ms": t_l}
+        # Why mm_f32 cuts a long contraction (MM_F32_CHUNK): each against the
+        # f64 product, max |diff| / max |ref|.
+        ref64 = Z.T.double() @ Z.double()
+        one = torch.mm(Z.T, Z, out_dtype=f32) if dev.type == "cuda" else out  # no CPU kernel
+        acc = {k: rel(v, ref64) for k, v in (("one call", one), ("mm_f32", out),
+                                              ("lift", lift))}
+        print(f"matmul (d) the Gram against its f64 product: one torch.mm(out_dtype=f32) over "
+              f"K = {MM_RW_M} {acc['one call']:.3g}, mm_f32 in chunks of "
+              f"{precision.MM_F32_CHUNK} {acc['mm_f32']:.3g}, the f32 lift {acc['lift']:.3g} "
+              f"{card}")
+        check(acc["mm_f32"] <= acc["lift"] * 2, f"matmul (d): mm_f32's Gram {acc}")
+        times["_psd_gram bf16"].update(err_vs_f64=acc)
+        del Z, out, lift, ctl, ref64, one
+        cwt = sky.sketch.CWT(MM_RW_N, MM_RW_S, ctx(seed=SEED + 9))
+        Mi = cwt._sign_matrix_bf16(1.0, dev)
+        for dt in (bf16, f32):
+            Xd = X.to(dt)
+            out = cwt._onehot_contract(Xd, Mi, sky.sketch.ROWWISE, dt)
+            if dt == bf16:
+                def lift_fn():
+                    return Xd.float() @ Mi.float()
+            else:
+                parts = bf16_split3(Xd)
+
+                def lift_fn():
+                    return sum(p.float() @ Mi.float() for p in parts)
+            lift = lift_fn()
+            ctl = (torch.mm(Xd, Mi) if dt == bf16 else
+                   sum(torch.mm(p, Mi) for p in bf16_split3(Xd)))
+            t_m = time_ms(lambda: cwt._onehot_contract(Xd, Mi, sky.sketch.ROWWISE, dt), reps=5)
+            t_l = time_ms(lift_fn, reps=5)
+            check(out.dtype == f32, f"matmul (d): the one-hot contract returned {out.dtype}")
+            against(f"(d) CWT one-hot contract X ({MM_RW_M}, {MM_RW_N}) {dt} -> {MM_RW_S}: "
+                    "mm_f32 against the f32 lift; control the bf16-rounded torch.mm", out, lift,
+                    ctl, 1e-5, (t_m, t_l))
+            times[f"one-hot contract {dt}"] = {"mm_f32_ms": t_m, "lift_ms": t_l}
+            del Xd, out, lift, ctl
+        if KRR_RUNG_SECS:
+            print(f"matmul (d) approximate KRR rungs (phase 3j (f), in turns): f32 "
+                  f"{KRR_RUNG_SECS['f32']!r} s, bf16 {KRR_RUNG_SECS['bf16']!r} s {card}")
+        read_counts("matmul (d)", t0, ())
+
+        # -- (e) ridge and the FJLT on a row-sharded A ------------------------
+        reset_counts()
+        t0 = time.perf_counter()
+        meshes = {p: P.make_mesh((p,), (P.ROWS,), devices=[dev] * p) for p in SH_SLOTS}
+        m, n = NLA_M, NLA_N
+        A = torch.randn(m, n, generator=g, device=dev)
+        b = A @ torch.randn(n, generator=g, device=dev) + SH_NOISE * torch.randn(
+            m, generator=g, device=dev)
+
+        def ridge(A_, solver, lam, seed=SEED):
+            out = solve_regression(RegressionProblem(A_, regularization="ridge", lam=lam), b,
+                                   solver, ctx(seed=seed))
+            return out[0] if isinstance(out, tuple) else out
+
+        for solver in ("exact", "sketched"):
+            with uncounted():
+                ref = ridge(A, solver, MM_RIDGE_LAM)
+                ctl = ridge(A, solver, 2 * MM_RIDGE_LAM)
+            for p, mesh in meshes.items():
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                got = ridge(P.shard_rows(A, mesh), solver, MM_RIDGE_LAM)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t1
+                label = (f"(e) ridge {solver} lam {MM_RIDGE_LAM:g}, A {m} x {n} f32 on {p} "
+                         f"slot(s), {secs:.4f} s")
+                if p == 1:
+                    same = torch.equal(got, ref)
+                    print(f"matmul {label}: bitwise the unsharded call {same} {card}")
+                    check(same, f"matmul (e) ridge {solver}: one slot is not the unsharded call")
+                else:
+                    against(f"{label} (control: lam x 2)", got, ref, ctl, SH_TOL[solver])
+        S_d = sky.sketch.FJLT(m, SK_S, ctx(seed=SEED + 10), fut="dct")
+        with uncounted():
+            ref = S_d.apply(A)
+            ctl = sky.sketch.FJLT(m, SK_S, ctx(seed=SEED + 11), fut="dct").apply(A)
+        for p, mesh in meshes.items():
+            got = S_d.apply(P.shard_rows(A, mesh))
+            t_p = time_ms(lambda: S_d.apply(P.shard_rows(A, mesh)), reps=3)
+            if p == 1:
+                same = torch.equal(got, ref)
+                print(f"matmul (e) DCT FJLT {m} x {n} -> {SK_S} f32, 1 slot ({t_p!r} ms): "
+                      f"bitwise the unsharded call {same} {card}")
+                check(same, "matmul (e) DCT FJLT: one slot is not the unsharded call")
+            else:
+                against(f"(e) DCT FJLT {m} x {n} -> {SK_S} f32 on {p} slots ({t_p!r} ms)",
+                        got, ref, ctl, DCT_TOL)
+        del A, b, ref, ctl, got
+        for dt in (bf16, f32):
+            S_g = sky.sketch.FJLT(MM_CW_M, MM_CW_S, ctx(seed=SEED + 12))
+            Ad = A_cw.to(dt)
+            with uncounted():
+                ref = S_g.apply(Ad)
+                ctl = sky.sketch.FJLT(MM_CW_M, MM_CW_S, ctx(seed=SEED + 13)).apply(Ad)
+            route = "GEMM" if S_g._gemm_wins(dt) else "Kronecker split"
+            for p, mesh in meshes.items():
+                got = S_g.apply(P.shard_rows(Ad, mesh))
+                if p == 1:
+                    same = torch.equal(got, ref)
+                    print(f"matmul (e) FJLT {MM_CW_M} x {MM_CW_N} -> {MM_CW_S} {dt} ({route}), "
+                          f"1 slot: bitwise the unsharded call {same} {card}")
+                    check(same, "matmul (e) FJLT: one slot is not the unsharded call")
+                else:
+                    against(f"(e) FJLT {MM_CW_M} x {MM_CW_N} -> {MM_CW_S} {dt} on {p} slots "
+                            f"({route})", got, ref, ctl, tol[dt])
+        del X, A_cw
+        torch.cuda.empty_cache()
+        read_counts("matmul (e)", t0, ())
+    finally:
+        for mod, name_, kernel in kernels:
+            setattr(mod, name_, kernel)
+
+    print(f"matmul times (CUDA events, median): {json.dumps(times)} {card}")
+    print(f"matmul: phase 3r items {time.perf_counter() - t_phase:.1f} s, peak memory allocated "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB {card}")
+    return held
+
+
+T_START = time.perf_counter()
 
 
 def main() -> None:
@@ -6989,8 +7381,10 @@ def main() -> None:
         check(r <= 1e-5, f"FJLT rowwise S={s} disagrees with the CPU plain path")
         check(0.9 < norm_ratio < 1.1, f"FJLT rowwise S={s}: norm ratio {norm_ratio}")
     del out
+    # The rowwise FJLT at 131072 x 4096 takes the subsampled-Hadamard GEMM
+    # (its gate holds there), so this path launches no rfut_rowwise.
     read_counts("least-squares", t_main,
-                ("rfut_rowwise", "rfut_rowwise_sampled", "gather_scaled_rows", "scatter_rows"))
+                ("rfut_rowwise_sampled", "gather_scaled_rows", "scatter_rows"))
 
     memory("3a")
 
@@ -7202,6 +7596,14 @@ def main() -> None:
 
     memory("3q")
 
+    # -- 3r. the matmul routes outside the kernels, and the sharded gaps ----
+    torch.cuda.empty_cache()
+    t_3r = time.perf_counter()
+    matmul_held = matmul_path(sky, dev, reset_counts, read_counts, uncounted, smi)
+    print(f"matmul: phase 3r {time.perf_counter() - t_3r:.1f} s [{smi}]")
+
+    memory("3r")
+
     # -- 4. times at main-path shapes ------------------------------------
     kernels = []
 
@@ -7209,11 +7611,11 @@ def main() -> None:
             path_count=None, err=None, shape=None, split=None):
         b_ms, by = bound(bytes_moved, ops)
         by_path = {p: c[name] for p, c in path_launches.items() if c[name]}
-        # Phases 3i's, 3j's, 3l's, 3m's, 3n's, 3o's, 3p's and 3q's items,
-        # and their sums under "refine", "policy", "cli", "telemetry",
-        # "serve", "elastic", "mesh" and "shard", on every row.
+        # Phases 3i's, 3j's, 3l's, 3m's, 3n's, 3o's, 3p's, 3q's and 3r's
+        # items, and their sums under "refine", "policy", "cli", "telemetry",
+        # "serve", "elastic", "mesh", "shard" and "matmul", on every row.
         for phase in ("refine", "policy", "cli", "telemetry", "serve", "elastic", "mesh",
-                      "shard"):
+                      "shard", "matmul"):
             by_path[phase] = sum(c[name] for p, c in path_launches.items()
                                  if p.startswith(f"{phase} ("))
         kernels.append({
@@ -7247,6 +7649,9 @@ def main() -> None:
             # ... and those phase 3q held.
             "shard_held": sorted(str(sig[1:]).replace("torch.", "")
                                  for sig in shard_held if sig[0] == name),
+            # ... and those phase 3r held.
+            "matmul_held": sorted(str(sig[1:]).replace("torch.", "")
+                                  for sig in matmul_held if sig[0] == name),
             "max_abs_err": errs[name] if err is None else err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
             "library_ms": library_ms, **({"shape": shape} if shape else {}), **(split or {}),
@@ -7406,6 +7811,7 @@ def main() -> None:
               "partition_plain")
         del lib_out
 
+    print(f"chip_smoke: whole script {time.perf_counter() - T_START:.1f} s [{smi}]")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {

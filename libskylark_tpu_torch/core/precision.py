@@ -12,7 +12,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["bf16_split3", "f32_accumulable", "fp8_dtype", "fp8_available", "round_to_e4m3"]
+__all__ = ["bf16_split3", "f32_accumulable", "fp8_dtype", "fp8_available", "mm_f32",
+           "round_to_e4m3"]
 
 # The largest magnitude that rounds into e4m3fn's range: past it the
 # nearest value would be 480, whose code is e4m3fn's NaN (there is no
@@ -87,3 +88,43 @@ def bf16_split3(x: torch.Tensor):
         lo.to(torch.bfloat16),
         lo2.to(torch.bfloat16),
     )
+
+
+_HALF = (torch.bfloat16, torch.float16)
+
+# The longest contraction one tensor-core product sums on the card.  Its
+# f32 accumulator drifts with the length of the sum: a bf16 Gram of 131072
+# rows (chip_smoke.py phase 3r (d), H100 80GB HBM3 at 700.00 W) read
+# 6.12e-4 of its largest entry from the f64 product in one call, 1.27e-5
+# in chunks of 4096 rows whose f32 partials are added in order, and
+# 2.83e-5 through the f32 lift.
+MM_F32_CHUNK = 4096
+
+
+def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of two bf16 (or f16) matrices, or two stacks of them
+    (3-D), with an f32 result: the JAX package's ``dot_general(...,
+    preferred_element_type=f32)``.  The products of half-precision
+    values are exact in f32, so only the order of the f32 sums is the
+    library's.
+
+    On the card it is ``torch.mm(a, b, out_dtype=torch.float32)``
+    (``torch.bmm`` for stacks): tensor-core operands, f32 accumulation
+    and an f32 result, never rounded to bf16 (a plain bf16 ``torch.mm``
+    rounds its result, which would undo a bf16 split).  A contraction
+    longer than ``MM_F32_CHUNK`` runs as products of that length whose
+    f32 results are added in order.  On the CPU, where torch has no
+    kernel for that overload, it is the exact lift
+    ``a.float() @ b.float()``."""
+    if a.dtype not in _HALF or b.dtype != a.dtype:
+        raise TypeError(f"mm_f32 multiplies two bf16 or two f16 tensors, got {a.dtype} "
+                        f"and {b.dtype}")
+    if a.device.type == "cpu":
+        return a.float() @ b.float()
+    op = torch.mm if a.ndim == 2 else torch.bmm
+    out = None
+    for k0 in range(0, max(a.shape[-1], 1), MM_F32_CHUNK):
+        part = op(a[..., k0:k0 + MM_F32_CHUNK], b[..., k0:k0 + MM_F32_CHUNK, :],
+                  out_dtype=torch.float32)
+        out = part if out is None else out.add_(part)
+    return out

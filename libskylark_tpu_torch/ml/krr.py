@@ -54,6 +54,7 @@ from .. import guard, plans, policy, telemetry
 from .._device import as_tensor, is_sharded
 from ..core.context import SketchContext
 from ..core.params import Params
+from ..core.precision import mm_f32
 from ..core.random import _const
 from ..parallel import routes
 from ..sketch.base import Dimension, create_sketch
@@ -96,7 +97,10 @@ class KrrParams(Params):
 def _psd_gram(A, B):
     """A·B for a Gram that feeds a Cholesky factor, in A's dtype promoted
     to at least f32 (bf16 products are exact in f32 and the sum stays
-    f32, the JAX package's ``preferred_element_type``)."""
+    f32, the JAX package's ``preferred_element_type``): two bf16 operands
+    through :func:`~..core.precision.mm_f32`."""
+    if A.dtype == B.dtype == torch.bfloat16:
+        return mm_f32(A, B)
     acc = torch.promote_types(A.dtype, torch.float32)
     return torch.matmul(A.to(acc), B.to(acc))
 
@@ -451,7 +455,10 @@ def streaming_approximate_kernel_ridge(kernel: Kernel, source, lam: float, s: in
 def _panel_mm(a, b):
     """a·b in f32 from operands in the feature dtype or f32: the JAX
     package's ``dot_general(..., preferred_element_type=f32)`` — exact
-    upcasts, products and sums in f32."""
+    upcasts, products and sums in f32; two bf16 operands through
+    :func:`~..core.precision.mm_f32`."""
+    if a.dtype == b.dtype == torch.bfloat16:
+        return mm_f32(a, b)
     return torch.matmul(a.to(torch.float32), b.to(torch.float32))
 
 

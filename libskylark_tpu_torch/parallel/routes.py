@@ -22,8 +22,10 @@ take a :class:`~.mesh.Sharded` run one schedule, written here once:
   their global offset (its counter windows) and one psum merges: a dense
   sketch's Omega window (``collectives._window_product``), a hash
   sketch's bucket and value windows through the ``scatter_rows`` kernel,
-  and the FJLT by the Kronecker split of the Walsh-Hadamard transform
-  (:func:`_fjlt_columnwise`);
+  and the FJLT by the route its gate picks (:func:`_fjlt_columnwise`):
+  the subsampled-Hadamard GEMM on each slot's rows of G, or the
+  Kronecker split of the Walsh-Hadamard transform; a DCT FJLT moves A to
+  column blocks and sketches each slot's columns whole;
 - :func:`linear_ops`: the matvec and rmatvec of a sharded A for the
   Krylov solvers, ``cond_est`` and the guard: ``A_k·x`` per slot laid
   out in the mesh's row blocks on slot 0's device, ``Σ_k A_kᵀ·y_k`` by
@@ -217,13 +219,6 @@ def sketch_apply(S, A, dim):
     return S.finalize_slices(psum(parts, A.mesh.device(0)), Dimension.COLUMNWISE)
 
 
-def _parity(x: torch.Tensor, bits: int) -> torch.Tensor:
-    out = torch.zeros_like(x)
-    for b in range(bits):
-        out ^= (x >> b) & 1
-    return out
-
-
 def _block_rfut(x: torch.Tensor, d: torch.Tensor, o: int, L: int) -> torch.Tensor:
     """The orthonormal WHT of length ``L`` of ``d ⊙ x`` placed at rows
     ``[o, o + len)`` of a zero block, as (L, m): the ``rfut_rowwise``
@@ -248,26 +243,32 @@ def _block_rfut(x: torch.Tensor, d: torch.Tensor, o: int, L: int) -> torch.Tenso
 
 
 def _fjlt_columnwise(S, A: Sharded) -> torch.Tensor:
-    """Columnwise FJLT of a row-sharded A by the Kronecker split of the
-    Walsh-Hadamard transform: with q a power of two up to the slot count
-    and L = NB/q, ``H_NB = H_q ⊗ H_L`` in Sylvester order, so output row
-    j (sample c = c_hi·L + c_lo) is ``√(L/S)·Σ_a H_q[c_hi, a]·T_a[c_lo]``
-    with ``T_a`` the length-L RFUT of block a of D ⊙ A.  Each slot
-    transforms the blocks its rows touch (its rows in place, zeros
-    elsewhere: linearity covers a slot that straddles two blocks, and
-    N < NB), gathers the sampled rows with ``gather_scaled_rows`` and the
-    sign ``H_q[c_hi, a] = (-1)^popcount(c_hi & a)``; one psum merges.
-    Agrees with the unsharded apply to f32 rounding: the adds run in
-    another order."""
+    """Columnwise FJLT of a row-sharded A, by the route the unsharded
+    apply's gate picks: the DCT by :func:`_fjlt_dct_columnwise`; the WHT
+    by the subsampled-Hadamard GEMM where ``S._gemm_wins`` holds (each
+    slot multiplies its rows of G with its block, one psum in slot order,
+    then the scale: the JAX package's GSPMD matmul), else by the
+    Kronecker split of the Walsh-Hadamard transform: with q a power of
+    two up to the slot count and L = NB/q, ``H_NB = H_q ⊗ H_L`` in
+    Sylvester order, so output row j (sample c = c_hi·L + c_lo) is
+    ``√(L/S)·Σ_a H_q[c_hi, a]·T_a[c_lo]`` with ``T_a`` the length-L RFUT
+    of block a of D ⊙ A.  Each slot transforms the blocks its rows touch
+    (its rows in place, zeros elsewhere: linearity covers a slot that
+    straddles two blocks, and N < NB), gathers the sampled rows with
+    ``gather_scaled_rows`` and the sign ``H_q[c_hi, a] =
+    (-1)^popcount(c_hi & a)``; one psum merges.  The WHT routes agree
+    with the unsharded apply to rounding: the adds run in another
+    order."""
     from ..core.random import _const
     from ..sketch import kernels_window
-    from ..utils.exceptions import UnsupportedError
+    from ..sketch.fjlt import _parity
 
     if S._fut_name != "wht":
-        raise UnsupportedError(
-            f"a sharded columnwise FJLT needs the Walsh-Hadamard transform, which splits "
-            f"over row blocks; fut={S._fut_name!r} does not (apply it rowwise, or use JLT "
-            "or a hash sketch)")
+        return _fjlt_dct_columnwise(S, A)
+    if S._gemm_wins(A.dtype):
+        parts = [S._srht_sum(a, False, rows=(r0, r1))
+                 for a, (r0, r1) in zip(A.shards, row_blocks(A))]
+        return S._srht_scale(psum(parts, A.mesh.device(0)), A.dtype)
     nb, p = S._nb, A.mesh.size
     bits = min(p.bit_length() - 1, nb.bit_length() - 1)
     L = nb >> bits
@@ -286,11 +287,35 @@ def _fjlt_columnwise(S, A: Sharded) -> torch.Tensor:
                 g = kernels_window.gather_scaled_rows(T, c_lo, scale)
             else:
                 g = T.index_select(0, c_lo.long()) * _const(scale, dtype, dev)
-            sign = (1 - 2 * _parity(c_hi & blk, bits)).to(dtype)
+            sign = (1 - 2 * _parity(c_hi & blk)).to(dtype)
             g = g * sign[:, None]
             part = g if part is None else part + g
         parts.append(part)
     return psum(parts, A.mesh.device(0))
+
+
+def _fjlt_dct_columnwise(S, A: Sharded) -> torch.Tensor:
+    """Columnwise FJLT of a row-sharded A under a transform that does not
+    split over row blocks (the DCT).  A columnwise sketch acts on each
+    column alone, so A is moved to column blocks, slot k receiving its
+    columns of every row block (the all-to-all of ``mesh.reshard``, with
+    blocks as ``torch.tensor_split`` cuts them, so any width works), each
+    slot runs the unsharded apply on its (N, m_k) block, and the (S, m_k)
+    results are joined on slot 0's device.  Each column takes the same
+    transform and gather as in the unsharded apply; only an FFT library's
+    blocking of a batch may round it differently."""
+    from ..sketch.base import Dimension
+
+    dev0, m = A.mesh.device(0), A.shape[1]
+    outs = []
+    for k, cols in enumerate(torch.arange(m).tensor_split(A.mesh.size)):
+        if not len(cols):
+            continue
+        c0, c1 = int(cols[0]), int(cols[-1]) + 1
+        dev = A.mesh.device(k)
+        block = torch.cat([a[:, c0:c1].to(dev) for a in A.shards])
+        outs.append(S.apply(block, Dimension.COLUMNWISE).to(dev0))
+    return torch.cat(outs, dim=1)
 
 
 # -- operators and factorizations ----------------------------------------------

@@ -127,17 +127,24 @@ def _instance_knobs(S) -> tuple:
     return tuple((k, S.__dict__[k]) for k in _INSTANCE_KNOBS if k in S.__dict__)
 
 
+# The env knobs of the GEMM routes (FJLT's subsampled Hadamard, Fastfood's
+# realized W, PPT's matmul DFT), read per call by their gates.
+_ROUTE_ENV = ("SKYLARK_NO_SRHT_GEMM", "SKYLARK_FRFT_GEMM", "SKYLARK_NO_FRFT_GEMM",
+              "SKYLARK_PPT_DFT", "SKYLARK_NO_PPT_DFT")
+
+
 def _kernel_env_token(S) -> tuple:
     """The routing knobs a captured body bakes in (``S``'s one-hot and
     memo limits where it has them, the rfut kernels' smallest NB, the
-    dense engine's realization limit).  Part of every plan key, so a
-    change at run time re-plans rather than replaying a graph of the old
-    route; the JAX package keys its slice plans on its kernel env knobs
-    the same way."""
+    dense engine's realization limit, the GEMM routes' env knobs).  Part
+    of every plan key, so a change at run time re-plans rather than
+    replaying a graph of the old route; the JAX package keys its slice
+    plans on its kernel env knobs the same way."""
     from ..sketch import dense, kernels_fut
 
     return tuple(getattr(S, k, None) for k in _INSTANCE_KNOBS) + (
-        kernels_fut.MIN_NB, dense.MAX_REALIZE_ELEMENTS)
+        kernels_fut.MIN_NB, dense.MAX_REALIZE_ELEMENTS) + tuple(
+        os.environ.get(k, "") for k in _ROUTE_ENV)
 
 
 def donation_enabled(device=None) -> bool:

@@ -269,6 +269,10 @@ class SketchTransform(abc.ABC):
         d.update(self._param_dict())
         return d
 
+    def serialize(self) -> dict[str, Any]:
+        """python-skylark's name for :meth:`to_dict`."""
+        return self.to_dict()
+
     def to_json(self) -> str:
         return json.dumps(self.to_dict())
 

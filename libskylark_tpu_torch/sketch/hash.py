@@ -49,7 +49,7 @@ import torch
 
 from .._device import as_tensor, resolve_device
 from ..core.context import SketchContext
-from ..core.precision import bf16_split3, f32_accumulable
+from ..core.precision import bf16_split3, f32_accumulable, mm_f32
 from ..core.random import _const, sample
 from ..utils.exceptions import UnsupportedError
 from . import kernels_scatter, kernels_window
@@ -436,14 +436,13 @@ class HashSketch(SketchTransform):
         return 1.0
 
     def _onehot_contract(self, X, M, dim: Dimension, dtype):
-        """Contract X's N axis with a bf16-exact (N, S) matrix M; f32 X
-        rides the three-part bit-mask split.  Returns f32, (S, batch)
+        """Contract X's N axis with a bf16 (N, S) matrix M of exact values;
+        f32 X rides the three-part bit-mask split.  Each product is a bf16
+        one with an f32 result (``mm_f32``).  Returns f32, (S, batch)
         columnwise / (batch, S) rowwise."""
-        M32 = M.to(torch.float32)
 
         def mm(x):
-            x = x.to(torch.float32)
-            return M32.T @ x if dim is Dimension.COLUMNWISE else x @ M32
+            return mm_f32(M.T, x) if dim is Dimension.COLUMNWISE else mm_f32(x, M)
 
         if dtype == torch.bfloat16:
             return mm(X.to(torch.bfloat16))

@@ -12,8 +12,10 @@
 
 A row-sharded A (:class:`~libskylark_tpu_torch.parallel.mesh.Sharded`)
 takes every solver: its sketches, products and factorizations run slot
-by slot (``parallel.routes``).  Ridge regularization raises for it: the
-augmented rows do not split into the mesh's equal row blocks.
+by slot (``parallel.routes``).  Under ridge regularization the augmented
+``[A; √λ I]`` is laid out over the mesh's equal row blocks without a
+gather (:func:`_augment_ridge_sharded`), so its m + n rows must divide
+over the slots, as any sharded route's rows must.
 """
 
 from __future__ import annotations
@@ -33,7 +35,6 @@ from ..linalg.least_squares import (
 from ..parallel import routes
 from ..sketch.base import Dimension
 from ..sketch.hash import MMT
-from ..utils.exceptions import UnsupportedError
 from .accelerated import faster_least_squares, lsrn_least_squares
 
 __all__ = ["RegressionProblem", "solve_regression"]
@@ -60,6 +61,34 @@ def _augment_ridge(A, B, lam):
     B_aug = torch.cat([B, torch.zeros((n,) + tuple(B.shape[1:]), dtype=B.dtype,
                                       device=B.device)], dim=0)
     return A_aug, B_aug
+
+
+def _augment_ridge_sharded(A, B, lam):
+    """``[A; √λ I]`` of a row-sharded A laid out over its mesh's equal row
+    blocks of the m + n rows, and ``[B; 0]`` on slot 0's device: each
+    target block is assembled from the pieces of A's shards that overlap
+    it (each copied once to its slot's device) and the rows of √λ I it
+    holds, made there.  No slot gathers A."""
+    from ..parallel.mesh import Sharded, _blocks
+
+    (m, n), mesh = A.shape, A.mesh
+    src = routes.row_blocks(A)
+    shards = []
+    for k, (sl,) in enumerate(_blocks(mesh, A.spec[:1], (m + n,))):
+        dev = mesh.device(k)
+        out = torch.zeros((sl.stop - sl.start, n), dtype=A.dtype, device=dev)
+        for a, (r0, r1) in zip(A.shards, src):
+            lo, hi = max(r0, sl.start), min(r1, sl.stop)
+            if lo < hi:
+                out[lo - sl.start:hi - sl.start] = a[lo - r0:hi - r0].to(dev)
+        lo = max(m, sl.start)
+        if lo < sl.stop:
+            i = torch.arange(lo - m, sl.stop - m, device=dev)
+            out[i + (m - sl.start), i] = torch.sqrt(torch.tensor(lam, dtype=A.dtype, device=dev))
+        shards.append(out)
+    B_aug = torch.cat([B, torch.zeros((n,) + tuple(B.shape[1:]), dtype=B.dtype,
+                                      device=B.device)], dim=0)
+    return Sharded(mesh, A.spec[:1], (m + n, n), shards), B_aug
 
 
 def _irls_l1(A, B, iters=30, eps=1e-6):
@@ -91,11 +120,8 @@ def solve_regression(problem: RegressionProblem, B, solver: str = "exact",
     """
     A, B = routes.operands(problem.A, B, device)
     if problem.regularization == "ridge" and problem.lam > 0:
-        if is_sharded(A):
-            raise UnsupportedError(
-                "ridge regularization augments A with sqrt(lam)*I rows, which a row-sharded "
-                "A's equal row blocks do not hold; solve the augmented system unsharded")
-        A, B = _augment_ridge(A, B, problem.lam)
+        augment = _augment_ridge_sharded if is_sharded(A) else _augment_ridge
+        A, B = augment(A, B, problem.lam)
     if problem.penalty == "l1":
         if context is None:
             raise ValueError("l1 regression needs a SketchContext")

@@ -15,6 +15,10 @@ both dims at 5 and 20 columns (the hash sketches' scatter and one-hot
 routes), the WHT at 2^9 and 2^16 (several factors), the DCT, and the
 slice kernels at a host start and at a device start (in and past the
 domain), their windows drawn.  The QRFTs and the QRLT take no bf16 input on the CPU.
+The FJLT cases pin its WHT route (``SKYLARK_NO_SRHT_GEMM=1``), the route
+they were taken on; at these shapes its gate now sends the default apply
+to the subsampled-Hadamard GEMM, which ``tests/test_torch_matmul_routes.py``
+holds.
 """
 
 import hashlib
@@ -225,8 +229,10 @@ def _digest(t):
 
 
 @pytest.mark.parametrize("case", sorted(APPLY))
-def test_apply_is_bitwise_what_it_was(case):
+def test_apply_is_bitwise_what_it_was(case, monkeypatch):
     stype, dtype, dim, shape = case.split("|")
+    if stype == "FJLT":
+        monkeypatch.setenv("SKYLARK_NO_SRHT_GEMM", "1")
     rows, cols = (int(v) for v in shape.split("x"))
     seed = rows * 1000 + cols + (dim == "rowwise")
     A = torch.from_numpy(np.random.default_rng(seed).standard_normal((rows, cols))

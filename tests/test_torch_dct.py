@@ -109,9 +109,11 @@ def test_fjlt_dct_matches_jax_and_takes_no_wht_kernel(rng, wht_calls, n, s, dtyp
     assert wht_calls["gather_scaled_rows"] == (1 if dtype == np.float32 else 0)
 
 
-def test_fjlt_wht_takes_the_fused_kernels_control(rng, wht_calls):
+def test_fjlt_wht_takes_the_fused_kernels_control(rng, wht_calls, monkeypatch):
     """The control of the test above: the same shape with the WHT takes the
-    fused sampled kernel, so the counts can see a WHT route."""
+    fused sampled kernel, so the counts can see a WHT route (with the
+    subsampled-Hadamard GEMM off, which the gate would take here)."""
+    monkeypatch.setenv("SKYLARK_NO_SRHT_GEMM", "1")
     S = T.sketch.FJLT(512, 128, T.SketchContext(seed=8))
     S.apply(torch.from_numpy(rng.standard_normal((512, 9)).astype(np.float32)))
     assert wht_calls["rfut_rowwise_sampled"] == 1

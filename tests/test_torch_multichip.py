@@ -29,7 +29,6 @@ import libskylark_tpu.plans.plan as jplan
 import libskylark_tpu_torch as T
 from libskylark_tpu import plans as jplans
 from libskylark_tpu_torch.parallel import COLS, ROWS, mesh as tmesh, routes
-from libskylark_tpu_torch.utils.exceptions import UnsupportedError
 
 SLOTS = [1, 2, 4, 8]
 CPU = torch.device("cpu")
@@ -393,16 +392,20 @@ def test_refine_route_on_a_sharded_a(rng, p, gathers):
 
 @pytest.mark.parametrize("what", ["ridge", "dct"])
 def test_what_a_sharded_route_refuses_it_says(rng, what):
-    """Ridge's augmented rows do not split into equal row blocks, and the
-    DCT does not split over them: both raise, naming what to do."""
-    A = T.parallel.shard_rows(torch.from_numpy(rng.standard_normal((64, 4))), _mesh(2))
+    """Ridge lays ``[A; √λ I]`` over equal row blocks, so m + n rows that
+    do not divide over the slots raise, naming it (64 + 3 over 2); the
+    DCT FJLT refuses nothing any more: with fewer columns than slots (one
+    column on 4) it is the unsharded apply, bit for bit."""
     if what == "ridge":
-        with pytest.raises(UnsupportedError, match="augmented"):
+        A = T.parallel.shard_rows(torch.from_numpy(rng.standard_normal((64, 3))), _mesh(2))
+        with pytest.raises(ValueError, match="not divisible"):
             T.solvers.solve_regression(T.solvers.RegressionProblem(
-                A, regularization="ridge", lam=0.5), torch.zeros(64), "exact")
+                A, regularization="ridge", lam=0.5), torch.zeros(64, dtype=torch.float64),
+                "exact")
     else:
-        with pytest.raises(UnsupportedError, match="Walsh-Hadamard"):
-            T.sketch.FJLT(64, 16, T.SketchContext(seed=1), fut="dct").apply(A)
+        A = torch.from_numpy(rng.standard_normal((64, 1)))
+        S = T.sketch.FJLT(64, 16, T.SketchContext(seed=1), fut="dct")
+        assert torch.equal(S.apply(T.parallel.shard_rows(A, _mesh(4))), S.apply(A))
 
 
 def test_cond_est_and_the_krylov_operator_take_a_sharded_a(rng):

@@ -245,3 +245,15 @@ def test_cli_serve_and_top_exist(name):
     assert callable(mod.main)
     text = (Path(T.__file__).resolve().parent.parent / "pyproject.toml").read_text()
     assert f'skylark-torch-{name} = "libskylark_tpu_torch.cli.{name}:main"' in text
+
+
+@pytest.mark.parametrize("stype,params", [("FJLT", {}), ("CWT", {}), ("PPT", {"q": 2}),
+                                          ("FastGaussianRFT", {"sigma": 2.0})])
+def test_serialize_is_the_jax_dict(stype, params):
+    """``SketchTransform.serialize()``, python-skylark's name for
+    ``to_dict()``: the dict the JAX package's ``serialize()`` gives, which
+    ``deserialize_sketch`` takes back."""
+    Sj = J.sketch.create_sketch(stype, 64, 16, J.SketchContext(seed=5), **params)
+    St = T.sketch.create_sketch(stype, 64, 16, T.SketchContext(seed=5), **params)
+    assert St.serialize() == St.to_dict() == Sj.serialize()
+    assert T.sketch.deserialize_sketch(St.serialize()).to_json() == St.to_json()
