@@ -4372,21 +4372,41 @@ def _ledger_events(directory: Path) -> list:
     return sorted(events, key=lambda e: e["seq"])
 
 
+def _port_spans() -> set:
+    """The spans only the port opens (``telemetry.SPANS`` but the JAX
+    package's streaming and training ones): a planned run opens some an
+    eager one does not (``plans.replay``), and the JAX drivers none."""
+    from libskylark_tpu_torch.telemetry import SPANS
+
+    return set(SPANS) - {"stream.chunk", "train.stream", "train.factor", "train.iterate"}
+
+
 def _kinds(events) -> list:
     """A ledger's (kind, name) sequence without the plans layer's events
-    (kind ``plan``, the planned apply's ``sketch.apply`` span): the part
-    an eager run and a planned one share."""
+    (kind ``plan``) and the port's own spans: the part an eager run, a
+    planned one and the JAX driver share."""
+    port = _port_spans()
     return [(e["kind"], e["name"]) for e in events
-            if e["kind"] != "plan" and e["name"] != "sketch.apply"]
+            if e["kind"] != "plan" and e["name"] not in port]
+
+
+def _last_but_port_spans(events) -> dict:
+    """A ledger's last event but the port's own spans (``ls.solve``
+    closes after the run_summary it encloses)."""
+    port = _port_spans()
+    return [e for e in events if e["name"] not in port][-1]
 
 
 def _comparable(counters: dict) -> dict:
-    """Telemetry counters without the plans layer's, the timing ones (and
-    the producer thread's hit/wait split) by name only."""
+    """Telemetry counters without the plans layer's and the port's own
+    spans', the timing ones (and the producer thread's hit/wait split) by
+    name only."""
+    port = _port_spans()
     return {k: (None if "seconds" in k or k in ("prefetch.hits", "prefetch.waits",
                                                 "prefetch.produced") else v)
             for k, v in counters.items()
-            if not k.startswith("plans.") and not k.startswith("span.sketch.apply.")}
+            if not k.startswith("plans.")
+            and not (k.startswith("span.") and k[5:].rsplit(".", 1)[0] in port)}
 
 
 def _bitwise(a, b) -> bool:
@@ -4530,7 +4550,7 @@ def telemetry_path(sky, dev, reset_counts, read_counts, smi, cli_files) -> set:
                     and ("guard", "fallback") in kinds),
                 "one run_summary, the last seq": (
                     len(summaries) == 1 and summaries[0]["name"] == "streaming_lsq"
-                    and summaries[0]["seq"] == max(e["seq"] for e in events)),
+                    and summaries[0]["seq"] == _last_but_port_spans(events)["seq"]),
                 "its info is the returned info": (
                     set(payload["info"]) == set(info)
                     and payload["info"].get("recovery") == info["recovery"]
@@ -4746,8 +4766,8 @@ def telemetry_path(sky, dev, reset_counts, read_counts, smi, cli_files) -> set:
                 checks.update({
                     "the JAX driver's events": ledger == CLI_LEDGERS[label],
                     "the ledger line": (f"telemetry ledger -> " in out) == bool(events),
-                    "run_summary last": (not summaries
-                                         or summaries[-1]["seq"] == events[-1]["seq"]),
+                    "run_summary last": (not summaries or summaries[-1]["seq"]
+                                         == _last_but_port_spans(events)["seq"]),
                 })
             print(f"telemetry (c) {label}: {secs:.3f} s, ledger {ledger}, policy counters "
                   f"{policy_counters}; checks {checks} {card}")

@@ -24,6 +24,7 @@ from typing import Any
 
 import torch
 
+from .. import telemetry
 from .._device import resolve_device
 
 __all__ = ["raw_bits", "window_bits", "sample", "sample_window", "chi2_lanes",
@@ -238,8 +239,9 @@ def sample(dist: str, seed: int, base: int, num: int, dtype=torch.float32,
            lane: int = 0, offset=0, device=None, **params: Any):
     """1-D stream sample: values for counters ``base+offset ..
     base+offset+num`` (``offset`` as :func:`raw_bits` takes it)."""
-    hi, lo = raw_bits(seed, base, num, lane, offset=offset, device=device)
-    return DISTRIBUTIONS[dist](hi, lo, dtype, **params)
+    with telemetry.span("random.sample"):
+        hi, lo = raw_bits(seed, base, num, lane, offset=offset, device=device)
+        return DISTRIBUTIONS[dist](hi, lo, dtype, **params)
 
 
 def sample_window(dist: str, seed: int, base: int, full_shape: tuple[int, int],
@@ -251,6 +253,7 @@ def sample_window(dist: str, seed: int, base: int, full_shape: tuple[int, int],
     rows_full, cols_full = full_shape
     if shape is None:
         shape = (rows_full - offset[0], cols_full - offset[1])
-    hi, lo = window_bits(seed, base, cols_full, offset[0], offset[1],
-                         shape[0], shape[1], lane, device=device)
-    return DISTRIBUTIONS[dist](hi, lo, dtype, **params)
+    with telemetry.span("random.sample"):
+        hi, lo = window_bits(seed, base, cols_full, offset[0], offset[1],
+                             shape[0], shape[1], lane, device=device)
+        return DISTRIBUTIONS[dist](hi, lo, dtype, **params)

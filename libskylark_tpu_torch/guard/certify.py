@@ -14,6 +14,7 @@ from dataclasses import dataclass
 
 import torch
 
+from .. import telemetry
 from ..core.context import SketchContext
 from ..utils.sparse import is_sparse, linear_ops
 from . import config
@@ -57,7 +58,13 @@ class Certificate:
 def certify_sketch(SA: torch.Tensor, *, stage: str = "sketch", cond_max: float | None = None,
                    condest_params=None) -> Certificate:
     """Certify a small sketch output ``S·A`` (s, n): finiteness first,
-    then ``cond_est`` (a wide output through its transpose)."""
+    then ``cond_est`` (a wide output through its transpose); the span
+    ``guard.certify``."""
+    with telemetry.span("guard.certify"):
+        return _certify_sketch(SA, stage, cond_max, condest_params)
+
+
+def _certify_sketch(SA, stage, cond_max, condest_params) -> Certificate:
     from ..solvers.cond_est import CondEstParams, cond_est
 
     if not bool(torch.isfinite(SA).all()):

@@ -36,6 +36,7 @@ columnwise slice rule), CWT for sparse streams.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, replace
 
 import torch
@@ -142,6 +143,18 @@ def exact_least_squares(A, B, alg: str = "qr", *, device=None):
     return X[:, 0] if squeeze else X
 
 
+def _ls_solve_span(fn):
+    """``fn`` run inside the span ``ls.solve``."""
+
+    @functools.wraps(fn)
+    def solve(*args, **kwargs):
+        with telemetry.span("ls.solve"):
+            return fn(*args, **kwargs)
+
+    return solve
+
+
+@_ls_solve_span
 def approximate_least_squares(
     A,
     B,
@@ -177,7 +190,8 @@ def approximate_least_squares(
     Blendenpik and LSRN routes add their solver's keys.  Sparse A is
     taken by the exact route only; the others raise
     :class:`UnsupportedError`, as the JAX package fails on them
-    (ROADMAP Queue C)."""
+    (ROADMAP Queue C).  The call is the span ``ls.solve``, the root of
+    its layers' spans."""
     if route is not None and route not in policy.LS_ROUTES:
         raise ValueError(f"unknown least-squares route {route!r}; one of {policy.LS_ROUTES}")
     params = params or LeastSquaresParams()
@@ -188,11 +202,12 @@ def approximate_least_squares(
     m, n = A.shape
     sparse = is_sparse(A)
     guard_on = guard.enabled()
-    decision = policy.consult(
-        "ls", m=m, n=n, targets=B.shape[1], dtype=A.dtype, sparse=sparse,
-        device=routes.device0(A),
-        route=route, sketch_type=params.sketch_type, sketch_size=params.sketch_size,
-        guard_on=guard_on)
+    with telemetry.span("policy.consult"):
+        decision = policy.consult(
+            "ls", m=m, n=n, targets=B.shape[1], dtype=A.dtype, sparse=sparse,
+            device=routes.device0(A),
+            route=route, sketch_type=params.sketch_type, sketch_size=params.sketch_size,
+            guard_on=guard_on)
     default_size = min(4 * n, m)
 
     def finish(X, info, record=True, **obs):
@@ -250,7 +265,8 @@ def approximate_least_squares(
         SB = plans.apply(S, B, Dimension.COLUMNWISE)
         if fault_plan is not None:
             SA = fault_plan.corrupt_sketch(0, SA)
-        X = exact_least_squares(SA, SB, alg=alg)
+        with telemetry.span("dense.solve"):
+            X = exact_least_squares(SA, SB, alg=alg)
         return finish(X, {"recovery": guard.RecoveryReport.disabled(
             "sketch_and_solve_ls").to_dict()}, record=False)
 
@@ -270,7 +286,8 @@ def approximate_least_squares(
             cert = guard.certify_sketch(SA, stage="sketch_and_solve_ls")
             if not cert.ok:
                 return None, cert
-            X = exact_least_squares(SA, SB, alg=alg)
+            with telemetry.span("dense.solve"):
+                X = exact_least_squares(SA, SB, alg=alg)
             if not guard.tree_all_finite(X):
                 return None, replace(cert, verdict=guard.RESKETCH,
                                      detail="non-finite small-problem solution")

@@ -67,9 +67,12 @@ How a plan runs (:class:`SketchPlan`):
 eager path and count a ``bypass``).
 
 With telemetry on, a plan's first call is a ``plan`` / ``compile``
-event, each planned slice and rowwise step a ``plan`` / ``slice`` or
-``rowwise`` event, and a planned apply a ``sketch.apply`` span, all
-outside the captured body, as the JAX package has them outside ``jit``.
+event and each planned slice and rowwise step a ``plan`` / ``slice`` or
+``rowwise`` event, all outside the captured body, as the JAX package has
+them outside ``jit``.  Every :func:`apply`, planned or not, is the span
+``sketch.apply``; on the card a plan's capture (its warm-up included)
+is ``plans.capture`` and a call's copy-in, replay and copy-out
+``plans.replay``.
 """
 
 from __future__ import annotations
@@ -368,14 +371,15 @@ class SketchPlan:
             self.calls += 1
         if self.device.type != "cuda":
             return self._run_cpu(args, first)
-        with _RUN_LOCK:
+        with _RUN_LOCK, telemetry.span("plans.replay"):
             if self.static_in is None:
                 self.static_in = [_static(self.device, ("in", i), s, d) for i, (s, d)
                                   in enumerate(zip(self.shapes, self.dtypes))]
             for dst, src in zip(self.static_in, args):
                 _copy_in(dst, src)
             if self.graph is None:
-                self._capture()
+                with telemetry.span("plans.capture"):
+                    self._capture()
             self.graph.replay()
             _launch.add_launches(self.replay_launches)
             outs = tuple(o.clone() for o in self.static_out)
@@ -400,7 +404,11 @@ def apply(S, A, dim: Dimension | str = Dimension.COLUMNWISE):
     the sketch).  A non-tensor ``A`` moves to the default device first,
     as ``S.apply`` moves it.
     """
-    dim = Dimension.of(dim)
+    with telemetry.span("sketch.apply"):
+        return _apply(S, A, Dimension.of(dim))
+
+
+def _apply(S, A, dim: Dimension):
     if is_sharded(A):  # slot by slot, never captured
         PLAN_CACHE.bump("bypasses")
         return S.apply(A, dim)
@@ -419,10 +427,6 @@ def apply(S, A, dim: Dimension | str = Dimension.COLUMNWISE):
     note_plan("apply", S, dim=dim.value, shape=tuple(A.shape), dtype=_dtype_name(A.dtype))
     plan = _get_plan(key, S, token, lambda S_, A_: S_.apply(A_, dim), A.device,
                      [A.shape], [A.dtype])
-    if telemetry.enabled():
-        with telemetry.span("sketch.apply", dim=dim.value, shape=list(A.shape)) as sp:
-            sp.result = plan(A)
-        return sp.result
     return plan(A)
 
 

@@ -22,6 +22,11 @@ the host's dispatch, not the card, sets its time.  :func:`stepper` then
 captures one step as a CUDA graph (:class:`StepGraph`) and replays it:
 the same kernels on the same buffers, so the states are bitwise the
 eager ones, at one graph launch per step.
+
+A solver that names its ``kind`` (one of
+``telemetry.spans.CHUNKED_KINDS``) gets the span ``<kind>.capture``
+around its step's capture and, from its host loop (:func:`chunk_span`),
+``<kind>.chunk`` around each chunk with its convergence read.
 """
 
 from __future__ import annotations
@@ -31,13 +36,30 @@ from typing import Any, Callable
 
 import torch
 
-__all__ = ["ChunkedSolver", "StepGraph", "stepper", "graphable"]
+from .. import telemetry
+from ..telemetry.spans import CHUNKED_KINDS
+
+__all__ = ["ChunkedSolver", "StepGraph", "stepper", "graphable", "chunk_span"]
 
 #: Whether :func:`graphable` operands replay their steps as CUDA graphs
 #: (False runs every step eagerly: the same states, bitwise).
 CUDA_GRAPHS = True
 
 _STREAMS: dict = {}
+
+# kind -> its (capture, chunk) span names, made once.
+_SPAN_NAMES = {kind: (f"{kind}.capture", f"{kind}.chunk") for kind in CHUNKED_KINDS}
+
+
+def _span(kind: str | None, which: int):
+    names = _SPAN_NAMES.get(kind)
+    return telemetry.span(names[which]) if names else telemetry.NOOP_SPAN
+
+
+def chunk_span(kind: str | None):
+    """The ``<kind>.chunk`` span of one chunk of ``kind``'s host loop
+    (a no-op for a kind without spans)."""
+    return _span(kind, 1)
 
 
 def graphable(*operands) -> bool:
@@ -98,18 +120,20 @@ class StepGraph:
         return self.state
 
 
-def stepper(step: Callable[[dict], dict], graphed: bool):
+def stepper(step: Callable[[dict], dict], graphed: bool, kind: str | None = None):
     """``advance(state, k)``: k applications of ``step``.  Where
     ``graphed``, the first call with k > 0 captures ``step`` as a
-    :class:`StepGraph` and every call replays it, returning the graph's
-    static state (which the next call updates in place)."""
+    :class:`StepGraph` (the span ``<kind>.capture``) and every call
+    replays it, returning the graph's static state (which the next call
+    updates in place)."""
     graph = []
 
     def advance(state, k: int):
         k = max(int(k), 0)
         if graphed and k:
             if not graph:
-                graph.append(StepGraph(step, state))
+                with _span(kind, 0):
+                    graph.append(StepGraph(step, state))
             return graph[0].advance(state, k)
         for _ in range(k):
             state = step(state)

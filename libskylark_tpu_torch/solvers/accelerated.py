@@ -13,7 +13,8 @@ the BCOO sketch S·A; ROADMAP Queue C).  A row-sharded A
 (:class:`~libskylark_tpu_torch.parallel.mesh.Sharded`) is sketched slot
 by slot and merged by one psum, and LSQR's products run per slot
 (``parallel.routes``).  Each solve closes its run with
-``telemetry.run_summary``.
+``telemetry.run_summary``; its sketch, QR and condition estimate are the
+spans ``sketch.apply``, ``dense.qr`` and ``guard.certify``.
 """
 
 from __future__ import annotations
@@ -64,7 +65,8 @@ def _inputs(A, B, device, solver: str):
 
 
 def _sketch_once(A, s, sketch_type, context):
-    return create_sketch(sketch_type, A.shape[0], s, context).apply(A, Dimension.COLUMNWISE)
+    with telemetry.span("sketch.apply"):
+        return create_sketch(sketch_type, A.shape[0], s, context).apply(A, Dimension.COLUMNWISE)
 
 
 def _tri_condest(R: torch.Tensor) -> float:
@@ -101,11 +103,13 @@ def faster_least_squares(A, B, context: SketchContext,
     for attempt in range(1, params.max_attempts + 1):
         s = min(int(gamma * n), m)
         SA = _sketch_once(A, s, stype, context)
-        R = torch.linalg.qr(SA, mode="r")[1]
+        with telemetry.span("dense.qr"):
+            R = torch.linalg.qr(SA, mode="r")[1]
         # The preconditioner's 1-norm condition estimate, the quantity the
         # reference's retry loop reads (accelerated_...Elemental.hpp:68-77).
-        cond = _tri_condest(R)
-        good = math.isfinite(cond) and cond < threshold
+        with telemetry.span("guard.certify"):
+            cond = _tri_condest(R)
+            good = math.isfinite(cond) and cond < threshold
         report.record("initial" if attempt == 1 else "grow",
                       verdict=guard.OK if good else guard.RESKETCH, cond=cond, sketch_size=s,
                       detail="" if good else f"utcondest {cond:.3e} >= {threshold:.3e}")

@@ -18,7 +18,8 @@ fired), no longer than the ``T`` read at the chunk's start, one host
 read per chunk.  On a dense CUDA A the sweep's step (~65 small
 launches) is captured once as a CUDA graph and replayed
 (:func:`~libskylark_tpu_torch.resilient.chunked.stepper`); the power
-step (~8 launches) runs eagerly.  Only
+step (~8 launches) runs eagerly.  The capture and each chunk with its
+read are the spans ``cond_est.capture`` and ``cond_est.chunk``.  Only
 products with A are taken, so A may be a sparse COO tensor.
 """
 
@@ -34,7 +35,7 @@ from ..core.context import SketchContext
 from ..core.matrices import gaussian_matrix
 from ..core.params import Params
 from ..parallel import routes
-from ..resilient.chunked import graphable, stepper
+from ..resilient.chunked import chunk_span, graphable, stepper
 from . import krylov
 
 __all__ = ["CondEstParams", "CondEstResult", "cond_est"]
@@ -206,12 +207,13 @@ def cond_est(A, context: SketchContext, params: CondEstParams | None = None, *,
         new = body(s)
         return {k: torch.where(active, new[k], val) for k, val in s.items()}
 
-    advance = stepper(step, graphable(A))
+    advance = stepper(step, graphable(A), "cond_est")
     while True:  # one host read per chunk
-        itn, T, one = torch.stack([s["itn"], s["T"], s["done_one"].long()]).tolist()
-        if itn >= T or one:
-            break
-        s = advance(s, min(krylov.SYNC_EVERY, T - itn))
+        with chunk_span("cond_est"):
+            itn, T, one = torch.stack([s["itn"], s["T"], s["done_one"].long()]).tolist()
+            if itn >= T or one:
+                break
+            s = advance(s, min(krylov.SYNC_EVERY, T - itn))
 
     # Uncertified sigma_min: the smallest singular value of the bidiagonal
     # R over the iterations run; unused slots hold sigma_max on the

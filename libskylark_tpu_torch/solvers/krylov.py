@@ -10,7 +10,9 @@ step computes the iteration and keeps it only where the device-side
 flag ``active = (it < iter_lim) & ~all(done)`` holds (``torch.where``),
 so the state and the iteration count are the JAX package's wherever the
 chunk boundaries fall.  On a dense CUDA matrix the masked step is
-captured once as a CUDA graph and replayed.  The one-shot entry points
+captured once as a CUDA graph and replayed.  ``lsqr`` is the span
+``lsqr.run``; its capture and each chunk are ``lsqr.capture`` and
+``lsqr.chunk``.  The one-shot entry points
 read one flag (``is_done``) after every :data:`SYNC_EVERY` steps: with
 1, a converged solve computes no step that it then discards.
 
@@ -28,7 +30,8 @@ import torch
 from .._device import as_tensor
 from ..core.params import Params
 from ..parallel import routes
-from ..resilient.chunked import ChunkedSolver, graphable, stepper
+from .. import telemetry
+from ..resilient.chunked import ChunkedSolver, chunk_span, graphable, stepper
 from .precond import IdPrecond
 
 __all__ = [
@@ -100,7 +103,7 @@ def _chunked(kind, init_state, body, extract_result, iter_lim, done_of=_converge
         new = body(s)
         return {k: torch.where(active, new[k], v) for k, v in s.items()}
 
-    advance = stepper(step, graphed)
+    advance = stepper(step, graphed, kind)
 
     def step_chunk(s, num_iters: int):
         out = advance(s, num_iters)
@@ -124,13 +127,17 @@ def _chunked(kind, init_state, body, extract_result, iter_lim, done_of=_converge
 
 def _one_shot(sol: ChunkedSolver, iter_lim: int):
     """Chunks of at most :data:`SYNC_EVERY` steps until ``is_done``: one
-    host read per chunk.  Every step before the stop is an active one,
-    so the host counts ``it`` itself and the last chunk ends at
+    host read per chunk, each chunk with its read the span
+    ``<kind>.chunk`` where the kind has one.  Every step before the stop is an active one, so
+    the host counts ``it`` itself and the last chunk ends at
     ``iter_lim``."""
     s, it = sol.init_state(), 0
-    while not sol.is_done(s):
-        k = min(SYNC_EVERY, iter_lim - it)
-        s = sol.advance(s, k)
+    while True:
+        with chunk_span(sol.kind):
+            if sol.is_done(s):
+                break
+            k = min(SYNC_EVERY, iter_lim - it)
+            s = sol.advance(s, k)
         it += k
     return sol.extract_result(s)
 
@@ -241,7 +248,9 @@ def lsqr(A, B, precond=None, params: KrylovParams | None = None, x0=None, *,
     iteration limit.
     """
     params = params or KrylovParams()
-    return _one_shot(lsqr_chunked(A, B, precond, params, x0, device=device), params.iter_lim)
+    with telemetry.span("lsqr.run"):
+        return _one_shot(lsqr_chunked(A, B, precond, params, x0, device=device),
+                         params.iter_lim)
 
 
 def cg_chunked(A, B, precond=None, params: KrylovParams | None = None, x0=None, *,

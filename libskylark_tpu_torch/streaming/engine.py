@@ -21,9 +21,10 @@ graph per bucket where the transform's step is launch-bound, bitwise
 the eager step.  A step never updates its accumulator in place, so the
 chunk-entry state the guard's replay reads again needs no copy.
 
-With telemetry on, each chunk is a ``stream.chunk`` span (it waits for
-the folded accumulator, the PhaseTimer rule, and carries the chunk's
-``rows`` and ``batches``) with the ``stream.rows``, ``stream.batches``,
+Each chunk is a ``stream.chunk`` span.  With telemetry on the engine
+waits for the folded accumulator inside it (the PhaseTimer rule, so
+its seconds are device time) and it carries the chunk's ``rows`` and
+``batches``, with the ``stream.rows``, ``stream.batches``,
 ``stream.sentinel_checks`` and ``stream.replays`` counters and the
 ``stream.rows_per_s`` gauge; a pass's prefetch counters fold into the
 registry and a ``stream`` / ``prefetch`` event when it ends.
@@ -40,6 +41,7 @@ from .. import guard, plans, telemetry
 from .._device import resolve_device
 from ..plans import fused_enabled
 from ..resilient import ChunkedSolver, ResilientParams, ResilientRunner
+from ..utils.timer import _cuda_devices
 from . import overlap as _overlap
 from .pipeline import Prefetcher, device_placer, ready
 
@@ -243,12 +245,14 @@ def run_stream(source, step_fn, init_acc, params: StreamParams | None = None, *,
 
     def step_chunk(state, k):
         if not telemetry.enabled():
-            return fold_chunk(state, k, None)
+            with telemetry.span("stream.chunk"):
+                return fold_chunk(state, k, None)
         with telemetry.span("stream.chunk", kind=kind, chunk=int(state["batch"])) as sp:
             new_state = fold_chunk(state, k, sp)
             # PhaseTimer discipline: wait for the folded accumulator so the
             # span (and its derived rows/s) measures device time.
-            sp.result = new_state["acc"]
+            for dev in _cuda_devices(new_state["acc"], set()):
+                torch.cuda.current_stream(dev).synchronize()
             rows = _rows_of(new_state["acc"])
             if rows is not None:
                 sp.attrs["rows"] = rows - (_rows_of(state["acc"]) or 0)

@@ -2,12 +2,12 @@
 (port of ``libskylark_tpu/telemetry``).
 
 One process-wide :class:`Registry` of counters/gauges/histograms,
-nestable :func:`span` contexts (wall time under the ``PhaseTimer`` sync
-discipline: a span waits for the cards that hold its ``result``; device
-regions via ``utils.profiling.annotate``), and a monotonically sequenced
-JSONL event sink — the *run ledger* — with the JAX package's schema
-``{ts, seq, pid, kind, name, attrs}`` and file name
-(``ledger-<pid>.jsonl``).
+nestable :func:`span` contexts (host time, never a wait for the card;
+each a ``utils.profiling.annotate`` region, so a profiler trace shows
+the program's layers beside the card's kernels; the names are
+:data:`~.spans.SPANS`), and a monotonically sequenced JSONL event sink
+— the *run ledger* — with the JAX package's schema ``{ts, seq, pid,
+kind, name, attrs}`` and file name (``ledger-<pid>.jsonl``).
 
 Wired where the JAX package wires it: plan-cache hits/misses/compiles
 (``plans``), streaming chunk spans + prefetch overlap (``streaming``),
@@ -15,14 +15,16 @@ recovery-ladder attempts (``guard``), checkpoint save/restore
 (``resilient``), policy decisions (``policy``), byte-source retries
 (``io``); every ``(x, info)`` solver entrypoint closes its run with a
 :func:`run_summary` event, which is also where the policy layer's
-observations reach the profile store.  Every call sits where the JAX
-package has it: outside the bodies the port captures as CUDA graphs
-(their host code runs once, at capture), and a span that would wait for
-the card inside a capture raises.
+observations reach the profile store.  The least-squares path has
+spans of its own from the entry down to the plans' captures and the
+solvers' chunks (:mod:`.spans`); a span is legal inside a CUDA graph
+capture, where its host code runs once.
 
 Gated by ``SKYLARK_TELEMETRY`` (default OFF, read per call): disabled,
 every entry point returns before allocating and never waits for the
-card — runs are bitwise those of a build without this package.
+card — runs are bitwise those of a build without this package.  A
+span also opens its annotation while a ``torch.profiler`` profile
+records, with telemetry off.
 ``SKYLARK_TELEMETRY_DIR`` (or :func:`configure`, or the CLIs'
 ``--telemetry-dir``) points the ledger at a directory; without it events
 still count in the registry.
@@ -60,7 +62,8 @@ from .timeline import (
     timeline_tick,
     timeline_windows,
 )
-from .spans import NOOP_SPAN, Span, span
+# SPANS is the port's own catalog, outside __all__ (the JAX package's list).
+from .spans import NOOP_SPAN, SPANS, Span, span
 from .trace import (
     RECORDER,
     FlightRecorder,

@@ -492,18 +492,22 @@ def test_deferred_flags_raise_naming_their_item(blob_files, name, argv, item, mo
 
 
 def _ledger_events(directory):
-    """The (kind, name) of a ledger's events, the plans layer's left out:
-    the JAX side runs with its plans off (plan events and the planned
-    apply's ``sketch.apply`` span exist only on the port's side)."""
+    """The (kind, name) of a ledger's events, the plans layer's and the
+    port's own spans left out: the JAX side runs with its plans off (plan
+    events exist only on the port's side), and the JAX package opens only
+    the streaming and training spans."""
     import glob
     import json
 
+    from libskylark_tpu_torch.telemetry import SPANS
+
+    port_spans = set(SPANS) - {"stream.chunk", "train.stream", "train.factor", "train.iterate"}
     events = []
     for path in sorted(glob.glob(str(directory / "ledger-*.jsonl"))):
         with open(path, encoding="utf-8") as fh:
             events += [json.loads(line) for line in fh]
     return [(e["kind"], e["name"]) for e in events
-            if e["kind"] != "plan" and e["name"] != "sketch.apply"]
+            if e["kind"] != "plan" and e["name"] not in port_spans]
 
 
 @pytest.mark.parametrize("name,argv", [
@@ -548,8 +552,14 @@ def test_telemetry_flags_work_as_in_jax(blob_files, capsys, monkeypatch, name, a
         ledgers.append(_ledger_events(root / f"tdir_{tag}"))
     if "--telemetry-dir" in argv:
         assert ledgers[1] == ledgers[0]
-        # The ledger opens at its first event: a run without one writes none.
-        assert [("telemetry ledger -> " in out) for out in outs] == [bool(ledgers[0])] * 2
+        # The ledger opens at its first event: a run without one writes none
+        # (the port's own spans are events too).
+        import glob
+
+        wrote = [bool(glob.glob(str(root / f"tdir_{tag}" / "ledger-*.jsonl")))
+                 for tag in ("j", "t")]
+        assert [("telemetry ledger -> " in out) for out in outs] == wrote
+        assert wrote[0] == bool(ledgers[0]) and (wrote[1] or not ledgers[1])
         summaries = [i for i, ev in enumerate(ledgers[1]) if ev[0] == "run_summary"]
         assert summaries == ([len(ledgers[1]) - 1] if summaries else [])
         if name in ("linear", "krr"):
