@@ -10,8 +10,11 @@ step computes the iteration and keeps it only where the device-side
 flag ``active = (it < iter_lim) & ~all(done)`` holds (``torch.where``),
 so the state and the iteration count are the JAX package's wherever the
 chunk boundaries fall.  On a dense CUDA matrix the masked step is
-captured once as a CUDA graph and replayed.  ``lsqr`` is the span
-``lsqr.run``; its capture and each chunk are ``lsqr.capture`` and
+captured once as a CUDA graph and replayed; one-shot ``lsqr`` keeps its
+graph across calls of one key (``resilient.chunked.GRAPHS``: the same A,
+shapes, constants and preconditioner class) and copies each call's
+preconditioner into it.  ``lsqr`` is the span ``lsqr.run``; its capture
+(on a miss only) and each chunk are ``lsqr.capture`` and
 ``lsqr.chunk``.  The one-shot entry points
 read one flag (``is_done``) after every :data:`SYNC_EVERY` steps: with
 1, a converged solve computes no step that it then discards.
@@ -23,7 +26,7 @@ tensor or a ``(matvec, rmatvec)`` pair.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 
@@ -31,8 +34,8 @@ from .._device import as_tensor
 from ..core.params import Params
 from ..parallel import routes
 from .. import telemetry
-from ..resilient.chunked import ChunkedSolver, chunk_span, graphable, stepper
-from .precond import IdPrecond
+from ..resilient.chunked import ChunkedSolver, GraphKey, chunk_span, graphable, stepper
+from .precond import IdPrecond, MatPrecond, TriInversePrecond
 
 __all__ = [
     "KrylovParams",
@@ -91,22 +94,45 @@ def _graphable(A, precond) -> bool:
     return graphable(A) and (precond is None or getattr(precond, "graphable", False))
 
 
+def _rebinding(N):
+    """``(operands, rebind)`` of this package's preconditioners: the
+    tensors ``N``'s apply reads, and ``rebind(ops)``, the same
+    preconditioner over given ones.  None for any other class."""
+    if type(N) is IdPrecond:
+        return {}, lambda ops: N
+    if type(N) is MatPrecond:
+        return {"M": N.M}, lambda ops: MatPrecond(ops["M"])
+    if type(N) is TriInversePrecond:
+        lower = N.lower
+        return {"R": N.R}, lambda ops: TriInversePrecond(ops["R"], lower)
+    return None
+
+
 def _chunked(kind, init_state, body, extract_result, iter_lim, done_of=_converged,
-             graphed=False):
+             graphed=False, cache: GraphKey | None = None):
     """A :class:`ChunkedSolver` whose step is ``body`` kept only while
-    ``it < iter_lim`` and ``done_of(state)`` is false (device-side)."""
+    ``it < iter_lim`` and ``done_of(state)`` is false (device-side).
+    With a ``cache`` (whose ``bind`` gives a body) the one-shot loop's
+    graph is kept across calls; chunks a caller drives capture their
+    own."""
 
-    def step(s):
-        active = s["it"] < iter_lim
-        if done_of is not None:
-            active = active & ~done_of(s)
-        new = body(s)
-        return {k: torch.where(active, new[k], v) for k, v in s.items()}
+    def masked(body):
+        def step(s):
+            active = s["it"] < iter_lim
+            if done_of is not None:
+                active = active & ~done_of(s)
+            new = body(s)
+            return {k: torch.where(active, new[k], v) for k, v in s.items()}
 
-    advance = stepper(step, graphed, kind)
+        return step
+
+    step = masked(body)
+    advance = stepper(step, graphed, kind,
+                      cache and replace(cache, bind=lambda ops: masked(cache.bind(ops))))
+    chunk = stepper(step, graphed, kind) if cache else advance
 
     def step_chunk(s, num_iters: int):
-        out = advance(s, num_iters)
+        out = chunk(s, num_iters)
         # A graph's static state is overwritten by its next replay.
         return {k: v.clone() for k, v in out.items()} if graphed and out is not s else out
 
@@ -152,8 +178,11 @@ def lsqr_chunked(A, B, precond=None, params: KrylovParams | None = None, x0=None
     params = params or KrylovParams()
     N = precond or IdPrecond()
     A, (matvec0, rmatvec0), B, squeeze = _inputs(A, B, device)
-    matvec = lambda v: matvec0(N.apply(v))
-    rmatvec = lambda u: N.apply_adjoint(rmatvec0(u))
+
+    def products(N):
+        return (lambda v: matvec0(N.apply(v))), (lambda u: N.apply_adjoint(rmatvec0(u)))
+
+    matvec, rmatvec = products(N)
     dtype, dev = B.dtype, B.device
     eps = torch.finfo(dtype).eps
     atol = btol = max(params.tolerance, eps)
@@ -182,7 +211,11 @@ def lsqr_chunked(A, B, precond=None, params: KrylovParams | None = None, x0=None
             bnorm=_colnorm(B),
         )
 
-    def body(s):
+    def body_over(N):
+        matvec, rmatvec = products(N)
+        return lambda s: body(s, matvec, rmatvec)
+
+    def body(s, matvec, rmatvec):
         U, V, W, Y = s["U"], s["V"], s["W"], s["Y"]
         alpha, beta = s["alpha"], s["beta"]
         # Golub-Kahan bidiagonalization step (LSQR.hpp:100-130).
@@ -227,14 +260,26 @@ def lsqr_chunked(A, B, precond=None, params: KrylovParams | None = None, x0=None
         )
 
     def extract_result(s):
+        # Clones of the state's tensors: a kept graph's static state is
+        # the next call's.
         X = N.apply(s["Y"])
+        if X is s["Y"]:
+            X = X.clone()
         if x0 is not None:
             X = X + x0
-        info = {"iterations": s["it"], "flag": _flag(s), "resid": s["phibar"]}
+        info = {"iterations": s["it"].clone(), "flag": _flag(s), "resid": s["phibar"].clone()}
         return (X[:, 0] if squeeze else X), info
 
-    return _chunked("lsqr", init_state, body, extract_result, params.iter_lim,
-                    graphed=_graphable(A, precond))
+    graphed = _graphable(A, precond)
+    bound = _rebinding(N) if graphed else None
+    cache = None
+    if bound is not None:
+        operands, rebind = bound
+        cache = GraphKey(("lsqr", params.iter_lim, atol, btol, eps, type(N),
+                          getattr(N, "lower", None)),
+                         (A,), operands, lambda ops: body_over(rebind(ops)))
+    return _chunked("lsqr", init_state, body_over(N), extract_result, params.iter_lim,
+                    graphed=graphed, cache=cache)
 
 
 def lsqr(A, B, precond=None, params: KrylovParams | None = None, x0=None, *,

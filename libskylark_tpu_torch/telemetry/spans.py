@@ -47,7 +47,8 @@ under the telemetry gate).
 - ``dense.qr``: Blendenpik's QR of S·A;
 - ``lsqr.run``: ``solvers.krylov.lsqr``, set-up to return;
 - ``<kind>.capture``, ``<kind>.chunk``: a chunked solver's step
-  captured as a CUDA graph (``resilient.chunked.StepGraph``), and each
+  captured as a CUDA graph (``resilient.chunked.StepGraph``; one-shot
+  LSQR's only on a miss of the kept graphs, ``chunked.GRAPHS``), and each
   chunk of steps with its convergence read; ``kind`` is ``cond_est``
   (the guard's certificate) or ``lsqr`` (the other Krylov solvers open
   none);
